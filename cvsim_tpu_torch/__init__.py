@@ -1,0 +1,21 @@
+"""cvsim_tpu_torch — the PyTorch/CUDA port of cvsim_tpu.
+
+A second package beside `cvsim_tpu` (the JAX reference, which stays as it
+is). Module names mirror the JAX package's, so each twin sits where a
+reader expects it:
+
+- ops/       C-semantics helpers, phase tables, counter-based noise, the
+             blocked one-pole IIR (plain PyTorch)
+- models/    the gen-2 YIQ stage path (yiq.py) and the fused chain
+             (fused_yiq.py: per-field inputs, the plain chain and the
+             wrapper of the hand-written CUDA kernel)
+- csrc/      CUDA C++ kernels for Hopper (sm_90a), built at first use
+             by kernels.py
+- host/      the gen-2 GOP pipeline
+- cli/       `python -m cvsim_tpu_torch [--device cuda|cpu] ntsc ...`
+
+The package imports torch and numpy and never jax. It reuses the jax-free
+modules of cvsim_tpu (config, presets, host I/O) as they are.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,421 @@
+// The whole gen-2 composite chain (ffmpeg_ntsc) for a batch of fields.
+//
+// Replaces the TPU kernel cvsim_tpu/models/fused_yiq.py _make_kernel_ab
+// (launched by _fused_stage_ab): RGB->YIQ, input chroma lowpass, QAM
+// encode, preemphasis, luma noise, VHS head switch, Y/C separation + QAM
+// decode, chroma AM and phase noise, VHS bandlimit, 2-line chroma blend,
+// sharpen, re-encode/decode, dropout, Y/C recombine, output lowpass,
+// YIQ->RGB. It computes what that kernel computes, sample for sample; the
+// plain version it is held against is models/fused_yiq.chain_reference.
+//
+// Design. Every stage is local to one scanline except the chroma vertical
+// blend, which reads the line above, and the head switch is a per-row
+// rotation by a precomputed shift. So the chain runs as two launches with
+// one CTA of 128 threads per (field, row):
+//   yiq_front: uint8 RGB in -> kernel-A math, head switch, decode, chroma
+//              noise, VHS bandlimit -> y, i, q float planes in scratch;
+//   yiq_back:  the blend against row l-1's front output, then sharpen,
+//              recombine, dropout, output lowpass, YIQ->RGB -> uint8 out.
+// The row's planes live in shared memory (5 x Wp floats: 38 KB at
+// Wp = 1920), so only the RGB bytes, the scratch planes and the output
+// bytes touch device memory. The noise walks are generated in-kernel
+// from the same splitmix32 words as the TPU kernel (_walk_rows_kernel).
+//
+// What bounds it. Each pole is a 128x128 lower-triangular product per
+// 128-sample block: about 64 x 128 FMAs per block and, with up to 15 poles
+// on the path, some 15 x nb x 8K FMAs per row, each reading its table
+// entry from L1/L2. In this plain form the kernel is bound by those FMAs
+// and table reads, not by device memory (about 30 bytes per sample move).
+// What the design does about it: the triangular loops skip the exact-zero
+// upper half of every table, three-pole cascades run as one T^3 product,
+// and all intermediates stay on chip. Moving the products onto tensor
+// cores (wgmma with 3xTF32 splitting, to keep float32 exactness) and
+// fusing the two launches with a recomputed halo row are later work.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "pole.cuh"
+
+namespace cvsim {
+
+// Launch arguments; mirrored by models/fused_yiq._ChainParams.
+struct ChainParams {
+  int b, l, w, wp;
+  int amp, amp_back;
+  int in_lowpass, preemph;
+  float pre_gain;
+  int video_noise, nocolor, chroma_noise, phase_noise, gen1_bug;
+  int vhs, chroma_delay, vblend;
+  float sharpen_gain;
+  int svideo, chroma_loss, yc_recombine;
+  int out_lowpass;  // 0 none, 1 'tv' 2.6MHz delay 1, 2 full (1.3/0.6MHz)
+};
+
+struct Tables {
+  const float *tt, *d, *tt3, *d3, *vt;
+  __device__ PoleTables operator[](int k) const {
+    return pole_tables(tt, d, tt3, d3, vt, k);
+  }
+};
+
+// table rows (fused_yiq._alpha_consts)
+enum { TAB_I = 0, TAB_Q = 1, TAB_PRE = 2, TAB_VLUMA = 3, TAB_VCHROMA = 4,
+       TAB_SHARPEN = 5, TAB_TV = 6, TAB_WALK = 7 };
+
+constexpr uint32_t GOLD = 0x9E3779B9u;
+
+__device__ inline uint32_t mix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+// Shared-memory working set of one row: five planes of wp floats.
+struct Row {
+  float *y, *i, *q, *t1, *t2;
+  float* red;  // 4 floats for pole3
+  int w, wp, nb;
+};
+
+// 3-pole cascade + the reference's delayed in-place writeback:
+// p[x] = trunc(f[x+delay]) for x < w-delay, unchanged up to w, 0 beyond.
+__device__ void lowpass_writeback(Row& r, float* p, const PoleTables& tab,
+                                  int delay) {
+  pole3(p, r.t1, tab, 0.f, r.nb, r.red);
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    const float v = (x < r.w - delay) ? truncf(r.t1[x + delay]) : p[x];
+    p[x] = (x < r.w) ? v : 0.f;
+  }
+  __syncthreads();
+}
+
+// Per-row smoothed noise walk added to plane p: increments from stream
+// index plane_off + row*w + x, an alpha-0.5 pole, the pre-update value
+// (shifted right by one, column 0 zero), truncated.
+__device__ void add_walk(Row& r, float* p, const PoleTables& tab,
+                         uint32_t key, int row, int mag, uint32_t plane_off) {
+  const uint32_t span = 2u * (uint32_t)mag + 1u;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    float u = 0.f;
+    if (x < r.w) {
+      const uint32_t idx = plane_off + (uint32_t)row * (uint32_t)r.w + (uint32_t)x;
+      const uint32_t bits = mix32(key + idx * GOLD);
+      u = (float)((int)(bits % span) - mag);
+    }
+    r.t1[x] = u;
+  }
+  __syncthreads();
+  pole(r.t1, r.t1, tab, 0.f, r.nb);
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK)
+    p[x] = p[x] + (x == 0 ? 0.f : truncf(r.t1[x - 1]));
+  __syncthreads();
+}
+
+// y += trunc((i*amp*U + q*amp*V) / 50) with the subcarrier phase xi.
+__device__ void qam_encode(Row& r, int xi, int amp) {
+  const float a = (float)amp;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    const int s = (xi + x) & 3;
+    const float um = s == 0 ? 1.f : (s == 2 ? -1.f : 0.f);
+    const float vm = s == 1 ? 1.f : (s == 3 ? -1.f : 0.f);
+    const float chroma = r.i[x] * (a * um) + r.q[x] * (a * vm);
+    r.y[x] = r.y[x] + truncf(chroma / 50.f);
+  }
+  __syncthreads();
+}
+
+// Y/C separation + demux (ffmpeg_ntsc.cpp:1497-1567). Rotates the plane
+// pointers: the new y, i, q land in former scratch planes.
+__device__ void qam_decode(Row& r, int xi, int amp_back) {
+  const int w = r.w, wp = r.wp;
+  const int x0 = (4 - xi) & 3;
+  const float ab = (float)amp_back;
+  // new luma -> t1, rescaled chroma -> t2
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    const float prev = x == 0 ? 0.f : r.y[x - 1];
+    const float n1 = x + 1 < w ? r.y[x + 1] : 0.f;
+    const float n2 = x + 2 < w ? r.y[x + 2] : 0.f;
+    const float ny = truncf((prev + r.y[x] + n1 + n2) / 4.f);
+    float c = n2 - ny;
+    const int rr = (x - x0) & 3;
+    const int base = x - rr;
+    if (rr >= 2 && base >= x0 && base + 3 < w) c = -c;
+    r.t2[x] = truncf((c * 50.f) / ab);
+    r.t1[x] = x < w ? ny : 0.f;
+  }
+  __syncthreads();
+  // even samples: I[x] = -chroma[x+xi], Q[x] = -chroma[x+xi+1] while
+  // x+xi+1 < w (the wp-cyclic reads past that are masked off)
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    const bool on = ((x & 1) == 0) && (x + xi + 1 < w);
+    r.i[x] = on ? -r.t2[(x + xi) % wp] : 0.f;
+    r.q[x] = on ? -r.t2[(x + xi + 1) % wp] : 0.f;
+  }
+  __syncthreads();
+  // odd samples: floor((p[x-1] + p[x+1]) / 2); zero tail
+  const int tail = (w % 2 == 0) ? w - 2 : w - 1;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    const int xm = (x + wp - 1) % wp, xp = (x + 1) % wp;
+    const bool even = (x & 1) == 0;
+    const float iv = even ? r.i[x] : floorf((r.i[xm] + r.i[xp]) / 2.f);
+    const float qv = even ? r.q[x] : floorf((r.q[xm] + r.q[xp]) / 2.f);
+    r.t2[x] = x >= tail ? 0.f : iv;
+    r.y[x] = x >= tail ? 0.f : qv;
+  }
+  __syncthreads();
+  float* ny = r.t1;
+  float* ni = r.t2;
+  float* nq = r.y;
+  r.t1 = r.i;
+  r.t2 = r.q;
+  r.y = ny;
+  r.i = ni;
+  r.q = nq;
+}
+
+__device__ Row row_planes(float* sm, int w, int wp) {
+  return Row{sm, sm + wp, sm + 2 * wp, sm + 3 * wp, sm + 4 * wp, sm + 5 * wp,
+             w, wp, wp / BLOCK};
+}
+
+__global__ void __launch_bounds__(BLOCK)
+yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
+          const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
+          const int* __restrict__ shifts, Tables tab, ChainParams P,
+          float* __restrict__ y_out, float* __restrict__ i_out,
+          float* __restrict__ q_out) {
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;           // field * L + line
+  const int fld = row / P.l, line = row % P.l;
+  const int w = P.w, wp = P.wp;
+  Row r = row_planes(sm, w, wp);
+  const int xi = xi_tab[row];
+
+  // RGB -> YIQ (x256, truncated); zero past the active width
+  const uint8_t* px = rgb + (size_t)row * w * 3;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    float yv = 0.f, iv = 0.f, qv = 0.f;
+    if (x < w) {
+      const float R = px[3 * x], G = px[3 * x + 1], B = px[3 * x + 2];
+      const float dy = 0.30f * R + 0.59f * G + 0.11f * B;
+      yv = truncf(256.f * dy);
+      iv = truncf(256.f * ((-0.27f * (B - dy)) + (0.74f * (R - dy))));
+      qv = truncf(256.f * ((0.41f * (B - dy)) + (0.48f * (R - dy))));
+    }
+    r.y[x] = yv;
+    r.i[x] = iv;
+    r.q[x] = qv;
+  }
+  __syncthreads();
+
+  if (P.in_lowpass) {
+    lowpass_writeback(r, r.i, tab[TAB_I], 2);
+    lowpass_writeback(r, r.q, tab[TAB_Q], 4);
+  }
+  qam_encode(r, xi, P.amp);
+
+  if (P.preemph) {
+    pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb);
+    for (int x = threadIdx.x; x < wp; x += BLOCK)
+      r.y[x] = truncf(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
+    __syncthreads();
+  }
+  if (P.video_noise)
+    add_walk(r, r.y, tab[TAB_WALK], keys[2 * fld], line, P.video_noise, 0u);
+  for (int x = threadIdx.x; x < wp; x += BLOCK)
+    if (x >= w) r.y[x] = 0.f;
+  __syncthreads();
+
+  // head switch: out[x] = pad[(x + s) mod twidth], pad = row then zeros
+  const int s = shifts[row];
+  if (s != 0) {
+    const int twidth = w + w / 10;
+    const int sp = ((s % twidth) + twidth) % twidth;
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      float v = r.y[x];
+      if (x < w) {
+        const int j = x + sp;
+        v = j < w ? r.y[j] : (j >= twidth ? r.y[j - twidth] : 0.f);
+      }
+      r.t1[x] = v;
+    }
+    __syncthreads();
+    float* t = r.y;
+    r.y = r.t1;
+    r.t1 = t;
+  }
+
+  if (!P.nocolor) {
+    qam_decode(r, xi, P.amp_back);
+  } else {
+    for (int x = threadIdx.x; x < wp; x += BLOCK) r.i[x] = r.q[x] = 0.f;
+    __syncthreads();
+  }
+
+  if (P.chroma_noise) {
+    const uint32_t key = keys[2 * fld + 1];
+    add_walk(r, r.i, tab[TAB_WALK], key, line, P.chroma_noise, 0u);
+    add_walk(r, r.q, tab[TAB_WALK], key, line, P.chroma_noise,
+             (uint32_t)P.l * (uint32_t)w);
+  }
+
+  if (P.phase_noise) {
+    const float sa = sincos[2 * row], ca = sincos[2 * row + 1];
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float iv = r.i[x], qv = r.q[x];
+      float i2, q2;
+      if (P.gen1_bug) {
+        i2 = iv * ca - iv * sa;
+        q2 = qv * ca + qv * sa;
+      } else {
+        i2 = iv * ca - qv * sa;
+        q2 = iv * sa + qv * ca;
+      }
+      r.i[x] = truncf(i2);
+      r.q[x] = truncf(q2);
+    }
+    __syncthreads();
+  }
+
+  if (P.vhs) {
+    pole3(r.y, r.t1, tab[TAB_VLUMA], 16.f, r.nb, r.red);
+    pole(r.t1, r.t2, tab[TAB_VLUMA], 16.f, r.nb);
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float sv = r.t1[x];
+      r.y[x] = x < w ? truncf(sv + (sv - r.t2[x]) * 1.6f) : 0.f;
+    }
+    __syncthreads();
+    lowpass_writeback(r, r.i, tab[TAB_VCHROMA], P.chroma_delay);
+    lowpass_writeback(r, r.q, tab[TAB_VCHROMA], P.chroma_delay);
+  }
+
+  const size_t off = (size_t)row * wp;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    y_out[off + x] = r.y[x];
+    i_out[off + x] = r.i[x];
+    q_out[off + x] = r.q[x];
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK)
+yiq_back(const float* __restrict__ y_in, const float* __restrict__ i_in,
+         const float* __restrict__ q_in, const int* __restrict__ xi_tab,
+         const float* __restrict__ keep, Tables tab, ChainParams P,
+         uint8_t* __restrict__ out) {
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int line = row % P.l;
+  const int w = P.w, wp = P.wp;
+  Row r = row_planes(sm, w, wp);
+  const int xi = xi_tab[row];
+  const size_t off = (size_t)row * wp;
+
+  // 2-line chroma blend against the front output of the line above: line
+  // 0 kept, line 1 blended with 0 (reference quirk), floor((p+c+1)/2)
+  const bool blend = P.vblend && line > 0;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    float iv = i_in[off + x], qv = q_in[off + x];
+    if (blend) {
+      const float pi = line == 1 ? 0.f : i_in[off - wp + x];
+      const float pq = line == 1 ? 0.f : q_in[off - wp + x];
+      iv = floorf((pi + iv + 1.f) / 2.f);
+      qv = floorf((pq + qv + 1.f) / 2.f);
+    }
+    r.y[x] = y_in[off + x];
+    r.i[x] = iv;
+    r.q[x] = qv;
+  }
+  __syncthreads();
+
+  if (P.vhs) {
+    pole3(r.y, r.t1, tab[TAB_SHARPEN], 0.f, r.nb, r.red);
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float yv = r.y[x];
+      r.y[x] = x < w ? truncf(yv + (yv - r.t1[x]) * P.sharpen_gain) : 0.f;
+    }
+    __syncthreads();
+    if (!P.svideo) {
+      qam_encode(r, xi, P.amp);
+      qam_decode(r, xi, P.amp);
+    }
+  }
+
+  if (P.chroma_loss) {
+    const float k = keep[row];
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      r.i[x] = r.i[x] * k;
+      r.q[x] = r.q[x] * k;
+    }
+    __syncthreads();
+  }
+
+  for (int n = 0; n < P.yc_recombine; ++n) {
+    qam_encode(r, xi, P.amp);
+    qam_decode(r, xi, P.amp);
+  }
+
+  if (P.out_lowpass == 1) {
+    lowpass_writeback(r, r.i, tab[TAB_TV], 1);
+    lowpass_writeback(r, r.q, tab[TAB_TV], 1);
+  } else if (P.out_lowpass == 2) {
+    lowpass_writeback(r, r.i, tab[TAB_I], 2);
+    lowpass_writeback(r, r.q, tab[TAB_Q], 4);
+  }
+
+  uint8_t* px = out + (size_t)row * w * 3;
+  for (int x = threadIdx.x; x < w; x += BLOCK) {
+    const float yv = r.y[x], iv = r.i[x], qv = r.q[x];
+    const float R = truncf((1.000f * yv + 0.956f * iv + 0.621f * qv) / 256.f);
+    const float G = truncf((1.000f * yv - 0.272f * iv - 0.647f * qv) / 256.f);
+    const float B = truncf((1.000f * yv - 1.106f * iv + 1.703f * qv) / 256.f);
+    px[3 * x] = (uint8_t)fminf(fmaxf(R, 0.f), 255.f);
+    px[3 * x + 1] = (uint8_t)fminf(fmaxf(G, 0.f), 255.f);
+    px[3 * x + 2] = (uint8_t)fminf(fmaxf(B, 0.f), 255.f);
+  }
+}
+
+}  // namespace cvsim
+
+// C entry point (bound with ctypes by cvsim_tpu_torch/kernels.py). Launches
+// both kernels on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() (0 on success).
+extern "C" int cvsim_yiq_chain(const void* rgb, const void* xi,
+                               const void* keys, const void* sincos,
+                               const void* keep, const void* shifts,
+                               const void* tt, const void* d, const void* tt3,
+                               const void* d3, const void* vt, void* scratch,
+                               void* out, const void* params, void* stream) {
+  using namespace cvsim;
+  const ChainParams P = *static_cast<const ChainParams*>(params);
+  if (P.wp % BLOCK != 0 || P.w > P.wp || P.w < 3) return (int)cudaErrorInvalidValue;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  const size_t smem = (size_t)(5 * P.wp + 4) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(yiq_front, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(yiq_back, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  const Tables tab{static_cast<const float*>(tt), static_cast<const float*>(d),
+                   static_cast<const float*>(tt3), static_cast<const float*>(d3),
+                   static_cast<const float*>(vt)};
+  float* y = static_cast<float*>(scratch);
+  float* i = y + (size_t)rows * P.wp;
+  float* q = i + (size_t)rows * P.wp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  yiq_front<<<rows, BLOCK, smem, s>>>(
+      static_cast<const uint8_t*>(rgb), static_cast<const int*>(xi),
+      static_cast<const uint32_t*>(keys), static_cast<const float*>(sincos),
+      static_cast<const int*>(shifts), tab, P, y, i, q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  yiq_back<<<rows, BLOCK, smem, s>>>(y, i, q, static_cast<const int*>(xi),
+                                     static_cast<const float*>(keep), tab, P,
+                                     static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* cvsim_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,93 @@
+"""Builds and loads the port's CUDA kernels.
+
+At first use, `nvcc` compiles every `csrc/*.cu` into one shared library
+with a plain C interface, for Hopper (sm_90a), into `_build/<hash>/`
+inside the package (listed in .gitignore). The hash covers the sources and
+the flags, so an edit rebuilds. The library is loaded with ctypes, with
+argtypes set for every entry point. A missing nvcc or a failed build
+raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_DIR, "csrc")
+_BUILD = os.path.join(_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              # the float math mirrors the JAX kernel op for op; only the
+              # explicit fmaf calls of the block products may fuse
+              "-fmad=false", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = ""   # nvcc's output of the build that produced the library
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD, h.hexdigest()[:16], "libcvsim_kernels.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu if the library for these sources is missing;
+    returns its path."""
+    global BUILD_LOG
+    lib = library_path()
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.tmp.{os.getpid()}"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                          capture_output=True, text=True)
+    BUILD_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    os.replace(tmp, lib)   # atomic: no process loads a half-written library
+    return lib
+
+
+def load():
+    """The kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            ptr = ctypes.c_void_p
+            lib.cvsim_yiq_chain.argtypes = [ptr] * 15
+            lib.cvsim_yiq_chain.restype = ctypes.c_int
+            lib.cvsim_error_string.argtypes = [ctypes.c_int]
+            lib.cvsim_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def error_string(err: int) -> str:
+    return f"{err} ({load().cvsim_error_string(err).decode()})"

@@ -1,0 +1,28 @@
+"""C-semantics scalar helpers on tensors (twin of cvsim_tpu.ops.cmath).
+
+The reference engines rely on C integer conversion rules at quantization
+points; these reproduce them so the port can be held to the JAX package
+exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def c_int(x: torch.Tensor) -> torch.Tensor:
+    """C double->int conversion: truncation toward zero (dtype kept)."""
+    return torch.trunc(x)
+
+
+def c_div(a: torch.Tensor, b) -> torch.Tensor:
+    """C integer division: truncation toward zero (torch's // floors)."""
+    return torch.div(a, b, rounding_mode="trunc")
+
+
+def clampu8(x: torch.Tensor) -> torch.Tensor:
+    """clampu8 (ffmpeg_to_composite.cpp:335-342): truncate a float stage
+    output toward zero, then clamp to [0, 255]."""
+    if x.is_floating_point():
+        x = torch.trunc(x)
+    return torch.clamp(x, 0, 255)

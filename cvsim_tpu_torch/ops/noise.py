@@ -1,0 +1,113 @@
+"""Counter-based noise (twin of cvsim_tpu.ops.noise).
+
+Every draw is a pure function of (seed, fieldno, stage, element index): a
+splitmix32 counter stream (golden-ratio counter step + murmur3 avalanche).
+Output is therefore invariant to GOP batching and restarts, and there is no
+global RNG state. The words are bit-equal to the JAX package's.
+
+uint32 arithmetic runs in int64 with `& 0xFFFFFFFF` after every multiply
+and add (an int64 product of two u32 values wraps, and its low 32 bits are
+right). Stream ids and words are int64 tensors holding u32 values.
+
+The walk recurrence n[t] = (n[t-1] + u[t]) / 2 is a one-pole lowpass with
+alpha 0.5, so it runs on the blocked-matmul IIR.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cvsim_tpu_torch.ops.iir import iir_lowpass
+
+MASK32 = 0xFFFFFFFF
+GOLDEN = 0x9E3779B9
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3/splitmix32 avalanche finalizer over u32 (int64 tensor)."""
+    x = x.to(torch.int64) & MASK32
+    x = ((x ^ (x >> 16)) * 0x85EBCA6B) & MASK32
+    x = ((x ^ (x >> 13)) * 0xC2B2AE35) & MASK32
+    return x ^ (x >> 16)
+
+
+def mix32_int(x: int) -> int:
+    """mix32 of one Python int."""
+    x &= MASK32
+    x = ((x ^ (x >> 16)) * 0x85EBCA6B) & MASK32
+    x = ((x ^ (x >> 13)) * 0xC2B2AE35) & MASK32
+    return x ^ (x >> 16)
+
+
+def key32(key_data) -> int:
+    """Collapse PRNG key data (a sequence of u32 words, e.g. [hi, lo]) to
+    the engine's u32 stream seed: mix32(kd[0] ^ mix32(kd[-1]))."""
+    kd = [int(k) & MASK32 for k in key_data]
+    return mix32_int(kd[0] ^ mix32_int(kd[-1]))
+
+
+def _bits(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """splitmix32 stream: word idx of stream `keys` (broadcasting)."""
+    return mix32((keys + ((idx * GOLDEN) & MASK32)) & MASK32)
+
+
+def _randint_bits(bits: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """bits % span + lo (the reference's rand() % span idiom), int32."""
+    return ((bits % (hi - lo)) + lo).to(torch.int32)
+
+
+def field_stage_keys(key: int, fieldno: torch.Tensor,
+                     stage: int) -> torch.Tensor:
+    """Content-addressed per-field stream ids (u32 in int64 [B]): noise for
+    field N is a pure function of (seed, N, stage)."""
+    base = key ^ mix32_int((stage * 0x632BE59B) & MASK32)
+    f = fieldno.to(torch.int64) & MASK32
+    return mix32((base + ((f * GOLDEN) & MASK32)) & MASK32)
+
+
+def randint_per_field(keys: torch.Tensor, shape, lo: int,
+                      hi: int) -> torch.Tensor:
+    """keys: [B] stream ids. Returns [B, *shape] int32 in [lo, hi)."""
+    shape = tuple(shape)
+    n = 1
+    for s in shape:
+        n *= s
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    out = _randint_bits(_bits(keys[:, None], idx[None, :]), lo, hi)
+    return out.reshape((keys.shape[0],) + shape)
+
+
+def _shift_in_zero(post: torch.Tensor) -> torch.Tensor:
+    """Pre-update walk values [0, n[0], n[1], ...] along the last axis."""
+    return torch.cat([torch.zeros_like(post[..., :1]), post[..., :-1]],
+                     dim=-1)
+
+
+def random_walk_per_field(keys: torch.Tensor, n: int, mag: int,
+                          dtype=torch.float32) -> torch.Tensor:
+    """Per-field post-update walks [B, n]."""
+    u = randint_per_field(keys, (n,), -mag, mag + 1)
+    return iir_lowpass(u.to(dtype), 0.5, 0.0)
+
+
+def smoothed_noise_walk_rows(keys: torch.Tensor, l: int, w: int, mag: int,
+                             dtype=torch.float32) -> torch.Tensor:
+    """Per-scanline smoothed walks [B, l, w]: element (y, x) draws stream
+    index y*w + x and the walk resets to 0 at each line start."""
+    u = randint_per_field(keys, (l, w), -mag, mag + 1)
+    return _shift_in_zero(iir_lowpass(u.to(dtype), 0.5, 0.0))
+
+
+def chroma_noise_walk_rows(keys: torch.Tensor, l: int, w: int, mag: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Two per-scanline smoothed walk planes [B, 2, l, w] (I/Q); plane c's
+    element (y, x) draws stream index c*l*w + y*w + x."""
+    u = randint_per_field(keys, (2, l, w), -mag, mag + 1)
+    return _shift_in_zero(iir_lowpass(u.to(dtype), 0.5, 0.0))
+
+
+def uniform_pm1_per_field(keys: torch.Tensor,
+                          dtype=torch.float32) -> torch.Tensor:
+    """[-1, 1) from the top 24 bits of word 0 (exact in float32)."""
+    bits = _bits(keys, torch.zeros_like(keys))
+    return (bits >> 8).to(dtype) * (2.0 ** -23) - 1.0

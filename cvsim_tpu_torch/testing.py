@@ -1,0 +1,65 @@
+"""Comparison helpers shared by the tests and chip_smoke.py."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from cvsim_tpu.config import CompositeConfig, VHSSpeed
+
+# the configurations of the JAX package's fused-vs-stage chain tests
+# (tests/test_fused_chain.py CONFIGS), shared by the port's tests and
+# chip_smoke.py
+CHAIN_CONFIGS = {
+    "bare": CompositeConfig(
+        video_noise=0, composite_in_chroma_lowpass=False,
+        composite_out_chroma_lowpass=False,
+        composite_out_chroma_lowpass_lite=False),
+    "defaults-noise-off": CompositeConfig(video_noise=0),
+    "full-lowpass-out": CompositeConfig(
+        video_noise=0, composite_out_chroma_lowpass_lite=False),
+    "preemph": CompositeConfig(
+        video_noise=0, composite_preemphasis=7.0,
+        composite_preemphasis_cut=315000000 / 88,
+        subcarrier_amplitude_back=50 + int(50 * 7 * (315000000 / 88)
+                                           / (2 * (315000000 / 88)))),
+    "vhs-sp": CompositeConfig(video_noise=0, emulating_vhs=True),
+    "vhs-ep-stochastic": CompositeConfig(
+        video_noise=6, emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP,
+        vhs_head_switching=True, vhs_head_switching_point=0.15,
+        vhs_head_switching_phase=0.15, vhs_head_switching_phase_noise=0.0,
+        video_chroma_noise=22, video_chroma_phase_noise=6,
+        video_chroma_loss=100),
+    "vhs-hs-phase-noise": CompositeConfig(
+        video_noise=0, emulating_vhs=True, vhs_head_switching=True,
+        vhs_head_switching_point=0.52, vhs_head_switching_phase=0.1,
+        vhs_head_switching_phase_noise=0.08),
+    "yc-recomb": CompositeConfig(video_noise=0, video_yc_recombine=2),
+    "svideo": CompositeConfig(video_noise=0, emulating_vhs=True,
+                              vhs_svideo_out=True),
+}
+
+# the JAX bench's stochastic VHS configuration (bench.py:250-252) at EP
+BENCH_VHS_EP = CompositeConfig(
+    emulating_vhs=True, vhs_head_switching=True, video_noise=4,
+    video_chroma_noise=16, video_chroma_phase_noise=4, video_chroma_loss=4,
+    vhs_tape_speed=VHSSpeed.EP)
+
+
+def chain_diff(a, b) -> tuple[int, float]:
+    """(max abs difference, fraction of samples that differ) of two
+    integer arrays."""
+    d = np.abs(np.asarray(a).astype(np.int64) - np.asarray(b).astype(np.int64))
+    return int(d.max()) if d.size else 0, float((d > 0).mean()) if d.size else 0.0
+
+
+def assert_chain_equal(a, b, err_msg: str = "") -> None:
+    """The chain tolerance of the JAX package (tests/test_fused_chain.py):
+    equal except at most 1 LSB on at most 0.1% of samples. Two runs of
+    the same float32 math can differ by one ULP where the compilers
+    contract or order operations differently, and a value that lands
+    exactly on an integer then truncates one LSB apart."""
+    dmax, frac = chain_diff(a, b)
+    if dmax == 0:
+        return
+    if not (dmax <= 1 and frac <= 1e-3):
+        raise AssertionError(f"{err_msg}: max diff {dmax}, frac {frac:.2e}")
