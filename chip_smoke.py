@@ -5,17 +5,24 @@
 Phases, each printing its own lines (any failure raises, exit code != 0):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build of the CUDA kernels from cvsim_tpu_torch/csrc with nvcc;
-  3. kernel vs its plain PyTorch version on the card, same prepared inputs,
-     for every chain configuration of the port's tests at (2,32,128) and
-     (1,16,176) and the bench's stochastic VHS-EP configuration at
-     (8,240,704) and (2,540,1888); prepare() on the card == on the CPU;
-  4. the main path: `python -m cvsim_tpu_torch ntsc` in-process on a
-     720x480 colour-bar clip of 64 frames (128 fields, two GOPs) with the
-     kernel launch count read around it; colour bars kept; the first 8
-     frames again through `--device cpu`, compared within the chain
-     tolerance;
-  5. times: kernel vs plain at B=64, 240x704 (CUDA events, median of 5)
-     and the CLI's end-to-end fields/s.
+  3. each kernel vs its plain PyTorch version on the card, same prepared
+     inputs: the gen-2 kernel (yiq_chain) for every gen-2 chain
+     configuration of the port's tests at (2,32,128) and (1,16,176) and the
+     bench's stochastic VHS-EP configuration at (8,240,704) and
+     (2,540,1888); the gen-1 kernel (yuv_chain) for every gen-1 chain
+     configuration at the same two small shapes and the gen-1 bench
+     VHS-EP configuration at (8,240,720) NTSC, (8,288,720) PAL and
+     (2,540,1888); prepare() on the card == on the CPU for both;
+  4. the main paths, each with its kernel's launch count set to 0 just
+     before and read just after: `python -m cvsim_tpu_torch ntsc` and
+     `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
+     colour-bar clip of 64 frames (128 fields, two GOPs); colour bars
+     kept; the first 8 frames again through `--device cpu`, compared
+     within the chain tolerance; then a short `to-composite
+     -bkey-feedback 20` run on a clip with dark, keyed rows, cuda vs cpu;
+  5. times: each kernel vs its plain version at B=64 (240x704 gen-2,
+     240x720 gen-1; CUDA events, median of 5), the gen-1 black-key scan's
+     host cost per GOP, and each CLI's end-to-end fields/s.
 The line before the last is the card's name and power limit; the one
 before it lists each kernel as JSON. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -80,12 +87,73 @@ def write_bars_y4m(path: str, frames: int, w: int = 720, h: int = 480):
     return y, u[0::2, 0::2], v[0::2, 0::2]
 
 
+def write_dark_y4m(path: str, frames: int, w: int = 720, h: int = 480):
+    """Colour bars on the top half, dark near-neutral noise (Y 16..47, U/V
+    118..137, a new draw every frame) on the bottom half: the bottom rows
+    key under -bkey-feedback 20, so the filter frame carries from field
+    to field."""
+    import numpy as np
+
+    from cvsim_tpu.host import y4m
+
+    y, u, v = write_bars_y4m(path, 0, w, h)
+    rng = np.random.default_rng(20)
+    hdr = y4m.Y4MHeader(width=w, height=h, fps=Fraction(30000, 1001),
+                        colorspace="420jpeg")
+    with open(path, "wb") as f:
+        wr = y4m.Y4MWriter(f, hdr)
+        for _ in range(frames):
+            yk, uk, vk = y.copy(), u.copy(), v.copy()
+            yk[h // 2:] = rng.integers(16, 48, (h - h // 2, w))
+            uk[h // 4:] = rng.integers(118, 138, (h // 2 - h // 4, w // 2))
+            vk[h // 4:] = rng.integers(118, 138, (h // 2 - h // 4, w // 2))
+            wr.write(yk, uk, vk)
+
+
 def read_y4m(path: str):
     from cvsim_tpu.host import y4m
 
     with open(path, "rb") as f:
         r = y4m.Y4MReader(f)
         return r.header, list(r)
+
+
+def check_bars(frames, y_in, u_in, v_in, limit: float) -> float:
+    """Per-bar interior means of every 16th output frame near the input's;
+    returns the worst difference in LSB."""
+    _, bw = colour_bars(720, 480)
+    worst = 0.0
+    for k in range(7):
+        xs = slice(k * bw + 20, (k + 1) * bw - 20)
+        for (yo, uo, vo) in frames[::16]:
+            for name, po, pi, rows, cols in (
+                    ("Y", yo, y_in, slice(40, 400), xs),
+                    ("U", uo, u_in, slice(20, 200),
+                     slice(xs.start // 2, xs.stop // 2)),
+                    ("V", vo, v_in, slice(20, 200),
+                     slice(xs.start // 2, xs.stop // 2))):
+                d = abs(float(po[rows, cols].mean())
+                        - float(pi[rows, cols].mean()))
+                worst = max(worst, d)
+                if d > limit:
+                    raise AssertionError(f"bar {k} {name}: mean off by {d:.2f}")
+    return worst
+
+
+def compare_cli(frames_gpu, frames_cpu, n_fields: int, what: str) -> int:
+    """CUDA CLI output vs CPU CLI output, frame by frame, within the chain
+    tolerance; returns the largest difference."""
+    from cvsim_tpu_torch.testing import assert_chain_equal, chain_diff
+
+    if len(frames_cpu) != n_fields:
+        raise AssertionError(f"{what} CPU run: {len(frames_cpu)} fields, "
+                             f"expected {n_fields}")
+    err = 0
+    for k, (fc, fg) in enumerate(zip(frames_cpu, frames_gpu)):
+        for pc, pg in zip(fc, fg):
+            err = max(err, chain_diff(pc, pg)[0])
+            assert_chain_equal(pg, pc, err_msg=f"{what} cuda vs cpu field {k}")
+    return err
 
 
 def time_ms(fn, reps: int = 5):
@@ -106,48 +174,25 @@ def time_ms(fn, reps: int = 5):
     return sorted(times)[reps // 2]
 
 
-def main() -> int:
+def check_prepare(prep, prepare_cpu, what: str):
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    import numpy as np
+    cpu = prepare_cpu()
+    for field in ("xi", "keys_ab", "keep", "shifts"):
+        if not torch.equal(getattr(prep, field).cpu(), getattr(cpu, field)):
+            raise AssertionError(f"prepare {field}: cuda != cpu ({what})")
 
-    from cvsim_tpu_torch import interop, kernels
-    from cvsim_tpu_torch.cli.main import main as cli_main
+
+def kernel_cases_gen2(dev, key) -> int:
+    """[3] yiq_chain vs fused_yiq.chain_reference; returns the largest
+    difference."""
+    import numpy as np
+    import torch
+
     from cvsim_tpu_torch.models import fused_yiq
     from cvsim_tpu_torch.testing import (
         BENCH_VHS_EP, CHAIN_CONFIGS, assert_chain_equal, chain_diff)
 
-    # ---- 1. the card
-    card = card_line()
-    print(f"[1] card: {card}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-    # ---- 2. build
-    t0 = time.perf_counter()
-    kernels.load()
-    print(f"[2] built {kernels.library_path()} in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in kernels.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
-    # the CLI's frame scaler is a host C++ library built at first use
-    # (g++, seconds); build it here so that the timed CLI run excludes it
-    from cvsim_tpu.native.hostpix import scale_frame_to
-
-    t0 = time.perf_counter()
-    grey = np.full((8, 8), 128, np.uint8)
-    scale_frame_to(grey, grey[::2, ::2], grey[::2, ::2], 8, 8)
-    print(f"[2] host frame scaler ready in {time.perf_counter() - t0:.2f} s")
-
-    # ---- 3. kernel vs plain on the card
-    key = interop.key32_from_seed(5)
     cases = [(n, c, s) for n, c in sorted(CHAIN_CONFIGS.items())
              for s in ((2, 32, 128), (1, 16, 176))]
     cases += [("bench-vhs-ep", BENCH_VHS_EP, s)
@@ -166,114 +211,245 @@ def main() -> int:
         got, want = got.cpu().numpy(), want.cpu().numpy()
         dmax, frac = chain_diff(got, want)
         max_err = max(max_err, dmax)
-        print(f"[3] {name} {(b, l, w)}: kernel vs plain max {dmax}, "
+        print(f"[3] yiq_chain {name} {(b, l, w)}: kernel vs plain max {dmax}, "
               f"frac {frac:.2e}")
         assert_chain_equal(got, want, err_msg=f"{name} {(b, l, w)}")
-        cpu = fused_yiq.prepare(cfg, torch.from_numpy(rgb_np), fn, par, key)
-        for field in ("xi", "keys_ab", "keep", "shifts"):
-            a = getattr(prep, field).cpu()
-            if not torch.equal(a, getattr(cpu, field)):
-                raise AssertionError(f"prepare {field}: cuda != cpu ({name})")
-    print(f"[3] prepare() on the card == on the CPU for xi, keys_ab, keep, "
-          f"shifts in all {len(cases)} cases; tolerance: {TOLERANCE}")
+        check_prepare(prep, lambda: fused_yiq.prepare(
+            cfg, torch.from_numpy(rgb_np), fn, par, key), name)
+    print(f"[3] yiq_chain: prepare() on the card == on the CPU for xi, "
+          f"keys_ab, keep, shifts in all {len(cases)} cases; tolerance: "
+          f"{TOLERANCE}")
+    return max_err
 
-    # ---- 4. the main path through the CLI
+
+def kernel_cases_gen1(dev, key) -> int:
+    """[3] yuv_chain vs fused_yuv.chain_reference; returns the largest
+    difference over the three planes."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import fused_yuv
+    from cvsim_tpu_torch.testing import (
+        BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS, assert_chain_equal, chain_diff)
+
+    cases = [(n, c, s) for n, c in sorted(GEN1_CHAIN_CONFIGS.items())
+             for s in ((2, 32, 128), (1, 16, 176))]
+    cases += [("bench-gen1-ep", BENCH_GEN1_EP, (8, 240, 720)),
+              ("bench-gen1-ep-pal", BENCH_GEN1_EP.with_(ntsc=False),
+               (8, 288, 720)),
+              ("bench-gen1-ep", BENCH_GEN1_EP, (2, 540, 1888))]
+    max_err = 0
+    for name, cfg, (b, l, w) in cases:
+        rng = np.random.default_rng(zlib.crc32(f"g1{name}{b}{l}{w}".encode()))
+        planes_np = [rng.integers(0, 256, s).astype(np.uint8)
+                     for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2))]
+        y, u, v = (torch.from_numpy(p).to(dev) for p in planes_np)
+        fn = torch.arange(b, dtype=torch.int32) + 3
+        par = fn % 2
+        prep = fused_yuv.prepare(cfg, y, fn, par, key)
+        got = fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
+        torch.cuda.synchronize()
+        want = fused_yuv.chain_reference(y, u, v, prep, cfg=cfg)
+        diffs = []
+        for k, (g, wnt) in enumerate(zip(got, want)):
+            g, wnt = g.cpu().numpy(), wnt.cpu().numpy()
+            diffs.append(chain_diff(g, wnt))
+            assert_chain_equal(g, wnt, err_msg=f"{name} {(b, l, w)} plane {k}")
+        dmax = max(d for d, _ in diffs)
+        max_err = max(max_err, dmax)
+        print(f"[3] yuv_chain {name} {(b, l, w)}: kernel vs plain max {dmax}, "
+              f"frac y/u/v {' '.join(f'{f:.2e}' for _, f in diffs)}")
+        check_prepare(prep, lambda: fused_yuv.prepare(
+            cfg, torch.from_numpy(planes_np[0]), fn, par, key), name)
+    print(f"[3] yuv_chain: prepare() on the card == on the CPU for xi, "
+          f"keys_ab, keep, shifts in all {len(cases)} cases; tolerance: "
+          f"{TOLERANCE}")
+    return max_err
+
+
+def run_cli(cli_main, module, args):
+    """One in-process CLI run with `module`'s launch count set to 0 just
+    before it; returns (seconds, launches, header, frames)."""
+    import torch
+
+    module.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = cli_main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = module.KERNEL_LAUNCHES
+    if rc != 0:
+        raise AssertionError(f"CLI {args[:3]} rc {rc}")
+    hdr, frames = read_y4m(args[args.index("-o") + 1])
+    return seconds, launches, hdr, frames
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import numpy as np
+
+    from cvsim_tpu_torch import interop, kernels
+    from cvsim_tpu_torch.cli.main import main as cli_main
+    from cvsim_tpu_torch.host.pipeline import _bkey_scan
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+    from cvsim_tpu_torch.testing import BENCH_GEN1_EP, BENCH_VHS_EP
+
+    # ---- 1. the card
+    card = card_line()
+    print(f"[1] card: {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, devices {torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    kernels.load()
+    print(f"[2] built {kernels.library_path()} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for line in kernels.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"    ptxas: {line.strip()}")
+    # the CLI's frame scaler is a host C++ library built at first use
+    # (g++, seconds); build it here so that the timed CLI runs exclude it
+    from cvsim_tpu.native.hostpix import scale_frame_to
+
+    t0 = time.perf_counter()
+    grey = np.full((8, 8), 128, np.uint8)
+    scale_frame_to(grey, grey[::2, ::2], grey[::2, ::2], 8, 8)
+    print(f"[2] host frame scaler ready in {time.perf_counter() - t0:.2f} s")
+
+    # ---- 3. each kernel vs its plain version on the card
+    key = interop.key32_from_seed(5)
+    err_yiq = kernel_cases_gen2(dev, key)
+    err_yuv = kernel_cases_gen1(dev, key)
+
+    # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
     src = os.path.join(tmp, "bars.y4m")
     src8 = os.path.join(tmp, "bars8.y4m")
-    out = os.path.join(tmp, "out.y4m")
-    out_cpu = os.path.join(tmp, "out_cpu.y4m")
+    dark = os.path.join(tmp, "dark.y4m")
     y_in, u_in, v_in = write_bars_y4m(src, 64)
     write_bars_y4m(src8, 8)
+    write_dark_y4m(dark, 8)
     flags = ["-vhs-speed", "ep", "-vhs-head-switching", "1",
              "-chroma-noise", "16", "-chroma-phase-noise", "4",
              "-chroma-dropout", "4", "-seed", "7"]
-    fused_yiq.KERNEL_LAUNCHES = 0
-    t0 = time.perf_counter()
-    rc = cli_main(["--device", "cuda", "ntsc", "-i", src, "-o", out, *flags])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = fused_yiq.KERNEL_LAUNCHES
-    if rc != 0:
-        raise AssertionError(f"CLI rc {rc}")
-    hdr, frames = read_y4m(out)
-    n_fields = len(frames)
-    gops = -(-n_fields // 64)
-    print(f"[4] CLI --device cuda: rc {rc}, {n_fields} fields "
-          f"({hdr.width}x{hdr.height}) in {cli_s:.3f} s, kernel launches "
-          f"{launches} for {gops} GOPs")
-    if n_fields != 128:
-        raise AssertionError(f"expected 128 output fields, got {n_fields}")
-    if launches != gops:
-        raise AssertionError(f"kernel launches {launches} != GOPs {gops}")
+    out = os.path.join(tmp, "out.y4m")
+    out_cpu = os.path.join(tmp, "out_cpu.y4m")
 
-    # bar hues kept: per-bar interior means near the input's. The VHS-EP
-    # chroma bandlimit alone moves the magenta bar's mean U by 9-10 LSB
-    # (the CPU path shows the same), so the limit is 12
-    bar_limit = 12.0
-    _, bw = colour_bars(720, 480)
-    worst = 0.0
-    for k in range(7):
-        xs = slice(k * bw + 20, (k + 1) * bw - 20)
-        for (yo, uo, vo) in frames[::16]:
-            for name, po, pi, rows, cols in (
-                    ("Y", yo, y_in, slice(40, 400), xs),
-                    ("U", uo, u_in, slice(20, 200),
-                     slice(xs.start // 2, xs.stop // 2)),
-                    ("V", vo, v_in, slice(20, 200),
-                     slice(xs.start // 2, xs.stop // 2))):
-                d = abs(float(po[rows, cols].mean())
-                        - float(pi[rows, cols].mean()))
-                worst = max(worst, d)
-                if d > bar_limit:
-                    raise AssertionError(f"bar {k} {name}: mean off by {d:.2f}")
-    print(f"[4] colour bars kept: worst per-bar mean difference "
-          f"{worst:.3f} LSB (limit {bar_limit})")
+    paths = {}
+    for tool, module, extra, bar_limit in (
+            # the VHS-EP chroma bandlimit alone moves the magenta bar's
+            # mean U by 9-10 LSB in gen-2 (the CPU path shows the same)
+            ("ntsc", fused_yiq, [], 12.0),
+            # gen-1's 8-bit composite clips the blue bar (low luma, high
+            # chroma): the JAX package's CPU path moves its mean U by 25
+            # LSB without VHS and 32 at VHS-EP, while a lost or swapped
+            # decode moves the saturated bars' U/V by ~100
+            ("to-composite", fused_yuv, ["-vhs"], 40.0)):
+        cli_s, launches, hdr, frames = run_cli(
+            cli_main, module,
+            ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags])
+        n_fields = len(frames)
+        gops = -(-n_fields // 64)
+        print(f"[4] {tool} --device cuda: {n_fields} fields "
+              f"({hdr.width}x{hdr.height}) in {cli_s:.3f} s, kernel "
+              f"launches {launches} for {gops} GOPs")
+        if n_fields != 128:
+            raise AssertionError(f"{tool}: expected 128 output fields, "
+                                 f"got {n_fields}")
+        if launches != gops:
+            raise AssertionError(f"{tool}: kernel launches {launches} != "
+                                 f"GOPs {gops}")
+        worst = check_bars(frames, y_in, u_in, v_in, bar_limit)
+        print(f"[4] {tool} colour bars kept: worst per-bar mean difference "
+              f"{worst:.3f} LSB (limit {bar_limit})")
+        rc = cli_main(["--device", "cpu", tool, "-i", src8, "-o", out_cpu,
+                       *extra, *flags])
+        if rc != 0:
+            raise AssertionError(f"{tool} CPU CLI rc {rc}")
+        cpu_err = compare_cli(frames, read_y4m(out_cpu)[1], 16, tool)
+        print(f"[4] {tool} --device cuda vs --device cpu, first 16 fields: "
+              f"max diff {cpu_err}; tolerance: {TOLERANCE}")
+        paths[tool] = (launches, n_fields / cli_s)
 
-    rc = cli_main(["--device", "cpu", "ntsc", "-i", src8, "-o", out_cpu,
-                   *flags])
-    if rc != 0:
-        raise AssertionError(f"CPU CLI rc {rc}")
-    _, frames_cpu = read_y4m(out_cpu)
-    if len(frames_cpu) != 16:
-        raise AssertionError(f"CPU run: {len(frames_cpu)} fields, expected 16")
-    cpu_err = 0
-    for k, (fc, fg) in enumerate(zip(frames_cpu, frames)):
-        for pc, pg in zip(fc, fg):
-            cpu_err = max(cpu_err, chain_diff(pc, pg)[0])
-            assert_chain_equal(pg, pc, err_msg=f"cuda vs cpu field {k}")
-    print(f"[4] CLI --device cuda vs --device cpu, first 16 fields: max "
-          f"diff {cpu_err}; tolerance: {TOLERANCE}")
+    bkey = ["-vhs", "-bkey-feedback", "20", "-seed", "3"]
+    _, bk_launches, _, frames = run_cli(
+        cli_main, fused_yuv,
+        ["--device", "cuda", "to-composite", "-i", dark, "-o", out, *bkey])
+    cli_main(["--device", "cpu", "to-composite", "-i", dark, "-o", out_cpu,
+              *bkey])
+    bk_err = compare_cli(frames, read_y4m(out_cpu)[1], 16, "bkey")
+    print(f"[4] to-composite -bkey-feedback 20, 16 fields with keyed dark "
+          f"rows: {bk_launches} launch, cuda vs cpu max diff {bk_err}; "
+          f"tolerance: {TOLERANCE}")
 
     # ---- 5. times
-    b, l, w = 64, 240, 704
+    times = {}
     rng = np.random.default_rng(0)
+    b, l, w = 64, 240, 704
     rgb = torch.from_numpy(
         rng.integers(0, 256, (b, l, w, 3)).astype(np.uint8)).to(dev)
     fn = torch.arange(b, dtype=torch.int32)
     prep = fused_yiq.prepare(BENCH_VHS_EP, rgb, fn, fn % 2, key)
-    ms = time_ms(lambda: fused_yiq.composite_layer_rgb_fused(
-        rgb, prep, cfg=BENCH_VHS_EP))
-    plain_ms = time_ms(lambda: fused_yiq.chain_reference(
-        rgb, prep, cfg=BENCH_VHS_EP))
-    ms2 = time_ms(lambda: fused_yiq.composite_layer_rgb_fused(
-        rgb, prep, cfg=BENCH_VHS_EP))
-    print(f"[5] B=64 240x704 bench VHS-EP on {card}: kernel {ms:.3f} ms "
-          f"(again {ms2:.3f} ms) = {b / ms * 1e3:.1f} fields/s; plain "
-          f"{plain_ms:.3f} ms = {b / plain_ms * 1e3:.1f} fields/s")
-    print(f"[5] CLI end to end on {card}: {n_fields / cli_s:.2f} fields/s "
-          f"({n_fields} fields, 720x480, build excluded, start-up included)")
+    kern = lambda: fused_yiq.composite_layer_rgb_fused(rgb, prep,
+                                                       cfg=BENCH_VHS_EP)
+    plain = lambda: fused_yiq.chain_reference(rgb, prep, cfg=BENCH_VHS_EP)
+    times["yiq_chain"] = (time_ms(kern), time_ms(plain), time_ms(kern))
+
+    w = 720
+    y, u, v = (torch.from_numpy(rng.integers(16, 236, s).astype(np.uint8))
+               .to(dev) for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2)))
+    prep1 = fused_yuv.prepare(BENCH_GEN1_EP, y, fn, fn % 2, key)
+    kern = lambda: fused_yuv.composite_video_process_fused(
+        y, u, v, prep1, cfg=BENCH_GEN1_EP)
+    plain = lambda: fused_yuv.chain_reference(y, u, v, prep1,
+                                              cfg=BENCH_GEN1_EP)
+    times["yuv_chain"] = (time_ms(kern), time_ms(plain), time_ms(kern))
+    for name, shape, (ms, plain_ms, ms2) in (
+            ("yiq_chain", "240x704 bench VHS-EP", times["yiq_chain"]),
+            ("yuv_chain", "240x720 gen-1 bench VHS-EP", times["yuv_chain"])):
+        print(f"[5] {name} B=64 {shape} on {card}: kernel {ms:.3f} ms "
+              f"(again {ms2:.3f} ms) = {b / ms * 1e3:.1f} fields/s; plain "
+              f"{plain_ms:.3f} ms = {b / plain_ms * 1e3:.1f} fields/s")
+
+    # the gen-1 black-key scan: 64 sequential steps of small eager ops
+    planes = [p.to(torch.int32) for p in (y, u, v)]
+    filt = (torch.full((l, w), 16, dtype=torch.int32, device=dev),
+            torch.full((l, w // 2), 128, dtype=torch.int32, device=dev),
+            torch.full((l, w // 2), 128, dtype=torch.int32, device=dev))
+    scan = lambda: _bkey_scan(*planes, *filt, 20, [1] * b)
+    scan_ms = time_ms(scan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print(f"[5] black-key scan, one GOP of 64 fields 240x720 on {card}: "
+          f"{scan_ms:.3f} ms (CUDA events), host enqueue {host_ms:.3f} ms")
+    for tool, (_, rate) in paths.items():
+        print(f"[5] {tool} CLI end to end on {card}: {rate:.2f} fields/s "
+              f"(128 fields, 720x480, build excluded, start-up included)")
 
     print(json.dumps({"kernels": [{
-        "name": "yiq_chain",
+        "name": name,
         "route": "cuda",
-        "source": "cvsim_tpu_torch/csrc/yiq_chain.cu",
-        "replaces": "cvsim_tpu/models/fused_yiq.py:472",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+        "source": f"cvsim_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": paths[tool][0],
+        "max_abs_err": err,
+        "ms": times[name][0],
+        "plain_ms": times[name][1],
+    } for name, replaces, tool, err in (
+        ("yiq_chain", "cvsim_tpu/models/fused_yiq.py:472", "ntsc", err_yiq),
+        ("yuv_chain", "cvsim_tpu/models/fused_yuv.py:343", "to-composite",
+         err_yuv))]}))
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
     print(card)

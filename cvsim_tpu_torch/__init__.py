@@ -6,13 +6,15 @@ reader expects it:
 
 - ops/       C-semantics helpers, phase tables, counter-based noise, the
              blocked one-pole IIR (plain PyTorch)
-- models/    the gen-2 YIQ stage path (yiq.py) and the fused chain
-             (fused_yiq.py: per-field inputs, the plain chain and the
+- models/    the gen-2 YIQ and gen-1 YUV 4:2:2 stage paths (yiq.py,
+             yuv422.py) and their fused chains (fused_yiq.py,
+             fused_yuv.py: per-field inputs, the plain chain and the
              wrapper of the hand-written CUDA kernel)
 - csrc/      CUDA C++ kernels for Hopper (sm_90a), built at first use
              by kernels.py
-- host/      the gen-2 GOP pipeline
-- cli/       `python -m cvsim_tpu_torch [--device cuda|cpu] ntsc ...`
+- host/      the gen-2 and gen-1 GOP pipelines
+- cli/       `python -m cvsim_tpu_torch [--device cuda|cpu]
+             ntsc|to-composite ...`
 
 The package imports torch and numpy and never jax. It reuses the jax-free
 modules of cvsim_tpu (config, presets, host I/O) as they are.

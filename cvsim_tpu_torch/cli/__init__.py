@@ -1,1 +1,1 @@
-"""Command line (twin of cvsim_tpu.cli.main, ntsc only)."""
+"""Command line (twin of cvsim_tpu.cli.main: ntsc and to-composite)."""

@@ -1,8 +1,9 @@
 """cvsim_tpu_torch command line: `python -m cvsim_tpu_torch [--device
-cuda|cpu] ntsc <flags>`.
+cuda|cpu] ntsc|to-composite <flags>`.
 
-The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine). Flags are
-the reference's, parsed by cvsim_tpu.presets as in the JAX package. The
+The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine) and of its
+`to-composite` tool (the gen-1 engine, video side). Flags are the
+reference's, parsed by cvsim_tpu.presets as in the JAX package. The
 device defaults to cuda; without a GPU the command fails unless
 `--device cpu` is given, and it never carries on on the CPU quietly.
 Not yet ported: audio (-audio-in), multi-GPU runs (-devices > 1) and the
@@ -19,8 +20,8 @@ import torch
 
 from cvsim_tpu import presets
 
-USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] ntsc "
-         "-i in.y4m -o out.y4m [flags]")
+USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] "
+         "ntsc|to-composite -i in.y4m -o out.y4m [flags]")
 
 
 def _soft_sigint():
@@ -55,23 +56,7 @@ def cmd_ntsc(argv, device: torch.device):
         return 1
     die = _soft_sigint()
     cfg = st.to_run_config(gen1=False)
-    # -checkpoint: resumable runs. Only a native Y4M output can be
-    # truncated-and-appended; encoder pipes cannot.
-    ckpt_path = None
-    resuming = False
-    if st.checkpoint:
-        if st.output_file.endswith(".y4m"):
-            ckpt_path = st.output_file + ".ckpt"
-            from cvsim_tpu.host import checkpoint as _ckpt
-
-            loaded = _ckpt.load(ckpt_path)
-            resuming = bool(
-                loaded
-                and loaded[0].get("cfg_hash") == _ckpt.config_hash(cfg)
-                and os.path.exists(st.output_file))
-        else:
-            print("-checkpoint requires a .y4m output; ignoring",
-                  file=sys.stderr)
+    ckpt_path, resuming = _checkpoint_path(st, cfg)
     pipe = YIQPipeline(cfg, frame_delay=st.frame_delay, die=die,
                        device=device, devices=st.devices)
     fields = 0
@@ -112,6 +97,82 @@ def cmd_ntsc(argv, device: torch.device):
     return 0
 
 
+def cmd_to_composite(argv, device: torch.device):
+    """Flagship gen-1 tool (ffmpeg_to_composite), video side."""
+    st = presets.parse_composite_flags(argv, gen2=False)
+    if ((not st.input_files and not st.audio_in)
+            or (st.input_files and not st.output_file)):
+        print("You must specify an input and output file (-i and -o).",
+              file=sys.stderr)
+        return 1
+    if st.audio_in:
+        raise ValueError("-audio-in: audio is not yet ported to "
+                         "cvsim_tpu_torch")
+    from cvsim_tpu.host import ffmpeg_pipe
+    from cvsim_tpu_torch.host.pipeline import CompositePipeline
+
+    die = _soft_sigint()
+    cfg = st.to_run_config(gen1=True)
+    print(f"Transcoding from {max(0.0, st.transcode_start):.2f} to "
+          f"{st.transcode_end:.2f}", file=sys.stderr)
+    print(f"VHS head switching point: {st.vhs_head_switching_point:.6f}",
+          file=sys.stderr)
+    print(f"VHS head switching noise: {st.vhs_head_switching_phase_noise:.6f}",
+          file=sys.stderr)
+    pipe = CompositePipeline(cfg, die=die, device=device, devices=st.devices)
+    ckpt_path, resuming = _checkpoint_path(st, cfg)
+    if st.video_stream_index < 0:
+        return 0
+    reader, rclean = ffmpeg_pipe.resolve_video_input(st.input_files[0])
+    if resuming:
+        out_stream = open(st.output_file, "r+b")
+        finalize = out_stream.close
+    else:
+        out_stream, finalize = ffmpeg_pipe.resolve_video_output(
+            st.output_file, interlaced=cfg.output.interlaced_output)
+    frame_log, log_rate = None, 90000
+    if st.video_pts_in:
+        from cvsim_tpu.host import timing as _timing
+
+        frame_log, log_rate = _timing.read_frame_pts_log(st.video_pts_in)
+    try:
+        pipe.run_video(reader, out_stream, ckpt_path=ckpt_path,
+                       frame_log=frame_log, frame_log_rate=log_rate)
+    except BaseException:
+        try:
+            finalize()   # never mask the root cause
+        except Exception:
+            pass
+        raise
+    else:
+        finalize()
+    finally:
+        rclean()
+    return 0
+
+
+def _checkpoint_path(st, cfg):
+    """(ckpt_path, resuming) for -checkpoint. Only a native Y4M output can
+    be truncated-and-appended; encoder pipes cannot."""
+    if not (st.checkpoint and st.output_file):
+        return None, False
+    if not st.output_file.endswith(".y4m"):
+        print("-checkpoint requires a .y4m output; ignoring",
+              file=sys.stderr)
+        return None, False
+    from cvsim_tpu.host import checkpoint as _ckpt
+
+    ckpt_path = st.output_file + ".ckpt"
+    loaded = _ckpt.load(ckpt_path)
+    resuming = bool(loaded
+                    and loaded[0].get("cfg_hash") == _ckpt.config_hash(cfg)
+                    and os.path.exists(st.output_file))
+    return ckpt_path, resuming
+
+
+COMMANDS = {"ntsc": cmd_ntsc, "to-composite": cmd_to_composite}
+
+
 def _split_device(argv):
     """(device name, rest) from a leading `--device X`."""
     if argv and argv[0] == "--device":
@@ -140,12 +201,12 @@ def main(argv=None):
               "the plain PyTorch path on the CPU", file=sys.stderr)
         return 1
     cmd = argv[0]
-    if cmd != "ntsc":
-        print(f"cvsim_tpu_torch: '{cmd}' is not ported yet (ntsc only)",
-              file=sys.stderr)
+    if cmd not in COMMANDS:
+        print(f"cvsim_tpu_torch: '{cmd}' is not ported yet (ported: "
+              f"{', '.join(COMMANDS)})", file=sys.stderr)
         return 1
     try:
-        return cmd_ntsc(argv[1:], torch.device(device_name))
+        return COMMANDS[cmd](argv[1:], torch.device(device_name))
     except ValueError as e:
         print(f"cvsim_tpu_torch {cmd}: {e}", file=sys.stderr)
         return 1

@@ -46,6 +46,14 @@ __device__ inline PoleTables pole_tables(const float* tt, const float* d,
           d3 + k * 8 * BLOCK, vt + k * BLOCK * 8};
 }
 
+// The stacked tables of one chain; tab[k] is row k.
+struct Tables {
+  const float *tt, *d, *tt3, *d3, *vt;
+  __device__ PoleTables operator[](int k) const {
+    return pole_tables(tt, d, tt3, d3, vt, k);
+  }
+};
+
 // Output t of a lower-triangular block product: sum_{j<=t} xb[j]*m[j][t]
 // (the entries above the diagonal are exact zeros and add nothing).
 __device__ inline float tri_dot(const float* xb, const float* m, int t) {

@@ -36,6 +36,7 @@
 
 #include <cstdint>
 
+#include "noise.cuh"
 #include "pole.cuh"
 
 namespace cvsim {
@@ -53,24 +54,9 @@ struct ChainParams {
   int out_lowpass;  // 0 none, 1 'tv' 2.6MHz delay 1, 2 full (1.3/0.6MHz)
 };
 
-struct Tables {
-  const float *tt, *d, *tt3, *d3, *vt;
-  __device__ PoleTables operator[](int k) const {
-    return pole_tables(tt, d, tt3, d3, vt, k);
-  }
-};
-
 // table rows (fused_yiq._alpha_consts)
 enum { TAB_I = 0, TAB_Q = 1, TAB_PRE = 2, TAB_VLUMA = 3, TAB_VCHROMA = 4,
        TAB_SHARPEN = 5, TAB_TV = 6, TAB_WALK = 7 };
-
-constexpr uint32_t GOLD = 0x9E3779B9u;
-
-__device__ inline uint32_t mix32(uint32_t x) {
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
 
 // Shared-memory working set of one row: five planes of wp floats.
 struct Row {
@@ -88,28 +74,6 @@ __device__ void lowpass_writeback(Row& r, float* p, const PoleTables& tab,
     const float v = (x < r.w - delay) ? truncf(r.t1[x + delay]) : p[x];
     p[x] = (x < r.w) ? v : 0.f;
   }
-  __syncthreads();
-}
-
-// Per-row smoothed noise walk added to plane p: increments from stream
-// index plane_off + row*w + x, an alpha-0.5 pole, the pre-update value
-// (shifted right by one, column 0 zero), truncated.
-__device__ void add_walk(Row& r, float* p, const PoleTables& tab,
-                         uint32_t key, int row, int mag, uint32_t plane_off) {
-  const uint32_t span = 2u * (uint32_t)mag + 1u;
-  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
-    float u = 0.f;
-    if (x < r.w) {
-      const uint32_t idx = plane_off + (uint32_t)row * (uint32_t)r.w + (uint32_t)x;
-      const uint32_t bits = mix32(key + idx * GOLD);
-      u = (float)((int)(bits % span) - mag);
-    }
-    r.t1[x] = u;
-  }
-  __syncthreads();
-  pole(r.t1, r.t1, tab, 0.f, r.nb);
-  for (int x = threadIdx.x; x < r.wp; x += BLOCK)
-    p[x] = p[x] + (x == 0 ? 0.f : truncf(r.t1[x - 1]));
   __syncthreads();
 }
 
@@ -223,7 +187,8 @@ yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
     __syncthreads();
   }
   if (P.video_noise)
-    add_walk(r, r.y, tab[TAB_WALK], keys[2 * fld], line, P.video_noise, 0u);
+    add_walk(r.y, r.t1, tab[TAB_WALK], keys[2 * fld], line, P.video_noise, 0u,
+             w, wp, false);
   for (int x = threadIdx.x; x < wp; x += BLOCK)
     if (x >= w) r.y[x] = 0.f;
   __syncthreads();
@@ -256,9 +221,10 @@ yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
 
   if (P.chroma_noise) {
     const uint32_t key = keys[2 * fld + 1];
-    add_walk(r, r.i, tab[TAB_WALK], key, line, P.chroma_noise, 0u);
-    add_walk(r, r.q, tab[TAB_WALK], key, line, P.chroma_noise,
-             (uint32_t)P.l * (uint32_t)w);
+    add_walk(r.i, r.t1, tab[TAB_WALK], key, line, P.chroma_noise, 0u, w, wp,
+             false);
+    add_walk(r.q, r.t1, tab[TAB_WALK], key, line, P.chroma_noise,
+             (uint32_t)P.l * (uint32_t)w, w, wp, false);
   }
 
   if (P.phase_noise) {

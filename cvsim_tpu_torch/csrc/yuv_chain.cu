@@ -1,0 +1,428 @@
+// The whole gen-1 composite chain (ffmpeg_to_composite) for a batch of
+// fields of 8-bit YUV 4:2:2.
+//
+// Replaces the TPU kernel cvsim_tpu/models/fused_yuv.py _make_kernel_ab
+// (launched by composite_video_process_fused): input chroma lowpass, QAM
+// encode, preemphasis, luma noise, VHS head switch, Y/C separation + QAM
+// decode, chroma AM and phase noise (with the gen-1 rotation bug), VHS
+// bandlimit, 2-line chroma blend, luma and chroma sharpen, re-encode/
+// decode, dropout, Y/C recombine, output lowpass. It computes what that
+// kernel computes, sample for sample, including the clampu8 at every
+// place the reference writes back to its u8 planes; the plain version it
+// is held against is models/fused_yuv.chain_reference.
+//
+// Design (that of yiq_chain.cu). Every stage is local to one scanline
+// except the chroma vertical blend, and the head switch is a per-row
+// rotation by a precomputed shift with luma-black (16) fill. So the chain
+// runs as two launches with one CTA of 128 threads per (field, row):
+//   yuv_front: uint8 planes in -> kernel-A math (_a_math), head switch,
+//              _b_front (decode, chroma noise, phase noise, VHS bandlimit)
+//              -> uint8 y, u, v planes in scratch;
+//   yuv_back:  the blend against row l-1's front output (row 1 against
+//              128), then _b_back (sharpen, recombine, dropout, output
+//              lowpass) -> uint8 out.
+// Every value the front hands over is a clamped integer, so the scratch
+// planes are uint8 at the active widths. The row's planes live in shared
+// memory: luma y and two luma temporaries (wp floats each), chroma u, v
+// and one chroma temporary (wp2 floats each): 35 KB at 1080i (W = 1888).
+// The TPU kernel's stride-2 pick matrices (_down/_up) are direct indexing
+// here, and nothing is tiled or windowed.
+//
+// What bounds it: the pole products, as in yiq_chain.cu (each a 128x128
+// lower-triangular product per 128-sample block, table entries read from
+// L1/L2). The chroma poles run at half width, so a row costs about 60%
+// of the gen-2 chain's products (PERF.md). Device memory carries about
+// 8 bytes per luma sample.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "noise.cuh"
+#include "pole.cuh"
+
+namespace cvsim {
+namespace gen1 {
+
+// Launch arguments; mirrored by models/fused_yuv._YuvParams.
+struct Params {
+  int b, l, w, wp, w2, wp2;
+  int amp, amp_back;
+  int in_lowpass, v_delay;  // U delay is always 2
+  int preemph;
+  float pre_gain;
+  int video_noise, chroma_noise, phase_noise;
+  int vhs, chroma_delay, vblend;
+  float sharpen_gain, sharpen_chroma_gain;
+  int svideo, chroma_loss, yc_recombine;
+  int out_lowpass;  // 0 none, 1 lite (rate/4, delay 1), 2 full
+};
+
+// table rows (fused_yuv._alpha_consts_gen1)
+enum { TAB_U = 0, TAB_U_HP = 1, TAB_V = 2, TAB_V_HP = 3, TAB_PRE = 4,
+       TAB_VLUMA = 5, TAB_VCHROMA = 6, TAB_SHARP_Y = 7, TAB_SHARP_C = 8,
+       TAB_LITE = 9, TAB_WALK = 10 };
+
+// Shared-memory working set of one row.
+struct Row {
+  float *y, *t1, *t2;  // luma and two luma temporaries: wp each
+  float *u, *v, *tc;   // chroma and one chroma temporary: wp2 each
+  float* red;          // 4 floats for pole3
+  int w, wp, nb, w2, wp2, nb2;
+};
+
+__device__ Row row_planes(float* sm, const Params& P) {
+  Row r;
+  r.y = sm;
+  r.t1 = sm + P.wp;
+  r.t2 = sm + 2 * P.wp;
+  r.u = sm + 3 * P.wp;
+  r.v = r.u + P.wp2;
+  r.tc = r.v + P.wp2;
+  r.red = r.tc + P.wp2;
+  r.w = P.w;
+  r.wp = P.wp;
+  r.nb = P.wp / BLOCK;
+  r.w2 = P.w2;
+  r.wp2 = P.wp2;
+  r.nb2 = P.wp2 / BLOCK;
+  return r;
+}
+
+// The reference's delayed in-place writeback of a filtered chroma plane
+// (r.tc): p[x] = clampu8(tc[x+delay]) for x < w2-delay, unchanged up to
+// w2, 0 beyond.
+__device__ void chroma_writeback(Row& r, float* p, int delay) {
+  for (int x = threadIdx.x; x < r.wp2; x += BLOCK) {
+    const float v = (x < r.w2 - delay) ? u8f(r.tc[x + delay]) : p[x];
+    p[x] = (x < r.w2) ? v : 0.f;
+  }
+  __syncthreads();
+}
+
+// composite_video_chroma_lowpass on one plane: s = 2p - pole_{cut/2}(p),
+// then three poles at the cut, clampu8 delayed writeback.
+__device__ void chroma_lowpass_full(Row& r, float* p, const PoleTables& hp,
+                                    const PoleTables& lp, int delay) {
+  pole(p, r.tc, hp, 128.f, r.nb2);
+  for (int x = threadIdx.x; x < r.wp2; x += BLOCK) r.tc[x] = 2.f * p[x] - r.tc[x];
+  __syncthreads();
+  pole3(r.tc, r.tc, lp, 128.f, r.nb2, r.red);
+  chroma_writeback(r, p, delay);
+}
+
+// Three poles with register reset 128, clampu8 delayed writeback (the
+// VHS chroma bandlimit and the _lite output lowpass).
+__device__ void chroma_lowpass3(Row& r, float* p, const PoleTables& tab,
+                                int delay) {
+  pole3(p, r.tc, tab, 128.f, r.nb2, r.red);
+  chroma_writeback(r, p, delay);
+}
+
+// yuv_to_ntsc: y = clampu8(y + trunc(chroma / 50)) with the 4:2:2 chroma
+// repeated to full width; 0 past w.
+__device__ void qam_encode_u8(Row& r, int xi, int amp) {
+  const float a = (float)amp;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    float out = 0.f;
+    if (x < r.w) {
+      const int s = (xi + x) & 3;
+      const float um = s == 0 ? 1.f : (s == 2 ? -1.f : 0.f);
+      const float vm = s == 1 ? 1.f : (s == 3 ? -1.f : 0.f);
+      const int x2 = x >> 1;
+      const float u2 = (x2 < r.w2 ? r.u[x2] : 0.f) - 128.f;
+      const float v2 = (x2 < r.w2 ? r.v[x2] : 0.f) - 128.f;
+      const float chroma = u2 * (a * um) + v2 * (a * vm);
+      out = u8f(r.y[x] + truncf(chroma / 50.f));
+    }
+    r.y[x] = out;
+  }
+  __syncthreads();
+}
+
+// ntsc_to_yuv: box blur precharged with luma black 16, chroma =
+// clampu8(y[x+2] + 128 - new_y), 255-c flip on the negative half-cycles
+// (in-range samples only), biased rescale, phase-swapped demux of the
+// even/odd samples into U, V. Rotates the luma plane pointers.
+__device__ void qam_decode_u8(Row& r, int xi, int amp_back) {
+  const int w = r.w;
+  const int x0 = (4 - xi) & 3;
+  const float ab = (float)amp_back;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    const float prev = x == 0 ? 16.f : r.y[x - 1];
+    const float n1 = x + 1 < w ? r.y[x + 1] : 16.f;
+    const float n2 = x + 2 < w ? r.y[x + 2] : 16.f;
+    const float ny = floorf((prev + r.y[x] + n1 + n2) / 4.f);
+    float c = u8f(n2 + 128.f - ny);
+    const int rr = (x - x0) & 3;
+    if (rr >= 2 && x - rr >= x0) c = 255.f - c;
+    r.t2[x] = u8f(truncf(((c - 128.f) * 50.f) / ab) + 128.f);
+    r.t1[x] = x < w ? ny : 0.f;
+  }
+  __syncthreads();
+  const bool odd = (xi & 1) == 1;
+  for (int x = threadIdx.x; x < r.wp2; x += BLOCK) {
+    float nu = 0.f, nv = 0.f;
+    if (x < r.w2) {
+      const float ce = r.t2[2 * x], co = r.t2[2 * x + 1];
+      nu = odd ? 255.f - co : 255.f - ce;
+      nv = odd ? 255.f - ce : 255.f - co;
+    }
+    r.u[x] = nu;
+    r.v[x] = nv;
+  }
+  __syncthreads();
+  float* t = r.y;
+  r.y = r.t1;
+  r.t1 = t;
+}
+
+__device__ void mask_luma(Row& r) {
+  for (int x = threadIdx.x + r.w; x < r.wp; x += BLOCK) r.y[x] = 0.f;
+  __syncthreads();
+}
+
+}  // namespace gen1
+
+using gen1::Params;
+using gen1::Row;
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
+          const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
+          const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
+          const int* __restrict__ shifts, Tables tab, Params P,
+          uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
+          uint8_t* __restrict__ v_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;           // field * L + line
+  const int fld = row / P.l, line = row % P.l;
+  Row r = row_planes(sm, P);
+  const int w = r.w, wp = r.wp, w2 = r.w2, wp2 = r.wp2;
+  const int xi = xi_tab[row];
+
+  const uint8_t* py = y_in + (size_t)row * w;
+  const uint8_t* pu = u_in + (size_t)row * w2;
+  const uint8_t* pv = v_in + (size_t)row * w2;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) r.y[x] = x < w ? (float)py[x] : 0.f;
+  for (int x = threadIdx.x; x < wp2; x += BLOCK) {
+    r.u[x] = x < w2 ? (float)pu[x] : 0.f;
+    r.v[x] = x < w2 ? (float)pv[x] : 0.f;
+  }
+  __syncthreads();
+
+  // ---- _a_math
+  if (P.in_lowpass) {
+    chroma_lowpass_full(r, r.u, tab[TAB_U_HP], tab[TAB_U], 2);
+    chroma_lowpass_full(r, r.v, tab[TAB_V_HP], tab[TAB_V], P.v_delay);
+  }
+  qam_encode_u8(r, xi, P.amp);
+  if (P.preemph) {
+    pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb);
+    for (int x = threadIdx.x; x < wp; x += BLOCK)
+      r.y[x] = u8f(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
+    __syncthreads();
+  }
+  if (P.video_noise)
+    add_walk(r.y, r.t1, tab[TAB_WALK], keys[2 * fld], line, P.video_noise,
+             0u, w, wp, true);
+  mask_luma(r);
+
+  // ---- head switch: out[x] = pad[(x + s) mod twidth], pad = row then 16
+  const int s = shifts[row];
+  if (s != 0) {
+    const int twidth = w + w / 10;
+    const int sp = ((s % twidth) + twidth) % twidth;
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      float v = r.y[x];
+      if (x < w) {
+        const int j = x + sp;
+        v = j < w ? r.y[j] : (j >= twidth ? r.y[j - twidth] : 16.f);
+      }
+      r.t1[x] = v;
+    }
+    __syncthreads();
+    float* t = r.y;
+    r.y = r.t1;
+    r.t1 = t;
+  }
+
+  // ---- _b_front
+  qam_decode_u8(r, xi, P.amp_back);
+  if (P.chroma_noise) {
+    const uint32_t key = keys[2 * fld + 1];
+    add_walk(r.u, r.tc, tab[TAB_WALK], key, line, P.chroma_noise, 0u, w2,
+             wp2, true);
+    add_walk(r.v, r.tc, tab[TAB_WALK], key, line, P.chroma_noise,
+             (uint32_t)P.l * (uint32_t)w2, w2, wp2, true);
+  }
+  if (P.phase_noise) {
+    // the gen-1 rotation bug: u' = u cos - u sin, v' = v cos + v sin
+    const float sa = sincos[2 * row], ca = sincos[2 * row + 1];
+    for (int x = threadIdx.x; x < wp2; x += BLOCK) {
+      const float uu = r.u[x] - 128.f, vv = r.v[x] - 128.f;
+      r.u[x] = x < w2 ? u8f(uu * ca - uu * sa + 128.f) : 0.f;
+      r.v[x] = x < w2 ? u8f(vv * ca + vv * sa + 128.f) : 0.f;
+    }
+    __syncthreads();
+  }
+  if (P.vhs) {
+    // luma: 3 lowpasses, then emphasis against a 4th same-cut pole
+    pole3(r.y, r.t1, tab[TAB_VLUMA], 16.f, r.nb, r.red);
+    pole(r.t1, r.t2, tab[TAB_VLUMA], 16.f, r.nb);
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float t = r.t1[x];
+      r.y[x] = x < w ? u8f(t + (t - r.t2[x]) * 1.6f) : 0.f;
+    }
+    __syncthreads();
+    chroma_lowpass3(r, r.u, tab[TAB_VCHROMA], P.chroma_delay);
+    chroma_lowpass3(r, r.v, tab[TAB_VCHROMA], P.chroma_delay);
+  }
+
+  uint8_t* oy = y_out + (size_t)row * w;
+  uint8_t* ou = u_out + (size_t)row * w2;
+  uint8_t* ov = v_out + (size_t)row * w2;
+  for (int x = threadIdx.x; x < w; x += BLOCK) oy[x] = (uint8_t)r.y[x];
+  for (int x = threadIdx.x; x < w2; x += BLOCK) {
+    ou[x] = (uint8_t)r.u[x];
+    ov[x] = (uint8_t)r.v[x];
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
+         const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
+         const float* __restrict__ keep, Tables tab, Params P,
+         uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
+         uint8_t* __restrict__ v_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int line = row % P.l;
+  Row r = row_planes(sm, P);
+  const int w = r.w, wp = r.wp, w2 = r.w2, wp2 = r.wp2;
+  const int xi = xi_tab[row];
+
+  // 2-line chroma blend against the front output of the line above: line
+  // 0 kept, line 1 blended with 128 (reference quirk), floor((p+c+1)/2)
+  const bool blend = P.vblend && line > 0;
+  const uint8_t* pu = u_in + (size_t)row * w2;
+  const uint8_t* pv = v_in + (size_t)row * w2;
+  for (int x = threadIdx.x; x < wp2; x += BLOCK) {
+    float uv = 0.f, vv = 0.f;
+    if (x < w2) {
+      uv = pu[x];
+      vv = pv[x];
+      if (blend) {
+        const float qu = line == 1 ? 128.f : (float)pu[x - w2];
+        const float qv = line == 1 ? 128.f : (float)pv[x - w2];
+        uv = floorf((qu + uv + 1.f) / 2.f);
+        vv = floorf((qv + vv + 1.f) / 2.f);
+      }
+    }
+    r.u[x] = uv;
+    r.v[x] = vv;
+  }
+  const uint8_t* py = y_in + (size_t)row * w;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) r.y[x] = x < w ? (float)py[x] : 0.f;
+  __syncthreads();
+
+  // ---- _b_back
+  if (P.vhs) {
+    pole3(r.y, r.t1, tab[TAB_SHARP_Y], 16.f, r.nb, r.red);
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float yv = r.y[x];
+      r.y[x] = x < w ? u8f(yv + (yv - r.t1[x]) * P.sharpen_gain) : 0.f;
+    }
+    __syncthreads();
+    float* planes[2] = {r.u, r.v};
+    for (float* p : planes) {
+      pole3(p, r.tc, tab[TAB_SHARP_C], 128.f, r.nb2, r.red);
+      for (int x = threadIdx.x; x < wp2; x += BLOCK) {
+        const float pv2 = p[x];
+        p[x] = x < w2 ? u8f(pv2 + (pv2 - r.tc[x]) * P.sharpen_chroma_gain) : 0.f;
+      }
+      __syncthreads();
+    }
+    if (!P.svideo) {
+      qam_encode_u8(r, xi, P.amp);
+      qam_decode_u8(r, xi, P.amp);
+    }
+  }
+  if (P.chroma_loss) {
+    const float k = keep[row];
+    for (int x = threadIdx.x; x < wp2; x += BLOCK) {
+      r.u[x] = x < w2 ? r.u[x] * k + 128.f * (1.f - k) : 0.f;
+      r.v[x] = x < w2 ? r.v[x] * k + 128.f * (1.f - k) : 0.f;
+    }
+    __syncthreads();
+  }
+  for (int n = 0; n < P.yc_recombine; ++n) {
+    qam_encode_u8(r, xi, P.amp);
+    qam_decode_u8(r, xi, P.amp);
+  }
+  if (P.out_lowpass == 2) {
+    chroma_lowpass_full(r, r.u, tab[TAB_U_HP], tab[TAB_U], 2);
+    chroma_lowpass_full(r, r.v, tab[TAB_V_HP], tab[TAB_V], P.v_delay);
+  } else if (P.out_lowpass == 1) {
+    chroma_lowpass3(r, r.u, tab[TAB_LITE], 1);
+    chroma_lowpass3(r, r.v, tab[TAB_LITE], 1);
+  }
+
+  uint8_t* oy = y_out + (size_t)row * w;
+  uint8_t* ou = u_out + (size_t)row * w2;
+  uint8_t* ov = v_out + (size_t)row * w2;
+  for (int x = threadIdx.x; x < w; x += BLOCK) oy[x] = (uint8_t)r.y[x];
+  for (int x = threadIdx.x; x < w2; x += BLOCK) {
+    ou[x] = (uint8_t)r.u[x];
+    ov[x] = (uint8_t)r.v[x];
+  }
+}
+
+}  // namespace cvsim
+
+// C entry point (bound with ctypes by cvsim_tpu_torch/kernels.py). Launches
+// both kernels on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() (0 on success). scratch: 3 uint8 planes,
+// b*l*(w + 2*w2) bytes.
+extern "C" int cvsim_yuv_chain(const void* y, const void* u, const void* v,
+                               const void* xi, const void* keys,
+                               const void* sincos, const void* keep,
+                               const void* shifts, const void* tt,
+                               const void* d, const void* tt3, const void* d3,
+                               const void* vt, void* scratch, void* y_out,
+                               void* u_out, void* v_out, const void* params,
+                               void* stream) {
+  using namespace cvsim;
+  const Params P = *static_cast<const Params*>(params);
+  if (P.wp % BLOCK != 0 || P.wp2 % BLOCK != 0 || P.w > P.wp || P.w < 3 ||
+      P.w2 > P.wp2 || P.w2 < 1 || 2 * P.w2 > P.w)
+    return (int)cudaErrorInvalidValue;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  const size_t smem = (size_t)(3 * P.wp + 3 * P.wp2 + 4) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(yuv_front, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaFuncSetAttribute(yuv_back, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  const Tables tab{static_cast<const float*>(tt), static_cast<const float*>(d),
+                   static_cast<const float*>(tt3), static_cast<const float*>(d3),
+                   static_cast<const float*>(vt)};
+  uint8_t* sy = static_cast<uint8_t*>(scratch);
+  uint8_t* su = sy + (size_t)rows * P.w;
+  uint8_t* sv = su + (size_t)rows * P.w2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  yuv_front<<<rows, BLOCK, smem, s>>>(
+      static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(xi),
+      static_cast<const uint32_t*>(keys), static_cast<const float*>(sincos),
+      static_cast<const int*>(shifts), tab, P, sy, su, sv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  yuv_back<<<rows, BLOCK, smem, s>>>(
+      sy, su, sv, static_cast<const int*>(xi), static_cast<const float*>(keep),
+      tab, P, static_cast<uint8_t*>(y_out), static_cast<uint8_t*>(u_out),
+      static_cast<uint8_t*>(v_out));
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,512 @@
+"""Gen-1 streaming pipeline: demux -> field clock -> one device step per GOP
+-> pack -> mux (ffmpeg_to_composite.cpp main :1957-2340). Twin of the
+video side of cvsim_tpu.host.pipeline.
+
+Three threads, as in the JAX package:
+
+- **reader**: Y4M demux, field-clock targeting and GOP batch assembly
+  (host/batching.py): raw uint8 frames plus row-gather codes. On a GPU it
+  also copies each GOP's flat buffer into its own pinned host tensor.
+- **main**: per GOP, the asynchronous H2D copy and `gop_step` on the
+  device: unpack the flat wire buffer, horizontal scale, the 8-bit field
+  render, the sequential black-key scan (its filter planes carried across
+  GOPs), the chain (models/yuv422.composite_video_process_auto), the
+  uint8 pack; then an asynchronous D2H copy and an event.
+- **writer**: waits for the event, packs bob/interlaced frames with numpy
+  row gathers, writes Y4M, saves checkpoints.
+
+Audio (-audio-in) and multi-GPU runs (-devices > 1) are not yet ported.
+"""
+
+from __future__ import annotations
+
+import io
+import queue
+import sys
+import threading
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from cvsim_tpu.config import RunConfig
+from cvsim_tpu.host import fieldops, timing, y4m
+from cvsim_tpu.host.batching import (
+    FieldBatcher,
+    hscale_consts,
+    render_index_tables,
+)
+from cvsim_tpu_torch.interop import key32_from_seed
+from cvsim_tpu_torch.models import yuv422
+
+
+def _interleave_np(top: np.ndarray, bottom: np.ndarray) -> np.ndarray:
+    out = np.empty((top.shape[0] * 2, top.shape[1]), top.dtype)
+    out[0::2] = top
+    out[1::2] = bottom
+    return out
+
+
+def _bkey_scan(y, u, v, fy, fu, fv, level: int, valid):
+    """Sequential black-key feedback over the batch axis. `valid` (host
+    ints, one per field) freezes the carried filter planes on padded batch
+    slots: padding repeats the last real field, and letting duplicates
+    advance the frame-sequential feedback would corrupt every later field
+    and the checkpointed carry."""
+    oy, ou, ov = [], [], []
+    for k in range(y.shape[0]):
+        (py, pu, pv), new = yuv422.black_key_feedback(
+            y[k], u[k], v[k], fy, fu, fv, level)
+        if valid[k]:
+            fy, fu, fv = new
+        oy.append(py)
+        ou.append(pu)
+        ov.append(pv)
+    return (torch.stack(oy), torch.stack(ou), torch.stack(ov)), (fy, fu, fv)
+
+
+class CompositePipeline:
+    """Gen-1 flagship pipeline (ffmpeg_to_composite equivalent), video
+    side."""
+
+    def __init__(self, cfg: RunConfig, gop: int = 64, progress: bool = True,
+                 die=None, device: torch.device | str = "cuda",
+                 devices: int = 0):
+        if devices > 1:
+            raise ValueError(
+                f"-devices {devices}: multi-GPU runs are not yet ported to "
+                "cvsim_tpu_torch")
+        self.cfg = cfg
+        self.gop = gop
+        self.die = die or {"die": 0}
+        self.progress = progress
+        self.device = torch.device(device)
+        self.key = key32_from_seed(cfg.seed)
+        out = cfg.output
+        self._field_rate = Fraction(out.field_rate_num, out.field_rate_den)
+        l = out.height // 2
+        w2 = out.width // 2
+        full = lambda shape, v: torch.full(shape, v, dtype=torch.int32,
+                                           device=self.device)
+        self._filter_planes = (full((l, out.width), 16), full((l, w2), 128),
+                               full((l, w2), 128))
+        self._programs = {}
+        self._bob_map_cache = {}
+
+    # ----------------------------------------------------------- device step
+
+    def _gop_program(self, src_h: int, src_w: int, chroma_h: int,
+                     chroma_w: int, src_interlaced: bool, src_tff: bool):
+        """The device step for one source geometry: flat-buffer unpack +
+        hscale + field render + black-key + chain + uint8 pack. Inputs are
+        the GOP's two wire arrays (pix uint8, meta int32, on the device),
+        the host `valid` flags and the carried filter planes."""
+        cache_key = (src_h, src_w, chroma_h, chroma_w, src_interlaced,
+                     src_tff)
+        prog = self._programs.get(cache_key)
+        if prog is not None:
+            return prog
+        cfg = self.cfg
+        out = cfg.output
+        ccfg = cfg.composite
+        bkey = cfg.black_key_level_feedback
+        gop = self.gop
+        dev = self.device
+        max_frames = gop // 2 + 2
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        def consts(src, dst):
+            c = hscale_consts(src, dst)
+            return None if c is None else tuple(t(a) for a in c)
+
+        luma_consts = consts(src_w, out.width)
+        chroma_consts = consts(chroma_w, out.width // 2)
+        # [4, L] row/frac tables for every (parity, interlace-flip) code;
+        # rows past the source's last line (read with frac 0) are clamped
+        # to it, as jax's gather clamps them
+        yt1, yt2, ytf, ct1, ct2, ctf = render_index_tables(
+            out.height, src_h, chroma_h, src_interlaced, src_tff)
+        yt1, yt2 = (t(np.clip(a, 0, src_h - 1)).long() for a in (yt1, yt2))
+        ct1, ct2 = (t(np.clip(a, 0, chroma_h - 1)).long() for a in (ct1, ct2))
+        ytf, ctf = t(ytf), t(ctf)
+        ny = max_frames * src_h * src_w
+        nu = max_frames * chroma_h * chroma_w
+
+        def hscale(p, c):
+            # bit-identical to colorconv.hscale_bilinear: f32 lerp, round
+            # half to even
+            p = p.to(torch.int32)
+            if c is None:
+                return p
+            x0, x1, f = c
+            pf = p.to(torch.float32)
+            s0 = pf[..., x0]
+            s1 = pf[..., x1]
+            return torch.round(s0 + (s1 - s0) * f).to(torch.int32)
+
+        def gop_step(pix, meta, valid, filter_planes):
+            fy = pix[:ny].view(max_frames, src_h, src_w)
+            fu = pix[ny:ny + nu].view(max_frames, chroma_h, chroma_w)
+            fv = pix[ny + nu:ny + 2 * nu].view(max_frames, chroma_h, chroma_w)
+            src_idx = meta[:gop].long()
+            code = meta[gop:2 * gop].long()
+            fieldno = meta[2 * gop:3 * gop]
+            parity = meta[3 * gop:4 * gop]
+
+            sy = hscale(fy, luma_consts)
+            su = hscale(fu, chroma_consts)
+            sv = hscale(fv, chroma_consts)
+
+            def render(p, t1, t2, tf):
+                # d = s1 + ((s2 - s1) * frac >> 8), render_field's 8-bit
+                # interpolation (ffmpeg_to_composite.cpp:1098-1099)
+                s1 = p[src_idx[:, None], t1[code]]
+                s2 = p[src_idx[:, None], t2[code]]
+                fr = tf[code]
+                return s1 + (((s2 - s1) * fr[..., None]) >> 8)
+
+            y = render(sy, yt1, yt2, ytf)
+            u = render(su, ct1, ct2, ctf)
+            v = render(sv, ct1, ct2, ctf)
+            if bkey >= 0:
+                (y, u, v), filter_planes = _bkey_scan(
+                    y, u, v, *filter_planes, bkey, valid)
+            if cfg.enable_composite_emulation:
+                y, u, v = yuv422.composite_video_process_auto(
+                    y, u, v, fieldno, parity, self.key, cfg=ccfg)
+            packed = torch.cat([p.to(torch.uint8) for p in (y, u, v)], dim=2)
+            return packed, filter_planes
+
+        self._programs[cache_key] = gop_step
+        return gop_step
+
+    # ------------------------------------------------------------- emit side
+
+    def _bob_maps(self, parity: int):
+        """Field-line gather maps for bob packing: output row j of the bob
+        frame reads field line map[j] (output_frame, :1178-1235)."""
+        maps = self._bob_map_cache.get(parity)
+        if maps is None:
+            h = self.cfg.output.height
+            rows = fieldops.bob_rows(h, parity)
+            luma = ((rows - parity) >> 1).astype(np.int64)
+            chroma = ((rows[0::2] - parity) >> 1).astype(np.int64)
+            maps = (luma, chroma)
+            self._bob_map_cache[parity] = maps
+        return maps
+
+    def _emit_field(self, y, u, v, fieldno, parity, writer, pending):
+        """Pack one processed uint8 field into the output stream (numpy row
+        gathers only)."""
+        out = self.cfg.output
+        if out.interlaced_output:
+            pending[parity] = (y, u, v)
+            if parity == 0 and 1 in pending and 0 in pending:
+                # field pair complete: bottom field first (parity of field k
+                # is (k & 1) ^ 1, so even field counters are bottom lines)
+                top, bottom = pending[0], pending[1]
+                fy = _interleave_np(top[0], bottom[0])
+                fu = _interleave_np(top[1], bottom[1])
+                fv = _interleave_np(top[2], bottom[2])
+                self._write_frame(writer, fy, fu, fv)
+                pending.clear()
+        else:
+            luma_map, chroma_map = self._bob_maps(parity)
+            if out.use_422_colorspace:
+                writer.write(y[luma_map], u[luma_map], v[luma_map])
+            else:
+                writer.write(y[luma_map], u[chroma_map], v[chroma_map])
+        if self.progress:
+            print(f"\x0dOutput field {fieldno} ", end="", file=sys.stderr)
+
+    def _write_frame(self, writer, y, u, v):
+        if self.cfg.output.use_422_colorspace:
+            writer.write(y.astype(np.uint8), u.astype(np.uint8),
+                         v.astype(np.uint8))
+        elif self.cfg.output.interlaced_output:
+            # interlaced 4:2:0 chroma interleaves the two fields' chroma rows
+            # (output_frame, ffmpeg_to_composite.cpp:1215-1224)
+            h = y.shape[0]
+            sel = np.arange(h)[(np.arange(h) & 2) == 0]
+            cy = (sel & 1) + ((sel & ~3) >> 1)
+            cu = np.zeros((h // 2, u.shape[1]), u.dtype)
+            cv = np.zeros((h // 2, v.shape[1]), v.dtype)
+            cu[cy] = u[sel]
+            cv[cy] = v[sel]
+            writer.write(y.astype(np.uint8), cu.astype(np.uint8),
+                         cv.astype(np.uint8))
+        else:
+            writer.write(y.astype(np.uint8),
+                         u[0::2].astype(np.uint8), v[0::2].astype(np.uint8))
+
+    # ------------------------------------------------------------ video side
+
+    def run_video(self, reader: y4m.Y4MReader, out_stream,
+                  ckpt_path: str | None = None, ckpt_every: int = 4,
+                  frame_log=None, frame_log_rate: int = 90000,
+                  _fail_after_gops: int | None = None):
+        """Drive video frames from a Y4M reader through the chain with
+        reader / device / writer work overlapped in threads.
+
+        ckpt_path enables checkpoint/resume (host/checkpoint.py, the JAX
+        package's contract and file format): the writer thread saves a
+        resumable cursor plus the black-key carry every `ckpt_every` GOPs,
+        and a matching existing checkpoint resumes the run (output
+        truncated to the recorded frame boundary, reader moved past the
+        consumed source frames). _fail_after_gops is a test hook that
+        injects a crash after N GOPs are written."""
+        from cvsim_tpu.host import checkpoint
+
+        cfg = self.cfg
+        out = cfg.output
+        dev = self.device
+        on_gpu = dev.type == "cuda"
+        hdr = reader.header
+        src_interlaced = hdr.interlacing in ("t", "b")
+        src_tff = hdr.interlacing != "b"
+
+        clock = timing.FrameClock(hdr.fps, self._field_rate,
+                                  log=frame_log or None,
+                                  log_rate=frame_log_rate)
+        # In-band VFR: a FRAME marker may carry the container's (pts,
+        # duration) at 90 kHz ("Xt=p:d", y4m.Y4MReader.frame_params).
+        # Disabled under checkpointing: a resumed run cannot recover the
+        # skipped frames' timestamps.
+        use_inband_ts = frame_log is None and ckpt_path is None
+
+        def push_inband_ts(params):
+            xt = params.get("Xt")
+            if xt is None:
+                return
+            p, _, d = xt.partition(":")
+            dur = max(1, int(d))
+            if clock.log is None:
+                clock.log = []
+            if p in ("n", "-1"):   # no container pts: extend by cadence
+                pts = (clock.log[-1][0] + clock.log[-1][1]
+                       if clock.log else 0)
+            else:
+                pts = int(p)
+            clock.log.append((pts, dur))
+
+        out_fps = (self._field_rate / 2 if out.interlaced_output
+                   else self._field_rate)
+        whdr = y4m.Y4MHeader(
+            width=out.width, height=out.height, fps=out_fps,
+            # bottom field first: field k's parity is (k & 1) ^ 1
+            interlacing=("b" if out.interlaced_output else "p"),
+            aspect="4:3",
+            colorspace="422" if out.use_422_colorspace else "420jpeg")
+
+        run_hash = checkpoint.config_hash(
+            cfg, hdr, self.gop,
+            (frame_log, frame_log_rate) if frame_log else None)
+        resume_field = 0
+        frames_written = 0
+        ckpt_base_idx = None
+        if ckpt_path:
+            loaded = checkpoint.load(ckpt_path)
+            if loaded and loaded[0].get("hash") == run_hash:
+                meta, arrs = loaded
+                resume_field = int(meta["next_field"])
+                frames_written = int(meta["frames_written"])
+                ckpt_base_idx = meta["base_idx"]
+                self._filter_planes = tuple(
+                    torch.from_numpy(np.asarray(arrs[k], np.int32)).to(dev)
+                    for k in ("fy", "fu", "fv"))
+                if self.progress:
+                    print(f"Resuming at field {resume_field} "
+                          f"({frames_written} frames already written)",
+                          file=sys.stderr)
+            elif loaded:
+                print("Checkpoint exists but flags/input changed; "
+                      "starting over", file=sys.stderr)
+
+        if resume_field:
+            hdr_line = whdr.header_line()
+            out_stream.seek(0)
+            if out_stream.read(len(hdr_line)) != hdr_line:
+                raise ValueError(
+                    "resume: existing output header does not match")
+            fsize = 6 + whdr.frame_bytes()   # b"FRAME\n" + payload
+            out_stream.seek(len(hdr_line) + frames_written * fsize)
+            out_stream.truncate()
+            writer = y4m.Y4MWriter(out_stream, whdr, write_header=False)
+            writer.frames_written = frames_written
+            # skip source frames that only feed fields < resume_field
+            base0 = ckpt_base_idx or 0
+            rel0 = 0
+            while clock.fields(base0 + rel0, base0)[1] <= resume_field:
+                rel0 += 1
+            skip_n = base0 + rel0
+            checkpoint.skip_y4m_frames(reader, skip_n)
+        else:
+            try:
+                # a reused output stream (resume attempted, hash mismatch)
+                # must restart from zero bytes; pipes reject this harmlessly
+                out_stream.seek(0)
+                out_stream.truncate()
+            except (OSError, io.UnsupportedOperation, AttributeError):
+                pass
+            writer = y4m.Y4MWriter(out_stream, whdr)
+            skip_n = 0
+
+        ch, cw = hdr.chroma_shape
+        chroma_h = ch or hdr.height
+        chroma_w = cw or hdr.width // 2
+        gop_step = self._gop_program(hdr.height, hdr.width, chroma_h,
+                                     chroma_w, src_interlaced, src_tff)
+        batcher = FieldBatcher(
+            gop=self.gop, src_height=hdr.height, chroma_height=chroma_h,
+            luma_w=hdr.width, chroma_w=chroma_w)
+
+        q_in: queue.Queue = queue.Queue(maxsize=2)
+        q_out: queue.Queue = queue.Queue(maxsize=2)
+        errors: list[BaseException] = []
+        fields_done = {"n": 0}
+        base_idx_box = {"v": ckpt_base_idx}
+
+        def put_batch(b):
+            # each GOP gets its own pinned host tensor, so that a refill
+            # can never race an asynchronous H2D copy still reading it
+            b.pix = torch.from_numpy(b.pix)
+            b.meta = torch.from_numpy(b.meta)
+            if on_gpu:
+                b.pix = b.pix.pin_memory()
+                b.meta = b.meta.pin_memory()
+            q_in.put(b)
+
+        def read_loop():
+            video_field = resume_field
+            # the first accepted frame rebases the clock to zero (the
+            # reference's adj_time, :2264-2265)
+            base_idx = ckpt_base_idx if resume_field else None
+            try:
+                for local_idx, (ysrc, usrc, vsrc) in enumerate(reader):
+                    if self.die["die"]:
+                        # soft stop: finish queued batches, write the
+                        # trailer (reference soft-SIGINT, :62-66,2120-2124)
+                        break
+                    if use_inband_ts:
+                        push_inband_ts(reader.frame_params)
+                    frame_idx = local_idx + skip_n
+                    t = clock.seconds(frame_idx)
+                    if cfg.transcode_end >= 0 and t >= cfg.transcode_end:
+                        break
+                    if t < cfg.transcode_start:
+                        continue
+                    if base_idx is None:
+                        base_idx = frame_idx
+                        base_idx_box["v"] = base_idx
+                    frame_pts, tgt = clock.fields(frame_idx, base_idx)
+                    tgt = timing.video_target_field(tgt, video_field)
+                    batcher.add_frame(ysrc, usrc, vsrc)
+                    while video_field < tgt:
+                        parity = (video_field & 1) ^ 1   # bottom first :1784
+                        b = batcher.add_field(
+                            video_field, parity,
+                            max(0, video_field - frame_pts))
+                        if b is not None:
+                            put_batch(b)
+                        video_field += 1
+                b = batcher.finish()
+                if b is not None:
+                    put_batch(b)
+                fields_done["n"] = video_field
+            except BaseException as e:   # propagate to the main thread
+                errors.append(e)
+            finally:
+                q_in.put(None)
+
+        pending: dict = {}
+        w = out.width
+        wc = w // 2
+        wrote = {"gops": 0}
+
+        def write_loop():
+            try:
+                while True:
+                    item = q_out.get()
+                    if item is None:
+                        return
+                    packed, done, fieldnos, parities, n_real, planes = item
+                    if done is not None:
+                        done.synchronize()
+                    buf = packed.numpy()
+                    for k in range(n_real):
+                        row = buf[k]
+                        self._emit_field(
+                            row[:, :w], row[:, w:w + wc], row[:, w + wc:],
+                            int(fieldnos[k]), int(parities[k]),
+                            writer, pending)
+                    wrote["gops"] += 1
+                    if (ckpt_path and not pending
+                            and wrote["gops"] % ckpt_every == 0):
+                        out_stream.flush()
+                        fy, fu, fv = (p.numpy() for p in planes)
+                        checkpoint.save(
+                            ckpt_path,
+                            {"hash": run_hash,
+                             "cfg_hash": checkpoint.config_hash(cfg),
+                             "next_field": int(fieldnos[n_real - 1]) + 1,
+                             "frames_written": writer.frames_written,
+                             "base_idx": base_idx_box["v"]},
+                            {"fy": fy, "fu": fu, "fv": fv})
+                    if (_fail_after_gops is not None
+                            and wrote["gops"] >= _fail_after_gops):
+                        raise RuntimeError("injected checkpoint-test crash")
+            except BaseException as e:
+                errors.append(e)
+                while q_out.get() is not None:   # drain; main never blocks
+                    pass
+
+        rt = threading.Thread(target=read_loop, name="cvsim-read", daemon=True)
+        wt = threading.Thread(target=write_loop, name="cvsim-write", daemon=True)
+        rt.start()
+        wt.start()
+        try:
+            while True:
+                b = q_in.get()
+                if b is None:
+                    break
+                gop = self.gop
+                valid = b.meta[4 * gop:5 * gop].tolist()
+                pix = b.pix.to(dev, non_blocking=True)
+                meta = b.meta.to(dev, non_blocking=True)
+                # noise is content-addressed per (seed, fieldno, stage): the
+                # base key passes straight through, so output is GOP- and
+                # restart-invariant
+                packed, self._filter_planes = gop_step(
+                    pix, meta, valid, self._filter_planes)
+                done = None
+                if on_gpu:
+                    # D2H into pinned memory; the writer waits on `done`
+                    packed = packed.to("cpu", non_blocking=True)
+                    planes = tuple(p.to("cpu", non_blocking=True)
+                                   for p in self._filter_planes)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    planes = self._filter_planes
+                q_out.put((packed, done, b.fieldno, b.parity, b.n_real,
+                           planes))
+        finally:
+            # always unwind the threads, also when gop_step raised: the
+            # writer needs its sentinel, and the reader may be blocked on a
+            # full q_in; drain until it exits so no thread outlives us
+            q_out.put(None)
+            while rt.is_alive():
+                try:
+                    while True:
+                        q_in.get_nowait()
+                except queue.Empty:
+                    pass
+                rt.join(timeout=0.1)
+            wt.join()
+        if errors:
+            raise errors[0]
+        if ckpt_path:
+            checkpoint.clear(ckpt_path)
+        if self.progress:
+            print("", file=sys.stderr)
+        return fields_done["n"]

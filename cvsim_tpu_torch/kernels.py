@@ -1,11 +1,12 @@
 """Builds and loads the port's CUDA kernels.
 
-At first use, `nvcc` compiles every `csrc/*.cu` into one shared library
-with a plain C interface, for Hopper (sm_90a), into `_build/<hash>/`
-inside the package (listed in .gitignore). The hash covers the sources and
-the flags, so an edit rebuilds. The library is loaded with ctypes, with
-argtypes set for every entry point. A missing nvcc or a failed build
-raises; nothing falls back.
+At first use, `nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, in `_build/<hash>/` inside the
+package (listed in .gitignore). The hash covers the sources and the flags,
+so an edit rebuilds. The library is loaded with ctypes, with argtypes set
+for every entry point. A missing nvcc or a failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import threading
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _BUILD = os.path.join(_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               # the float math mirrors the JAX kernel op for op; only the
               # explicit fmaf calls of the block products may fuse
               "-fmad=false", "-Xptxas", "-v"]
@@ -62,14 +63,35 @@ def build() -> str:
     lib = library_path()
     if os.path.exists(lib):
         return lib
-    os.makedirs(os.path.dirname(lib), exist_ok=True)
-    tmp = f"{lib}.tmp.{os.getpid()}"
-    cus = [s for s in _sources() if s.endswith(".cu")]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                          capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    out_dir = os.path.dirname(lib)
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"tmp.{os.getpid()}"
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = f"{lib}.{tag}"
+    if not failed:
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(link.returncode)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    BUILD_LOG = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{BUILD_LOG}")
     os.replace(tmp, lib)   # atomic: no process loads a half-written library
     return lib
 
@@ -83,6 +105,8 @@ def load():
             ptr = ctypes.c_void_p
             lib.cvsim_yiq_chain.argtypes = [ptr] * 15
             lib.cvsim_yiq_chain.restype = ctypes.c_int
+            lib.cvsim_yuv_chain.argtypes = [ptr] * 19
+            lib.cvsim_yuv_chain.restype = ctypes.c_int
             lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,1 +1,2 @@
-"""Gen-2 engine: stage path and fused chain (twins of cvsim_tpu.models)."""
+"""The gen-2 and gen-1 engines: stage paths and fused chains (twins of
+cvsim_tpu.models)."""

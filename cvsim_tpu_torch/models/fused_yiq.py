@@ -80,14 +80,16 @@ def _stack_alpha_consts(alphas):
 # ------------------------------------------------------------ inputs
 
 class Prepared(NamedTuple):
-    """Inputs of one chain call, all on the device of the RGB batch."""
+    """Inputs of one chain call, all on the device of the fields (shared
+    with the gen-1 chain of models/fused_yuv.py)."""
     xi: torch.Tensor        # int32 [B, L]
     keys_ab: torch.Tensor   # int64 [B, 2] u32 stream ids (luma, chroma noise)
     sincos: torch.Tensor    # f32 [B, L, 2]
     keep: torch.Tensor      # f32 [B, L]
     shifts: torch.Tensor    # int32 [B, L]
-    tables: tuple           # f32 tt [8,128,128], d [8,128], tt3 [8,128,128],
-                            #     d3 [8,8,128], vt [8,128,8]
+    tables: tuple           # f32 tt [N,128,128], d [N,128], tt3 [N,128,128],
+                            #     d3 [N,8,128], vt [N,128,8]; N = 8 rows
+                            #     for gen-2, 11 for gen-1
 
 
 def prepare(cfg: CompositeConfig, rgb: torch.Tensor, fieldno: torch.Tensor,

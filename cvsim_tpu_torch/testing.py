@@ -44,6 +44,36 @@ BENCH_VHS_EP = CompositeConfig(
     video_chroma_noise=16, video_chroma_phase_noise=4, video_chroma_loss=4,
     vhs_tape_speed=VHSSpeed.EP)
 
+# the gen-1 configurations of the JAX package's fused-vs-stage chain tests
+# (tests/test_fused_chain.py GEN1_CONFIGS)
+GEN1_CHAIN_CONFIGS = {
+    "defaults-noise-off": CompositeConfig(video_noise=0),
+    "noise": CompositeConfig(video_noise=6),
+    "vhs-sp": CompositeConfig(video_noise=0, emulating_vhs=True),
+    "pal": CompositeConfig(video_noise=0, ntsc=False),
+    "full-ep-stochastic": CompositeConfig(
+        video_noise=6, emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP,
+        vhs_head_switching=True, vhs_head_switching_point=0.15,
+        vhs_head_switching_phase_noise=0.0, video_chroma_noise=22,
+        video_chroma_phase_noise=6, video_chroma_loss=100),
+    "out-full-recomb": CompositeConfig(
+        video_noise=0, composite_out_chroma_lowpass=True,
+        composite_out_chroma_lowpass_lite=False, video_yc_recombine=2),
+    "preemph-catv": CompositeConfig(
+        video_noise=0, composite_preemphasis=1.5,
+        composite_preemphasis_cut=315000000 / 88 / 2,
+        subcarrier_amplitude_back=68),
+    "svideo-novblend": CompositeConfig(
+        video_noise=0, emulating_vhs=True, vhs_svideo_out=True,
+        vhs_chroma_vert_blend=False),
+}
+
+# the JAX bench's gen-1 VHS-EP configuration (bench.py:349-352)
+BENCH_GEN1_EP = CompositeConfig(
+    emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP, vhs_head_switching=True,
+    video_noise=6, video_chroma_noise=22, video_chroma_phase_noise=6,
+    video_chroma_loss=8)
+
 
 def chain_diff(a, b) -> tuple[int, float]:
     """(max abs difference, fraction of samples that differ) of two
