@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (or more).
 
     python3 chip_smoke.py
 
@@ -12,17 +12,27 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      (2,540,1888); the gen-1 kernel (yuv_chain) for every gen-1 chain
      configuration at the same two small shapes and the gen-1 bench
      VHS-EP configuration at (8,240,720) NTSC, (8,288,720) PAL and
-     (2,540,1888); prepare() on the card == on the CPU for both;
-  4. the main paths, each with its kernel's launch count set to 0 just
+     (2,540,1888); the split gen-2 kernels (yiq_a, yiq_b1, yiq_b2) on row
+     shards at row0 = 0 and row0 > 0 for every gen-2 configuration and for
+     the bench configuration at 240x704 B=64 and 540x1888 B=16 cut into 4
+     shards; prepare() on the card == on the CPU for all;
+  4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
      colour-bar clip of 64 frames (128 fields, two GOPs); colour bars
      kept; the first 8 frames again through `--device cpu`, compared
      within the chain tolerance; then a short `to-composite
      -bkey-feedback 20` run on a clip with dark, keyed rows, cuda vs cpu;
+     then the multi-device paths: both tools with `-devices 1`, byte-
+     identical to the runs without it; `-devices <count+1>` fails and names
+     the count; the line-sharded program (4 row shards on one card, and
+     over every card) at 240x704 B=64 and 540x1888 B=16 against kernel #1;
+     with more than one card, both tools with `-devices <count>`;
   5. times: each kernel vs its plain version at B=64 (240x704 gen-2,
-     240x720 gen-1; CUDA events, median of 5), the gen-1 black-key scan's
-     host cost per GOP, and each CLI's end-to-end fields/s.
+     240x720 gen-1; the split kernels also at 540x1888 B=16; CUDA events,
+     median of 5), the split program vs kernel #1's path, the gen-1
+     black-key scan's host cost per GOP, and each CLI's end-to-end
+     fields/s.
 The line before the last is the card's name and power limit; the one
 before it lists each kernel as JSON. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -267,6 +277,54 @@ def kernel_cases_gen1(dev, key) -> int:
     return max_err
 
 
+SPLIT_KERNELS = ("yiq_a", "yiq_b1", "yiq_b2")
+
+
+def kernel_cases_split(dev, key) -> dict:
+    """[3] yiq_a, yiq_b1, yiq_b2 vs their plain versions on row shards
+    (testing.check_split_kernels); returns each kernel's largest difference
+    of its own output (a float plane for yiq_a and yiq_b1)."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import fused_yiq
+    from cvsim_tpu_torch.testing import (BENCH_VHS_EP, CHAIN_CONFIGS,
+                                         check_split_kernels)
+
+    cases = [(n, c, shape, row0, 16) for n, c in sorted(CHAIN_CONFIGS.items())
+             for shape, row0 in (((2, 64, 128), 0), ((2, 64, 128), 48),
+                                 ((1, 64, 176), 16))]
+    cases += [("bench-vhs-ep", BENCH_VHS_EP, (64, 240, 704), row0, 60)
+              for row0 in (0, 180)]
+    cases += [("bench-vhs-ep", BENCH_VHS_EP, (16, 540, 1888), row0, 135)
+              for row0 in (0, 405)]
+    errs = dict.fromkeys(SPLIT_KERNELS, 0)
+    for name, cfg, (b, l, w), row0, rows in cases:
+        rng = np.random.default_rng(
+            zlib.crc32(f"split{name}{b}{l}{w}{row0}".encode()))
+        rgb_np = rng.integers(0, 256, (b, rows, w, 3)).astype(np.uint8)
+        rgb = torch.from_numpy(rgb_np).to(dev)
+        fn = torch.arange(b, dtype=torch.int32) + 3
+        par = fn % 2
+        prep = fused_yiq.prepare(cfg, rgb, fn, par, key, row0=row0, l_glob=l)
+        diffs = check_split_kernels(cfg, rgb, prep,
+                                    err_msg=f"{name} {(b, l, w)} row0 {row0}")
+        for k, d in diffs.items():
+            errs[k] = max(errs[k], d["plane"][0])
+        print(f"[3] split {name} {(b, l, w)} rows {row0}..{row0 + rows - 1}: "
+              + "; ".join(f"{k} own output max {d['plane'][0]} frac "
+                          f"{d['plane'][1]:.2e}, to RGB max {d['rgb'][0]} "
+                          f"frac {d['rgb'][1]:.2e}" for k, d in diffs.items()))
+        check_prepare(prep, lambda: fused_yiq.prepare(
+            cfg, torch.from_numpy(rgb_np), fn, par, key, row0=row0,
+            l_glob=l), name)
+    print(f"[3] split kernels: prepare() on the card == on the CPU in all "
+          f"{len(cases)} cases; tolerance: the float planes of yiq_a and "
+          f"yiq_b1 max |diff| <= 16 on <= 2% of samples, every output "
+          f"once carried to 8-bit RGB {TOLERANCE}")
+    return errs
+
+
 def run_cli(cli_main, module, args):
     """One in-process CLI run with `module`'s launch count set to 0 just
     before it; returns (seconds, launches, header, frames)."""
@@ -284,6 +342,87 @@ def run_cli(cli_main, module, args):
     return seconds, launches, hdr, frames
 
 
+def cli_fails(cli_main, args) -> tuple[int, str]:
+    """(exit code, standard error) of an in-process CLI run."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(args)
+    return rc, err.getvalue()
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def split_shapes(dev, key):
+    """The bench VHS-EP inputs at the two full-width shapes of the split
+    program: (label, rgb, fieldno, parity, prepare() of the whole field)."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import fused_yiq
+    from cvsim_tpu_torch.testing import BENCH_VHS_EP
+
+    out = []
+    for b, l, w in ((64, 240, 704), (16, 540, 1888)):
+        rng = np.random.default_rng(zlib.crc32(f"lines{b}{l}{w}".encode()))
+        rgb = torch.from_numpy(
+            rng.integers(0, 256, (b, l, w, 3)).astype(np.uint8)).to(dev)
+        fn = torch.arange(b, dtype=torch.int32) + 11
+        prep = fused_yiq.prepare(BENCH_VHS_EP, rgb, fn, fn % 2, key)
+        out.append((f"{l}x{w} B={b}", rgb, fn, fn % 2, prep))
+    return out
+
+
+def line_sharded_paths(shapes, key) -> dict:
+    """[4] the line-sharded program (kernels #2-#4) with the split
+    kernels' launch counts set to 0 just before and read just after: 4 row
+    shards on card 0 (run_fused_lines_local), then the mesh path over every
+    card (run_sharded_chain_fused_lines, one row shard per card), each
+    against kernel #1 on the whole field. Returns the launch counts."""
+    import torch
+
+    from cvsim_tpu_torch.models import fused_yiq
+    from cvsim_tpu_torch.parallel import (make_mesh, run_fused_lines_local,
+                                          run_sharded_chain_fused_lines)
+    from cvsim_tpu_torch.testing import (BENCH_VHS_EP, assert_chain_equal,
+                                         chain_diff)
+
+    count = torch.cuda.device_count()
+    mesh = make_mesh(count, "cuda", dp=1)
+    want = [fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=BENCH_VHS_EP)
+            .cpu().numpy() for _, rgb, _, _, prep in shapes]
+    fused_yiq.A_LAUNCHES = fused_yiq.B1_LAUNCHES = fused_yiq.B2_LAUNCHES = 0
+    results = []
+    for (label, rgb, fn, par, _), ref in zip(shapes, want):
+        got = run_fused_lines_local(BENCH_VHS_EP, rgb, fn, par, key, sp=4)
+        results.append((f"{label} sp=4 on one card", got, ref))
+        if rgb.shape[1] % count == 0:
+            got = run_sharded_chain_fused_lines(mesh, BENCH_VHS_EP, rgb, fn,
+                                                par, key)
+            results.append((f"{label} over {count} card(s)", got, ref))
+    torch.cuda.synchronize()
+    launches = {"yiq_a": fused_yiq.A_LAUNCHES,
+                "yiq_b1": fused_yiq.B1_LAUNCHES,
+                "yiq_b2": fused_yiq.B2_LAUNCHES}
+    for what, got, ref in results:
+        got = got.cpu().numpy()
+        dmax, frac = chain_diff(got, ref)
+        print(f"[4] line-sharded program {what} vs yiq_chain: max diff "
+              f"{dmax}, frac {frac:.2e}; tolerance: {TOLERANCE}")
+        assert_chain_equal(got, ref, err_msg=what)
+    print(f"[4] line-sharded program: kernel launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched by the line-"
+                                 "sharded program")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -295,7 +434,8 @@ def main() -> int:
     from cvsim_tpu_torch import interop, kernels
     from cvsim_tpu_torch.cli.main import main as cli_main
     from cvsim_tpu_torch.host.pipeline import _bkey_scan
-    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yiq
+    from cvsim_tpu_torch.parallel import run_fused_lines_local
     from cvsim_tpu_torch.testing import BENCH_GEN1_EP, BENCH_VHS_EP
 
     # ---- 1. the card
@@ -328,6 +468,7 @@ def main() -> int:
     key = interop.key32_from_seed(5)
     err_yiq = kernel_cases_gen2(dev, key)
     err_yuv = kernel_cases_gen1(dev, key)
+    err_split = kernel_cases_split(dev, key)
 
     # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
@@ -340,8 +481,8 @@ def main() -> int:
     flags = ["-vhs-speed", "ep", "-vhs-head-switching", "1",
              "-chroma-noise", "16", "-chroma-phase-noise", "4",
              "-chroma-dropout", "4", "-seed", "7"]
-    out = os.path.join(tmp, "out.y4m")
     out_cpu = os.path.join(tmp, "out_cpu.y4m")
+    outs = {}
 
     paths = {}
     for tool, module, extra, bar_limit in (
@@ -353,6 +494,7 @@ def main() -> int:
             # LSB without VHS and 32 at VHS-EP, while a lost or swapped
             # decode moves the saturated bars' U/V by ~100
             ("to-composite", fused_yuv, ["-vhs"], 40.0)):
+        out = outs[tool] = os.path.join(tmp, f"out-{tool}.y4m")
         cli_s, launches, hdr, frames = run_cli(
             cli_main, module,
             ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags])
@@ -382,13 +524,42 @@ def main() -> int:
     bkey = ["-vhs", "-bkey-feedback", "20", "-seed", "3"]
     _, bk_launches, _, frames = run_cli(
         cli_main, fused_yuv,
-        ["--device", "cuda", "to-composite", "-i", dark, "-o", out, *bkey])
+        ["--device", "cuda", "to-composite", "-i", dark, "-o",
+         os.path.join(tmp, "out-bkey.y4m"), *bkey])
     cli_main(["--device", "cpu", "to-composite", "-i", dark, "-o", out_cpu,
               *bkey])
     bk_err = compare_cli(frames, read_y4m(out_cpu)[1], 16, "bkey")
     print(f"[4] to-composite -bkey-feedback 20, 16 fields with keyed dark "
           f"rows: {bk_launches} launch, cuda vs cpu max diff {bk_err}; "
           f"tolerance: {TOLERANCE}")
+
+    # the multi-device paths: -devices through the CLI (fields over the
+    # cards), then the line-sharded program
+    count = torch.cuda.device_count()
+    runs = [1] + ([count] if count > 1 and 64 % count == 0 else [])
+    for n in runs:
+        for tool, module, extra in (("ntsc", fused_yiq, []),
+                                    ("to-composite", fused_yuv, ["-vhs"])):
+            out_n = os.path.join(tmp, f"out-{tool}-{n}.y4m")
+            _, launches, _, _ = run_cli(
+                cli_main, module, ["--device", "cuda", tool, "-i", src, "-o",
+                                   out_n, *extra, *flags, "-devices", str(n)])
+            if not same_bytes(out_n, outs[tool]):
+                raise AssertionError(f"{tool} -devices {n} output differs "
+                                     "from the run without -devices")
+            print(f"[4] {tool} -devices {n}: 128 fields byte-identical to the "
+                  f"run without -devices; kernel launches {launches}")
+    for tool in ("ntsc", "to-composite"):
+        rc, err = cli_fails(cli_main, ["--device", "cuda", tool, "-i", src,
+                                       "-o", os.path.join(tmp, "x.y4m"),
+                                       "-devices", str(count + 1)])
+        if rc == 0 or f"only {count} CUDA device" not in err:
+            raise AssertionError(f"{tool} -devices {count + 1}: rc {rc}, "
+                                 f"stderr {err.strip()!r}")
+        print(f"[4] {tool} -devices {count + 1}: exit {rc}, "
+              f"{err.strip().splitlines()[-1]!r}")
+    shapes = split_shapes(dev, key)
+    split_launches = line_sharded_paths(shapes, key)
 
     # ---- 5. times
     times = {}
@@ -419,6 +590,44 @@ def main() -> int:
               f"(again {ms2:.3f} ms) = {b / ms * 1e3:.1f} fields/s; plain "
               f"{plain_ms:.3f} ms = {b / plain_ms * 1e3:.1f} fields/s")
 
+    # the split kernels on whole fields vs their plain versions, and the
+    # line-sharded program vs kernel #1's path (prepare + kernel); both
+    # paths include prepare()'s host work, so their events span it
+    cfg = BENCH_VHS_EP
+    for label, rgb2, fn2, par2, prep2 in shapes:
+        w2 = rgb2.shape[2]
+        ya = fused_yiq.stage_a(rgb2, prep2, cfg=cfg)
+        yh = fused_yiq.head_switch_rows(ya, prep2.shifts, w2)
+        p1 = fused_yiq.stage_b1(yh, prep2, cfg=cfg, w=w2)
+        t = {"yiq_a": (lambda: fused_yiq.stage_a(rgb2, prep2, cfg=cfg),
+                       lambda: fused_yiq.stage_a_reference(rgb2, prep2,
+                                                           cfg=cfg)),
+             "yiq_b1": (lambda: fused_yiq.stage_b1(yh, prep2, cfg=cfg, w=w2),
+                        lambda: fused_yiq.stage_b1_reference(
+                            yh, prep2, cfg=cfg, w=w2)),
+             "yiq_b2": (lambda: fused_yiq.stage_b2(*p1, prep2, cfg=cfg, w=w2),
+                        lambda: fused_yiq.stage_b2_reference(
+                            *p1, prep2, cfg=cfg, w=w2))}
+        nb = rgb2.shape[0]
+        for name, (kern, plain) in t.items():
+            ms, plain_ms = time_ms(kern), time_ms(plain)
+            if label.startswith("240x704"):
+                times[name] = (ms, plain_ms)
+            print(f"[5] {name} {label} bench VHS-EP on {card}: kernel "
+                  f"{ms:.3f} ms = {nb / ms * 1e3:.1f} fields/s; plain "
+                  f"{plain_ms:.3f} ms = {nb / plain_ms * 1e3:.1f} fields/s")
+        k1 = time_ms(lambda: fused_yiq.composite_layer_rgb_fused(
+            rgb2, prep2, cfg=cfg))
+        prog = time_ms(lambda: run_fused_lines_local(cfg, rgb2, fn2, par2,
+                                                     key, sp=4))
+        main1 = time_ms(lambda: yiq.composite_layer_rgb_auto(
+            rgb2, fn2, par2, key, cfg=cfg))
+        print(f"[5] {label} on {card}: yiq_chain kernel {k1:.3f} ms; "
+              f"line-sharded program (4 shards, prepare included) "
+              f"{prog:.3f} ms = {nb / prog * 1e3:.1f} fields/s; kernel #1's "
+              f"path (prepare + yiq_chain) {main1:.3f} ms = "
+              f"{nb / main1 * 1e3:.1f} fields/s")
+
     # the gen-1 black-key scan: 64 sequential steps of small eager ops
     planes = [p.to(torch.int32) for p in (y, u, v)]
     filt = (torch.full((l, w), 16, dtype=torch.int32, device=dev),
@@ -437,19 +646,23 @@ def main() -> int:
         print(f"[5] {tool} CLI end to end on {card}: {rate:.2f} fields/s "
               f"(128 fields, 720x480, build excluded, start-up included)")
 
+    rows = [("yiq_chain", "yiq_chain", "cvsim_tpu/models/fused_yiq.py:472",
+             paths["ntsc"][0], err_yiq),
+            ("yuv_chain", "yuv_chain", "cvsim_tpu/models/fused_yuv.py:343",
+             paths["to-composite"][0], err_yuv)]
+    rows += [(name, "yiq_chain", f"cvsim_tpu/models/fused_yiq.py:{line}",
+              split_launches[name], err_split[name])
+             for name, line in zip(SPLIT_KERNELS, (346, 537, 557))]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"cvsim_tpu_torch/csrc/{name}.cu",
+        "source": f"cvsim_tpu_torch/csrc/{src_name}.cu",
         "replaces": replaces,
-        "launches": paths[tool][0],
+        "launches": launches,
         "max_abs_err": err,
         "ms": times[name][0],
         "plain_ms": times[name][1],
-    } for name, replaces, tool, err in (
-        ("yiq_chain", "cvsim_tpu/models/fused_yiq.py:472", "ntsc", err_yiq),
-        ("yuv_chain", "cvsim_tpu/models/fused_yuv.py:343", "to-composite",
-         err_yuv))]}))
+    } for name, src_name, replaces, launches, err in rows]}))
     if "jax" in sys.modules and sys.modules["jax"] is not None:
         raise AssertionError("jax was imported")
     print(card)

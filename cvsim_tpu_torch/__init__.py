@@ -12,6 +12,8 @@ reader expects it:
              wrapper of the hand-written CUDA kernel)
 - csrc/      CUDA C++ kernels for Hopper (sm_90a), built at first use
              by kernels.py
+- parallel/  the multi-device paths: fields over n devices (-devices),
+             the line-sharded gen-2 program over row shards
 - host/      the gen-2 and gen-1 GOP pipelines
 - cli/       `python -m cvsim_tpu_torch [--device cuda|cpu]
              ntsc|to-composite ...`

@@ -6,8 +6,9 @@ The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine) and of its
 reference's, parsed by cvsim_tpu.presets as in the JAX package. The
 device defaults to cuda; without a GPU the command fails unless
 `--device cpu` is given, and it never carries on on the CPU quietly.
-Not yet ported: audio (-audio-in), multi-GPU runs (-devices > 1) and the
-other tools.
+`-devices n` splits each GOP's fields over n devices of that kind: n GPUs
+(fewer visible is an error), or n shards on the CPU. Not yet ported:
+audio (-audio-in) and the other tools.
 """
 
 from __future__ import annotations

@@ -1,36 +1,56 @@
-// The whole gen-2 composite chain (ffmpeg_ntsc) for a batch of fields.
+// The gen-2 composite chain (ffmpeg_ntsc) for a batch of fields: kernel #1,
+// the whole chain, and kernels #2-#4, its three row-local stage groups for
+// row shards of a field.
 //
-// Replaces the TPU kernel cvsim_tpu/models/fused_yiq.py _make_kernel_ab
-// (launched by _fused_stage_ab): RGB->YIQ, input chroma lowpass, QAM
-// encode, preemphasis, luma noise, VHS head switch, Y/C separation + QAM
-// decode, chroma AM and phase noise, VHS bandlimit, 2-line chroma blend,
-// sharpen, re-encode/decode, dropout, Y/C recombine, output lowpass,
-// YIQ->RGB. It computes what that kernel computes, sample for sample; the
-// plain version it is held against is models/fused_yiq.chain_reference.
+// Kernel #1 replaces the TPU kernel cvsim_tpu/models/fused_yiq.py
+// _make_kernel_ab (launched by _fused_stage_ab): RGB->YIQ, input chroma
+// lowpass, QAM encode, preemphasis, luma noise, VHS head switch, Y/C
+// separation + QAM decode, chroma AM and phase noise, VHS bandlimit,
+// 2-line chroma blend, sharpen, re-encode/decode, dropout, Y/C recombine,
+// output lowpass, YIQ->RGB. Its plain version is
+// models/fused_yiq.chain_reference.
+//
+// Kernels #2-#4 replace the TPU kernels of the split program that the
+// line-sharded mesh path runs (cvsim_tpu/parallel/mesh.py
+// _fused_lines_bodies): yiq_a for _make_kernel_a (RGB->YIQ through the
+// luma noise), yiq_b1 for _make_kernel_b1 (decode through the VHS
+// bandlimit), yiq_b2 for _make_kernel_b2 (sharpen through YIQ->RGB, with
+// the crop-and-cast to uint8). The head switch and the vertical blend run
+// between them. Their plain versions are models/fused_yiq.stage_*_reference.
+// A shard holds rows row0 .. row0+l-1 of fields l_glob rows high: the noise
+// words are addressed by global row, and the Q walk sits at plane offset
+// l_glob*w, so every shard draws its rows of the whole field's streams.
+//
+// All kernels compute what the TPU kernels compute, sample for sample, from
+// the same row functions (stage_a_row, stage_b1_row, stage_b2_row).
 //
 // Design. Every stage is local to one scanline except the chroma vertical
 // blend, which reads the line above, and the head switch is a per-row
-// rotation by a precomputed shift. So the chain runs as two launches with
-// one CTA of 128 threads per (field, row):
-//   yiq_front: uint8 RGB in -> kernel-A math, head switch, decode, chroma
-//              noise, VHS bandlimit -> y, i, q float planes in scratch;
-//   yiq_back:  the blend against row l-1's front output, then sharpen,
-//              recombine, dropout, output lowpass, YIQ->RGB -> uint8 out.
+// rotation by a precomputed shift. So each launch runs one CTA of 128
+// threads per (field, row):
+//   yiq_front: uint8 RGB in -> group A, head switch, group B1 -> y, i, q
+//              float planes in scratch;
+//   yiq_back:  the blend against row l-1's front output, then group B2 and
+//              YIQ->RGB -> uint8 out.
+//   yiq_a, yiq_b1, yiq_b2: one group each; between launches the planes are
+//              f32 [B, L, Wp] in device memory.
 // The row's planes live in shared memory (5 x Wp floats: 38 KB at
-// Wp = 1920), so only the RGB bytes, the scratch planes and the output
+// Wp = 1920), so only the RGB bytes, the float planes and the output
 // bytes touch device memory. The noise walks are generated in-kernel
 // from the same splitmix32 words as the TPU kernel (_walk_rows_kernel).
 //
 // What bounds it. Each pole is a 128x128 lower-triangular product per
 // 128-sample block: about 64 x 128 FMAs per block and, with up to 15 poles
 // on the path, some 15 x nb x 8K FMAs per row, each reading its table
-// entry from L1/L2. In this plain form the kernel is bound by those FMAs
-// and table reads, not by device memory (about 30 bytes per sample move).
+// entry from L1/L2. In this plain form the kernels are bound by those FMAs
+// and table reads, not by device memory (about 30 bytes per sample move in
+// #1; the split program adds an f32 plane out of #2 and into #3, 8 bytes
+// per sample, plus what its seams move).
 // What the design does about it: the triangular loops skip the exact-zero
 // upper half of every table, three-pole cascades run as one T^3 product,
-// and all intermediates stay on chip. Moving the products onto tensor
-// cores (wgmma with 3xTF32 splitting, to keep float32 exactness) and
-// fusing the two launches with a recomputed halo row are later work.
+// and all intermediates of a group stay on chip. Moving the products onto
+// tensor cores (wgmma with 3xTF32 splitting, to keep float32 exactness) and
+// fusing the launches with a recomputed halo row are later work.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +72,7 @@ struct ChainParams {
   float sharpen_gain;
   int svideo, chroma_loss, yc_recombine;
   int out_lowpass;  // 0 none, 1 'tv' 2.6MHz delay 1, 2 full (1.3/0.6MHz)
+  int row0, l_glob;  // global index of row 0 of the launch; field height
 };
 
 // table rows (fused_yiq._alpha_consts)
@@ -144,21 +165,15 @@ __device__ Row row_planes(float* sm, int w, int wp) {
              w, wp, wp / BLOCK};
 }
 
-__global__ void __launch_bounds__(BLOCK)
-yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
-          const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
-          const int* __restrict__ shifts, Tables tab, ChainParams P,
-          float* __restrict__ y_out, float* __restrict__ i_out,
-          float* __restrict__ q_out) {
-  extern __shared__ float sm[];
-  const int row = blockIdx.x;           // field * L + line
-  const int fld = row / P.l, line = row % P.l;
-  const int w = P.w, wp = P.wp;
-  Row r = row_planes(sm, w, wp);
-  const int xi = xi_tab[row];
+// ---- the three stage groups, one row each (the TPU kernels' math:
+// _kernel_a_math, _kernel_b_front, _kernel_b_back). grow is the row's
+// global index in its field, which addresses the noise streams.
 
-  // RGB -> YIQ (x256, truncated); zero past the active width
-  const uint8_t* px = rgb + (size_t)row * w * 3;
+// Group A: RGB -> YIQ (x256, truncated), input chroma lowpass, QAM encode,
+// preemphasis, luma noise. Leaves the encoded luma in r.y, zero past w.
+__device__ void stage_a_row(Row& r, const uint8_t* px, int xi, uint32_t key,
+                            int grow, const Tables& tab, const ChainParams& P) {
+  const int w = P.w, wp = P.wp;
   for (int x = threadIdx.x; x < wp; x += BLOCK) {
     float yv = 0.f, iv = 0.f, qv = 0.f;
     if (x < w) {
@@ -187,31 +202,40 @@ yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
     __syncthreads();
   }
   if (P.video_noise)
-    add_walk(r.y, r.t1, tab[TAB_WALK], keys[2 * fld], line, P.video_noise, 0u,
-             w, wp, false);
+    add_walk(r.y, r.t1, tab[TAB_WALK], key, grow, P.video_noise, 0u, w, wp,
+             false);
   for (int x = threadIdx.x; x < wp; x += BLOCK)
     if (x >= w) r.y[x] = 0.f;
   __syncthreads();
+}
 
-  // head switch: out[x] = pad[(x + s) mod twidth], pad = row then zeros
-  const int s = shifts[row];
-  if (s != 0) {
-    const int twidth = w + w / 10;
-    const int sp = ((s % twidth) + twidth) % twidth;
-    for (int x = threadIdx.x; x < wp; x += BLOCK) {
-      float v = r.y[x];
-      if (x < w) {
-        const int j = x + sp;
-        v = j < w ? r.y[j] : (j >= twidth ? r.y[j - twidth] : 0.f);
-      }
-      r.t1[x] = v;
+// VHS head switch: out[x] = pad[(x + s) mod twidth], pad = row then zeros.
+__device__ void head_switch_row(Row& r, int s) {
+  if (s == 0) return;
+  const int w = r.w;
+  const int twidth = w + w / 10;
+  const int sp = ((s % twidth) + twidth) % twidth;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    float v = r.y[x];
+    if (x < w) {
+      const int j = x + sp;
+      v = j < w ? r.y[j] : (j >= twidth ? r.y[j - twidth] : 0.f);
     }
-    __syncthreads();
-    float* t = r.y;
-    r.y = r.t1;
-    r.t1 = t;
+    r.t1[x] = v;
   }
+  __syncthreads();
+  float* t = r.y;
+  r.y = r.t1;
+  r.t1 = t;
+}
 
+// Group B1 on the head-switched luma in r.y: Y/C separation + QAM decode
+// (zeros under nocolor), chroma noise (the Q walk at plane offset
+// l_glob*w), chroma phase noise, VHS luma and chroma bandlimit.
+__device__ void stage_b1_row(Row& r, int xi, uint32_t key, int grow,
+                             float sa, float ca, const Tables& tab,
+                             const ChainParams& P) {
+  const int w = P.w, wp = P.wp;
   if (!P.nocolor) {
     qam_decode(r, xi, P.amp_back);
   } else {
@@ -220,15 +244,13 @@ yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
   }
 
   if (P.chroma_noise) {
-    const uint32_t key = keys[2 * fld + 1];
-    add_walk(r.i, r.t1, tab[TAB_WALK], key, line, P.chroma_noise, 0u, w, wp,
+    add_walk(r.i, r.t1, tab[TAB_WALK], key, grow, P.chroma_noise, 0u, w, wp,
              false);
-    add_walk(r.q, r.t1, tab[TAB_WALK], key, line, P.chroma_noise,
-             (uint32_t)P.l * (uint32_t)w, w, wp, false);
+    add_walk(r.q, r.t1, tab[TAB_WALK], key, grow, P.chroma_noise,
+             (uint32_t)P.l_glob * (uint32_t)w, w, wp, false);
   }
 
   if (P.phase_noise) {
-    const float sa = sincos[2 * row], ca = sincos[2 * row + 1];
     for (int x = threadIdx.x; x < wp; x += BLOCK) {
       const float iv = r.i[x], qv = r.q[x];
       float i2, q2;
@@ -256,6 +278,80 @@ yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
     lowpass_writeback(r, r.i, tab[TAB_VCHROMA], P.chroma_delay);
     lowpass_writeback(r, r.q, tab[TAB_VCHROMA], P.chroma_delay);
   }
+}
+
+// Group B2 on the blended planes: VHS sharpen and re-encode/decode, chroma
+// dropout, Y/C recombine, output chroma lowpass.
+__device__ void stage_b2_row(Row& r, int xi, float keep, const Tables& tab,
+                             const ChainParams& P) {
+  const int w = P.w, wp = P.wp;
+  if (P.vhs) {
+    pole3(r.y, r.t1, tab[TAB_SHARPEN], 0.f, r.nb, r.red);
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float yv = r.y[x];
+      r.y[x] = x < w ? truncf(yv + (yv - r.t1[x]) * P.sharpen_gain) : 0.f;
+    }
+    __syncthreads();
+    if (!P.svideo) {
+      qam_encode(r, xi, P.amp);
+      qam_decode(r, xi, P.amp);
+    }
+  }
+
+  if (P.chroma_loss) {
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      r.i[x] = r.i[x] * keep;
+      r.q[x] = r.q[x] * keep;
+    }
+    __syncthreads();
+  }
+
+  for (int n = 0; n < P.yc_recombine; ++n) {
+    qam_encode(r, xi, P.amp);
+    qam_decode(r, xi, P.amp);
+  }
+
+  if (P.out_lowpass == 1) {
+    lowpass_writeback(r, r.i, tab[TAB_TV], 1);
+    lowpass_writeback(r, r.q, tab[TAB_TV], 1);
+  } else if (P.out_lowpass == 2) {
+    lowpass_writeback(r, r.i, tab[TAB_I], 2);
+    lowpass_writeback(r, r.q, tab[TAB_Q], 4);
+  }
+}
+
+// YIQ -> RGB, truncated and clamped to 0..255: the TPU path's crop-and-cast.
+__device__ void store_rgb(const Row& r, uint8_t* px) {
+  for (int x = threadIdx.x; x < r.w; x += BLOCK) {
+    const float yv = r.y[x], iv = r.i[x], qv = r.q[x];
+    const float R = truncf((1.000f * yv + 0.956f * iv + 0.621f * qv) / 256.f);
+    const float G = truncf((1.000f * yv - 0.272f * iv - 0.647f * qv) / 256.f);
+    const float B = truncf((1.000f * yv - 1.106f * iv + 1.703f * qv) / 256.f);
+    px[3 * x] = (uint8_t)fminf(fmaxf(R, 0.f), 255.f);
+    px[3 * x + 1] = (uint8_t)fminf(fmaxf(G, 0.f), 255.f);
+    px[3 * x + 2] = (uint8_t)fminf(fmaxf(B, 0.f), 255.f);
+  }
+}
+
+// ---- kernel #1: the whole chain in two launches
+
+__global__ void __launch_bounds__(BLOCK)
+yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
+          const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
+          const int* __restrict__ shifts, Tables tab, ChainParams P,
+          float* __restrict__ y_out, float* __restrict__ i_out,
+          float* __restrict__ q_out) {
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;           // field * L + line
+  const int fld = row / P.l, grow = P.row0 + row % P.l;
+  const int wp = P.wp;
+  Row r = row_planes(sm, P.w, wp);
+  const int xi = xi_tab[row];
+
+  stage_a_row(r, rgb + (size_t)row * P.w * 3, xi, keys[2 * fld], grow, tab, P);
+  head_switch_row(r, shifts[row]);
+  stage_b1_row(r, xi, keys[2 * fld + 1], grow, sincos[2 * row],
+               sincos[2 * row + 1], tab, P);
 
   const size_t off = (size_t)row * wp;
   for (int x = threadIdx.x; x < wp; x += BLOCK) {
@@ -273,9 +369,8 @@ yiq_back(const float* __restrict__ y_in, const float* __restrict__ i_in,
   extern __shared__ float sm[];
   const int row = blockIdx.x;
   const int line = row % P.l;
-  const int w = P.w, wp = P.wp;
-  Row r = row_planes(sm, w, wp);
-  const int xi = xi_tab[row];
+  const int wp = P.wp;
+  Row r = row_planes(sm, P.w, wp);
   const size_t off = (size_t)row * wp;
 
   // 2-line chroma blend against the front output of the line above: line
@@ -295,77 +390,123 @@ yiq_back(const float* __restrict__ y_in, const float* __restrict__ i_in,
   }
   __syncthreads();
 
-  if (P.vhs) {
-    pole3(r.y, r.t1, tab[TAB_SHARPEN], 0.f, r.nb, r.red);
-    for (int x = threadIdx.x; x < wp; x += BLOCK) {
-      const float yv = r.y[x];
-      r.y[x] = x < w ? truncf(yv + (yv - r.t1[x]) * P.sharpen_gain) : 0.f;
-    }
-    __syncthreads();
-    if (!P.svideo) {
-      qam_encode(r, xi, P.amp);
-      qam_decode(r, xi, P.amp);
-    }
-  }
+  stage_b2_row(r, xi_tab[row], keep[row], tab, P);
+  store_rgb(r, out + (size_t)row * P.w * 3);
+}
 
-  if (P.chroma_loss) {
-    const float k = keep[row];
-    for (int x = threadIdx.x; x < wp; x += BLOCK) {
-      r.i[x] = r.i[x] * k;
-      r.q[x] = r.q[x] * k;
-    }
-    __syncthreads();
-  }
+// ---- kernels #2-#4: the split chain of a row shard (rows row0 ..
+// row0 + l - 1 of fields l_glob rows high). The head switch and the
+// vertical blend run between the launches (models/fused_yiq.py), as the
+// TPU program runs them between its kernels.
 
-  for (int n = 0; n < P.yc_recombine; ++n) {
-    qam_encode(r, xi, P.amp);
-    qam_decode(r, xi, P.amp);
-  }
+// #2: uint8 RGB -> encoded luma plane (zero past w).
+__global__ void __launch_bounds__(BLOCK)
+yiq_a(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
+      const uint32_t* __restrict__ keys, Tables tab, ChainParams P,
+      float* __restrict__ y_out) {
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int fld = row / P.l, grow = P.row0 + row % P.l;
+  Row r = row_planes(sm, P.w, P.wp);
+  stage_a_row(r, rgb + (size_t)row * P.w * 3, xi_tab[row], keys[2 * fld],
+              grow, tab, P);
+  const size_t off = (size_t)row * P.wp;
+  for (int x = threadIdx.x; x < P.wp; x += BLOCK) y_out[off + x] = r.y[x];
+}
 
-  if (P.out_lowpass == 1) {
-    lowpass_writeback(r, r.i, tab[TAB_TV], 1);
-    lowpass_writeback(r, r.q, tab[TAB_TV], 1);
-  } else if (P.out_lowpass == 2) {
-    lowpass_writeback(r, r.i, tab[TAB_I], 2);
-    lowpass_writeback(r, r.q, tab[TAB_Q], 4);
+// #3: head-switched luma plane -> y, i, q planes (zero past w).
+__global__ void __launch_bounds__(BLOCK)
+yiq_b1(const float* __restrict__ y_in, const int* __restrict__ xi_tab,
+       const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
+       Tables tab, ChainParams P, float* __restrict__ y_out,
+       float* __restrict__ i_out, float* __restrict__ q_out) {
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int fld = row / P.l, grow = P.row0 + row % P.l;
+  const int w = P.w, wp = P.wp;
+  Row r = row_planes(sm, w, wp);
+  const size_t off = (size_t)row * wp;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) r.y[x] = y_in[off + x];
+  __syncthreads();
+  stage_b1_row(r, xi_tab[row], keys[2 * fld + 1], grow, sincos[2 * row],
+               sincos[2 * row + 1], tab, P);
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    const bool on = x < w;
+    y_out[off + x] = on ? r.y[x] : 0.f;
+    i_out[off + x] = on ? r.i[x] : 0.f;
+    q_out[off + x] = on ? r.q[x] : 0.f;
   }
+}
 
-  uint8_t* px = out + (size_t)row * w * 3;
-  for (int x = threadIdx.x; x < w; x += BLOCK) {
-    const float yv = r.y[x], iv = r.i[x], qv = r.q[x];
-    const float R = truncf((1.000f * yv + 0.956f * iv + 0.621f * qv) / 256.f);
-    const float G = truncf((1.000f * yv - 0.272f * iv - 0.647f * qv) / 256.f);
-    const float B = truncf((1.000f * yv - 1.106f * iv + 1.703f * qv) / 256.f);
-    px[3 * x] = (uint8_t)fminf(fmaxf(R, 0.f), 255.f);
-    px[3 * x + 1] = (uint8_t)fminf(fmaxf(G, 0.f), 255.f);
-    px[3 * x + 2] = (uint8_t)fminf(fmaxf(B, 0.f), 255.f);
+// #4: blended y, i, q planes -> uint8 RGB.
+__global__ void __launch_bounds__(BLOCK)
+yiq_b2(const float* __restrict__ y_in, const float* __restrict__ i_in,
+       const float* __restrict__ q_in, const int* __restrict__ xi_tab,
+       const float* __restrict__ keep, Tables tab, ChainParams P,
+       uint8_t* __restrict__ out) {
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int wp = P.wp;
+  Row r = row_planes(sm, P.w, wp);
+  const size_t off = (size_t)row * wp;
+  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+    r.y[x] = y_in[off + x];
+    r.i[x] = i_in[off + x];
+    r.q[x] = q_in[off + x];
   }
+  __syncthreads();
+  stage_b2_row(r, xi_tab[row], keep[row], tab, P);
+  store_rgb(r, out + (size_t)row * P.w * 3);
 }
 
 }  // namespace cvsim
 
-// C entry point (bound with ctypes by cvsim_tpu_torch/kernels.py). Launches
-// both kernels on `stream`, allocates nothing, does not synchronise, and
+using namespace cvsim;
+
+namespace {
+
+// Checks the launch shape and raises the dynamic shared-memory limit of
+// `kernel` where the row's planes need more than the default 48 KB;
+// returns 0 or a cudaError_t.
+template <typename K>
+int prepare_launch(K kernel, const ChainParams& P, size_t* smem) {
+  if (P.wp % BLOCK != 0 || P.w > P.wp || P.w < 3) return (int)cudaErrorInvalidValue;
+  if (P.row0 < 0 || P.row0 + P.l > P.l_glob) return (int)cudaErrorInvalidValue;
+  *smem = (size_t)(5 * P.wp + 4) * sizeof(float);
+  if (*smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return 0;
+}
+
+Tables tables(const void* tt, const void* d, const void* tt3, const void* d3,
+              const void* vt) {
+  return Tables{static_cast<const float*>(tt), static_cast<const float*>(d),
+                static_cast<const float*>(tt3), static_cast<const float*>(d3),
+                static_cast<const float*>(vt)};
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes by cvsim_tpu_torch/kernels.py). Each
+// launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() (0 on success).
+
+// Kernel #1, the whole chain: both launches.
 extern "C" int cvsim_yiq_chain(const void* rgb, const void* xi,
                                const void* keys, const void* sincos,
                                const void* keep, const void* shifts,
                                const void* tt, const void* d, const void* tt3,
                                const void* d3, const void* vt, void* scratch,
                                void* out, const void* params, void* stream) {
-  using namespace cvsim;
   const ChainParams P = *static_cast<const ChainParams*>(params);
-  if (P.wp % BLOCK != 0 || P.w > P.wp || P.w < 3) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int rc = prepare_launch(yiq_front, P, &smem);
+  if (rc == 0) rc = prepare_launch(yiq_back, P, &smem);
+  if (rc != 0) return rc;
   const int rows = P.b * P.l;
   if (rows == 0) return 0;
-  const size_t smem = (size_t)(5 * P.wp + 4) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(yiq_front, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaFuncSetAttribute(yiq_back, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const Tables tab{static_cast<const float*>(tt), static_cast<const float*>(d),
-                   static_cast<const float*>(tt3), static_cast<const float*>(d3),
-                   static_cast<const float*>(vt)};
+  const Tables tab = tables(tt, d, tt3, d3, vt);
   float* y = static_cast<float*>(scratch);
   float* i = y + (size_t)rows * P.wp;
   float* q = i + (size_t)rows * P.wp;
@@ -379,6 +520,64 @@ extern "C" int cvsim_yiq_chain(const void* rgb, const void* xi,
   yiq_back<<<rows, BLOCK, smem, s>>>(y, i, q, static_cast<const int*>(xi),
                                      static_cast<const float*>(keep), tab, P,
                                      static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// Kernel #2: uint8 RGB [b, l, w, 3] -> encoded luma f32 [b, l, wp].
+extern "C" int cvsim_yiq_a(const void* rgb, const void* xi, const void* keys,
+                           const void* tt, const void* d, const void* tt3,
+                           const void* d3, const void* vt, void* y_out,
+                           const void* params, void* stream) {
+  const ChainParams P = *static_cast<const ChainParams*>(params);
+  size_t smem = 0;
+  const int rc = prepare_launch(yiq_a, P, &smem);
+  if (rc != 0) return rc;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  yiq_a<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rgb), static_cast<const int*>(xi),
+      static_cast<const uint32_t*>(keys), tables(tt, d, tt3, d3, vt), P,
+      static_cast<float*>(y_out));
+  return (int)cudaGetLastError();
+}
+
+// Kernel #3: head-switched luma f32 [b, l, wp] -> y, i, q f32 [b, l, wp].
+extern "C" int cvsim_yiq_b1(const void* y_in, const void* xi, const void* keys,
+                            const void* sincos, const void* tt, const void* d,
+                            const void* tt3, const void* d3, const void* vt,
+                            void* y_out, void* i_out, void* q_out,
+                            const void* params, void* stream) {
+  const ChainParams P = *static_cast<const ChainParams*>(params);
+  size_t smem = 0;
+  const int rc = prepare_launch(yiq_b1, P, &smem);
+  if (rc != 0) return rc;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  yiq_b1<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y_in), static_cast<const int*>(xi),
+      static_cast<const uint32_t*>(keys), static_cast<const float*>(sincos),
+      tables(tt, d, tt3, d3, vt), P, static_cast<float*>(y_out),
+      static_cast<float*>(i_out), static_cast<float*>(q_out));
+  return (int)cudaGetLastError();
+}
+
+// Kernel #4: blended y, i, q f32 [b, l, wp] -> uint8 RGB [b, l, w, 3].
+extern "C" int cvsim_yiq_b2(const void* y_in, const void* i_in,
+                            const void* q_in, const void* xi, const void* keep,
+                            const void* tt, const void* d, const void* tt3,
+                            const void* d3, const void* vt, void* out,
+                            const void* params, void* stream) {
+  const ChainParams P = *static_cast<const ChainParams*>(params);
+  size_t smem = 0;
+  const int rc = prepare_launch(yiq_b2, P, &smem);
+  if (rc != 0) return rc;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  yiq_b2<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y_in), static_cast<const float*>(i_in),
+      static_cast<const float*>(q_in), static_cast<const int*>(xi),
+      static_cast<const float*>(keep), tables(tt, d, tt3, d3, vt), P,
+      static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,11 @@ Three threads, as in the JAX package:
 - **writer**: waits for the event, packs bob/interlaced frames with numpy
   row gathers, writes Y4M, saves checkpoints.
 
-Audio (-audio-in) and multi-GPU runs (-devices > 1) are not yet ported.
+With `-devices n` the chain's field batch splits over an n-device mesh
+(parallel.map_fields), with kernel #5 on each device; the rest of the GOP
+step stays on the primary device, because the black-key scan carries
+sequential state from field to field. Audio (-audio-in) is not yet
+ported.
 """
 
 from __future__ import annotations
@@ -36,8 +40,10 @@ from cvsim_tpu.host.batching import (
     hscale_consts,
     render_index_tables,
 )
+from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yuv422
+from cvsim_tpu_torch.parallel import make_mesh, map_fields
 
 
 def _interleave_np(top: np.ndarray, bottom: np.ndarray) -> np.ndarray:
@@ -72,15 +78,18 @@ class CompositePipeline:
     def __init__(self, cfg: RunConfig, gop: int = 64, progress: bool = True,
                  die=None, device: torch.device | str = "cuda",
                  devices: int = 0):
-        if devices > 1:
-            raise ValueError(
-                f"-devices {devices}: multi-GPU runs are not yet ported to "
-                "cvsim_tpu_torch")
+        self.device = torch.device(device)
+        # -devices n: an n-device mesh of the device's kind (fails loud if
+        # fewer CUDA devices are visible); 0 runs on `device` alone
+        self.mesh = (make_mesh(devices, kind=self.device.type)
+                     if devices else None)
+        if self.mesh is not None and gop % self.mesh.size:
+            raise ValueError(f"mesh size {self.mesh.size} must divide the "
+                             f"GOP batch {gop}")
         self.cfg = cfg
         self.gop = gop
         self.die = die or {"die": 0}
         self.progress = progress
-        self.device = torch.device(device)
         self.key = key32_from_seed(cfg.seed)
         out = cfg.output
         self._field_rate = Fraction(out.field_rate_num, out.field_rate_den)
@@ -172,8 +181,17 @@ class CompositePipeline:
                 (y, u, v), filter_planes = _bkey_scan(
                     y, u, v, *filter_planes, bkey, valid)
             if cfg.enable_composite_emulation:
-                y, u, v = yuv422.composite_video_process_auto(
-                    y, u, v, fieldno, parity, self.key, cfg=ccfg)
+                def chain(y_, u_, v_, fn_, pa_):
+                    return yuv422.composite_video_process_auto(
+                        y_, u_, v_, fn_, pa_, self.key, cfg=ccfg)
+
+                if self.mesh is not None:
+                    # the chain's fields split over the mesh; the results
+                    # come back to this device
+                    y, u, v = map_fields(self.mesh, chain, y, u, v, fieldno,
+                                         parity)
+                else:
+                    y, u, v = chain(y, u, v, fieldno, parity)
             packed = torch.cat([p.to(torch.uint8) for p in (y, u, v)], dim=2)
             return packed, filter_planes
 
@@ -324,12 +342,14 @@ class CompositePipeline:
 
         if resume_field:
             hdr_line = whdr.header_line()
+            fsize = 6 + whdr.frame_bytes()   # b"FRAME\n" + payload
+            end = len(hdr_line) + frames_written * fsize
+            resume.check_output_size(out_stream, end)
             out_stream.seek(0)
             if out_stream.read(len(hdr_line)) != hdr_line:
                 raise ValueError(
                     "resume: existing output header does not match")
-            fsize = 6 + whdr.frame_bytes()   # b"FRAME\n" + payload
-            out_stream.seek(len(hdr_line) + frames_written * fsize)
+            out_stream.seek(end)
             out_stream.truncate()
             writer = y4m.Y4MWriter(out_stream, whdr, write_header=False)
             writer.frames_written = frames_written
@@ -442,7 +462,7 @@ class CompositePipeline:
                     wrote["gops"] += 1
                     if (ckpt_path and not pending
                             and wrote["gops"] % ckpt_every == 0):
-                        out_stream.flush()
+                        resume.sync_output(out_stream)
                         fy, fu, fv = (p.numpy() for p in planes)
                         checkpoint.save(
                             ckpt_path,

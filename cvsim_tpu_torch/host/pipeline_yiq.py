@@ -6,7 +6,10 @@ The host loop (`run_video`, `_emit`: field clock, multi-input layering,
 -video-pts-in, checkpoint/resume) is the JAX package's, unchanged. Each
 GOP goes to the device as one uint8 [gop, L, W, 3] batch (pinned host
 memory, asynchronous copy), through models/yiq.composite_layer_rgb_auto,
-and back as uint8. Overlapping the copies with compute is later work.
+and back as uint8. With `-devices n` the GOP's fields split over an
+n-device mesh (parallel.run_sharded_chain_fused), each device running the
+same chain on its block. Overlapping the copies with compute is later
+work.
 """
 
 from __future__ import annotations
@@ -23,23 +26,28 @@ from cvsim_tpu.host.colorconv import rgb_to_yuv601_np
 # per-frame host scaling dispatches to the native kernel (bit-exact twin of
 # colorconv.scale_frame_to_np; numpy fallback inside hostpix)
 from cvsim_tpu.native.hostpix import scale_frame_to as _scale_frame_to
+from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yiq
+from cvsim_tpu_torch.parallel import make_mesh, run_sharded_chain_fused
 
 
 class YIQPipeline:
     def __init__(self, cfg: RunConfig, frame_delay: int = 1, gop: int = 64,
                  die=None, progress: bool = True,
                  device: torch.device | str = "cuda", devices: int = 0):
-        if devices > 1:
-            raise ValueError(
-                f"-devices {devices}: multi-GPU runs are not yet ported to "
-                "cvsim_tpu_torch")
+        self.device = torch.device(device)
+        # -devices n: an n-device mesh of the device's kind (fails loud if
+        # fewer CUDA devices are visible); 0 runs on `device` alone
+        self.mesh = (make_mesh(devices, kind=self.device.type)
+                     if devices else None)
+        if self.mesh is not None and gop % self.mesh.size:
+            raise ValueError(f"mesh size {self.mesh.size} must divide the "
+                             f"GOP batch {gop}")
         self.cfg = cfg
         self.gop = gop
         self.die = die or {"die": 0}
         self.progress = progress
-        self.device = torch.device(device)
         self.key = key32_from_seed(cfg.seed)
         self.frame_delay = frame_delay
         out = cfg.output
@@ -55,10 +63,16 @@ class YIQPipeline:
         rgb = torch.from_numpy(rgb_fields)
         if self.device.type == "cuda":
             rgb = rgb.pin_memory()
+        fn = torch.tensor(fieldnos, dtype=torch.int32)
+        pa = torch.tensor(parities, dtype=torch.int32)
+        if self.mesh is not None:
+            # each device copies its block from the pinned batch
+            out = run_sharded_chain_fused(self.mesh, self.cfg.composite, rgb,
+                                          fn, pa, self.key)
+            return out.numpy()
         rgb = rgb.to(self.device, non_blocking=True)
-        fn = torch.tensor(fieldnos, dtype=torch.int32, device=self.device)
-        pa = torch.tensor(parities, dtype=torch.int32, device=self.device)
-        out = yiq.composite_layer_rgb_auto(rgb, fn, pa, self.key,
+        out = yiq.composite_layer_rgb_auto(rgb, fn.to(self.device),
+                                           pa.to(self.device), self.key,
                                            cfg=self.cfg.composite)
         return out.cpu().numpy()
 
@@ -169,12 +183,14 @@ class YIQPipeline:
 
         if resume_field:
             hdr_line = whdr.header_line()
+            fsize = 6 + whdr.frame_bytes()   # b"FRAME\n" + payload
+            end = len(hdr_line) + frames_written * fsize
+            resume.check_output_size(out_stream, end)
             out_stream.seek(0)
             if out_stream.read(len(hdr_line)) != hdr_line:
                 raise ValueError(
                     "resume: existing output header does not match")
-            fsize = 6 + whdr.frame_bytes()   # b"FRAME\n" + payload
-            out_stream.seek(len(hdr_line) + frames_written * fsize)
+            out_stream.seek(end)
             out_stream.truncate()
             writer = y4m.Y4MWriter(out_stream, whdr, write_header=False)
             writer.frames_written = frames_written
@@ -208,10 +224,7 @@ class YIQPipeline:
         def ckpt_save(snapshot, wr):
             wrote["gops"] += 1
             if wrote["gops"] % ckpt_every == 0:
-                try:
-                    out_stream.flush()
-                except (OSError, AttributeError, ValueError):
-                    pass
+                resume.sync_output(out_stream)
                 checkpoint.save(ckpt_path, dict(
                     snapshot, hash=run_hash,
                     cfg_hash=checkpoint.config_hash(cfg),

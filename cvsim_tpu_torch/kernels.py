@@ -103,10 +103,14 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr = ctypes.c_void_p
-            lib.cvsim_yiq_chain.argtypes = [ptr] * 15
-            lib.cvsim_yiq_chain.restype = ctypes.c_int
-            lib.cvsim_yuv_chain.argtypes = [ptr] * 19
-            lib.cvsim_yuv_chain.restype = ctypes.c_int
+            # every argument of the kernel entry points is a pointer (or
+            # the stream)
+            for name, n_args in (("cvsim_yiq_chain", 15), ("cvsim_yiq_a", 11),
+                                 ("cvsim_yiq_b1", 14), ("cvsim_yiq_b2", 13),
+                                 ("cvsim_yuv_chain", 19)):
+                fn = getattr(lib, name)
+                fn.argtypes = [ptr] * n_args
+                fn.restype = ctypes.c_int
             lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,21 +1,26 @@
-"""The whole gen-2 chain as one hand-written CUDA kernel pair (twin of
+"""The gen-2 chain as hand-written CUDA kernels (twin of
 cvsim_tpu.models.fused_yiq).
-
-Three parts:
 
 - `prepare`: every per-field and per-line input of the chain (phase xi,
   the two in-kernel noise stream ids, chroma-phase sin/cos, dropout keep
   mask, the full per-row head-switch shift table) plus the stacked IIR
-  constant tables. The TPU path's tiling, padding and 8-aligned
-  head-switch window exist for Mosaic's layout rules and have no
+  constant tables, for a whole field or for a row shard of one (the twin
+  of `_fused_prepare(sharded=True)`). The TPU path's tiling, padding and
+  8-aligned head-switch window exist for Mosaic's layout rules and have no
   counterpart here.
-- `chain_reference`: the plain PyTorch version of the kernel, built from
-  the stage functions of models/yiq.py, with the kernel's signature.
-- `composite_layer_rgb_fused`: the wrapper of csrc/yiq_chain.cu. On a CPU
-  tensor it runs `chain_reference`; on a CUDA tensor it launches the
-  kernel or raises.
+- Kernel #1, the whole chain: `composite_layer_rgb_fused` wraps
+  csrc/yiq_chain.cu's `cvsim_yiq_chain`; `chain_reference` is its plain
+  PyTorch version, built from the stage functions of models/yiq.py.
+- Kernels #2-#4, the chain's three row-local stage groups for a row
+  shard: `stage_a`, `stage_b1`, `stage_b2` wrap `cvsim_yiq_a/_b1/_b2`;
+  `stage_*_reference` are their plain versions. Between them run the two
+  seams `head_switch_rows` and `vblend_rows` (plain PyTorch, as the JAX
+  package runs them in XLA between its kernels). parallel/mesh.py chains
+  them into the line-sharded program.
 
-yiq.composite_layer_rgb_auto is the entry point of the main path.
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. yiq.composite_layer_rgb_auto is the entry
+point of the main path.
 """
 
 from __future__ import annotations
@@ -30,9 +35,13 @@ from cvsim_tpu.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.models import yiq
 from cvsim_tpu_torch.ops.blocked_iir import BLOCK, _cascade3_consts, _decay_consts
 
-# count of kernel launches (one per composite_layer_rgb_fused call on a
-# CUDA tensor); read by tests and chip_smoke.py to prove the path ran
+# counts of kernel launches (one per wrapper call on a CUDA tensor), read
+# by tests and chip_smoke.py to prove that a path ran through the kernels:
+# #1 (composite_layer_rgb_fused) and #2-#4 (stage_a, stage_b1, stage_b2)
 KERNEL_LAUNCHES = 0
+A_LAUNCHES = 0
+B1_LAUNCHES = 0
+B2_LAUNCHES = 0
 
 
 # ------------------------------------------------------------ IIR tables
@@ -81,7 +90,8 @@ def _stack_alpha_consts(alphas):
 
 class Prepared(NamedTuple):
     """Inputs of one chain call, all on the device of the fields (shared
-    with the gen-1 chain of models/fused_yuv.py)."""
+    with the gen-1 chain of models/fused_yuv.py). A row shard's per-line
+    streams are its rows of the whole field's."""
     xi: torch.Tensor        # int32 [B, L]
     keys_ab: torch.Tensor   # int64 [B, 2] u32 stream ids (luma, chroma noise)
     sincos: torch.Tensor    # f32 [B, L, 2]
@@ -90,18 +100,46 @@ class Prepared(NamedTuple):
     tables: tuple           # f32 tt [N,128,128], d [N,128], tt3 [N,128,128],
                             #     d3 [N,8,128], vt [N,128,8]; N = 8 rows
                             #     for gen-2, 11 for gen-1
+    row0: int = 0           # global index of row 0 (non-zero on a shard)
+    l_glob: int | None = None   # the whole field's height (None: L)
 
 
 def prepare(cfg: CompositeConfig, rgb: torch.Tensor, fieldno: torch.Tensor,
-            field_parity: torch.Tensor, key: int) -> Prepared:
+            field_parity: torch.Tensor, key: int, row0: int = 0,
+            l_glob: int | None = None) -> Prepared:
     """Everything the chain needs besides the RGB planes, on rgb's device.
-    key: the u32 stream seed (interop.key32_from_seed)."""
+    key: the u32 stream seed (interop.key32_from_seed). For a row shard,
+    rgb holds rows row0 .. row0+L-1 of fields l_glob rows high: the
+    per-line streams (xi, the sequential chroma-phase walk, the dropout
+    mask, the head-switch shifts) are computed at the global height and
+    sliced, since they are addressed by absolute line."""
     _, l, w, _ = rgb.shape
+    l_glob = l if l_glob is None else l_glob
+    if row0 < 0 or row0 + l > l_glob:
+        raise ValueError(f"rows {row0}..{row0 + l - 1} outside a field of "
+                         f"{l_glob} lines")
     dev = rgb.device
     s = yiq.field_streams(cfg, fieldno.to(dev), field_parity.to(dev),
-                          l, w, key)
+                          l_glob, w, key)
+    rows = slice(row0, row0 + l)
     tables = tuple(torch.from_numpy(t).to(dev) for t in _alpha_consts(cfg))
-    return Prepared(s.xi, s.keys_ab, s.sincos, s.keep, s.shifts, tables)
+    return Prepared(s.xi[:, rows].contiguous(), s.keys_ab,
+                    s.sincos[:, rows].contiguous(),
+                    s.keep[:, rows].contiguous(),
+                    s.shifts[:, rows].contiguous(), tables, row0, l_glob)
+
+
+def _streams(prep: Prepared) -> yiq.FieldStreams:
+    return yiq.FieldStreams(prep.xi, prep.keys_ab, prep.sincos, prep.keep,
+                            prep.shifts)
+
+
+def _full_float32(t: torch.Tensor):
+    """The plain versions run with full float32 matrix products on the
+    card: the blocked IIR's integer exactness needs them."""
+    if t.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
 
 
 # ------------------------------------------------------------ plain version
@@ -113,13 +151,82 @@ def chain_reference(rgb: torch.Tensor, prep: Prepared, *,
     stage functions derive the same IIR tables from cfg that `prep`
     carries (both come from _decay_consts/_cascade3_consts on the same
     alphas)."""
-    if rgb.is_cuda:
-        # the blocked IIR's integer exactness needs full float32 products
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-    streams = yiq.FieldStreams(prep.xi, prep.keys_ab, prep.sincos,
-                               prep.keep, prep.shifts)
-    return yiq.composite_layer_rgb_streams(rgb, streams, cfg=cfg)
+    _full_float32(rgb)
+    return yiq.composite_layer_rgb_streams(rgb, _streams(prep), cfg=cfg)
+
+
+def _planes_in(p: torch.Tensor, w: int) -> torch.Tensor:
+    """f32 [B, L, Wp] plane -> int32 [B, L, w] (the values are integers)."""
+    return p[..., :w].to(torch.int32)
+
+
+def _planes_out(p: torch.Tensor, wp: int) -> torch.Tensor:
+    """int32 [B, L, w] -> f32 [B, L, Wp], zero past w."""
+    return torch.nn.functional.pad(p.to(torch.float32),
+                                   (0, wp - p.shape[-1]))
+
+
+def stage_a_reference(rgb: torch.Tensor, prep: Prepared, *,
+                      cfg: CompositeConfig) -> torch.Tensor:
+    """Plain version of kernel #2: uint8 [B, L, W, 3] -> the encoded luma,
+    f32 [B, L, Wp] (zero past W), before the head switch."""
+    _full_float32(rgb)
+    _, _, w, _ = rgb.shape
+    c = rgb.to(torch.int32)
+    y, i, q = yiq.rgb_to_yiq(c[..., 0], c[..., 1], c[..., 2])
+    y = yiq.composite_front_a(y, i, q, cfg=cfg, streams=_streams(prep),
+                              row0=prep.row0)
+    return _planes_out(y, _wp(w))
+
+
+def stage_b1_reference(y: torch.Tensor, prep: Prepared, *,
+                       cfg: CompositeConfig, w: int):
+    """Plain version of kernel #3: the head-switched luma f32 [B, L, Wp]
+    -> y, i, q f32 [B, L, Wp] (zero past w)."""
+    _full_float32(y)
+    out = yiq.composite_front_b1(_planes_in(y, w), cfg=cfg,
+                                 streams=_streams(prep), row0=prep.row0,
+                                 l_glob=_l_glob(prep))
+    return tuple(_planes_out(p, y.shape[-1]) for p in out)
+
+
+def stage_b2_reference(y: torch.Tensor, i: torch.Tensor, q: torch.Tensor,
+                       prep: Prepared, *, cfg: CompositeConfig,
+                       w: int) -> torch.Tensor:
+    """Plain version of kernel #4: the blended y, i, q f32 [B, L, Wp] ->
+    uint8 RGB [B, L, w, 3]."""
+    _full_float32(y)
+    y, i, q = yiq.composite_back_b2(*(_planes_in(p, w) for p in (y, i, q)),
+                                    cfg=cfg, streams=_streams(prep))
+    return torch.stack(yiq.yiq_to_rgb(y, i, q), dim=-1).to(torch.uint8)
+
+
+# ------------------------------------------------------------ the seams
+
+def head_switch_rows(y: torch.Tensor, shifts: torch.Tensor,
+                     w: int) -> torch.Tensor:
+    """The VHS head switch on a f32 [B, L, Wp] plane: each row's first w
+    samples rotate by the row's shift (yiq.head_switching_stage); the
+    padding passes through. Rows never mix, so a row shard applies its own
+    rows of the global shift table."""
+    act = yiq.head_switching_stage(y[..., :w], shifts, fill=0)
+    return torch.cat([act, y[..., w:]], dim=-1)
+
+
+def vblend_rows(p: torch.Tensor, row0: int = 0,
+                halo: torch.Tensor | None = None) -> torch.Tensor:
+    """The 2-line chroma blend on rows row0 .. of a f32 [B, L, Wp] plane
+    (twin of fused_yiq._vblend_xla): global row 0 is kept, row 1 blends
+    with 0 (a reference quirk), row r with the unblended row r-1. A shard
+    with row0 > 0 passes that row of the shard above as `halo` [B, 1, Wp]."""
+    if row0 > 0 and halo is None:
+        raise ValueError(f"vblend_rows: row0 {row0} needs the halo row")
+    first = halo if row0 > 0 else torch.zeros_like(p[:, :1])
+    prev = torch.cat([first, p[:, :-1]], dim=1)
+    rows = torch.arange(row0, row0 + p.shape[1], device=p.device)[None, :, None]
+    prev = torch.where(rows == 1, 0.0, prev)
+    blended = torch.floor((prev + p + 1.0) / 2.0)
+    return torch.where(rows == 0, p, blended)
 
 
 # ------------------------------------------------------------ the kernel
@@ -132,11 +239,20 @@ class _ChainParams(ctypes.Structure):
         "pre_gain", "video_noise", "nocolor", "chroma_noise",
         "phase_noise", "gen1_bug", "vhs", "chroma_delay", "vblend",
         "sharpen_gain", "svideo", "chroma_loss", "yc_recombine",
-        "out_lowpass")]
+        "out_lowpass", "row0", "l_glob")]
 
 
-def _chain_params(cfg: CompositeConfig, b: int, l: int, w: int,
-                  wp: int) -> _ChainParams:
+def _wp(w: int) -> int:
+    """Row width padded to whole 128-sample blocks."""
+    return -(-w // BLOCK) * BLOCK
+
+
+def _l_glob(prep: Prepared) -> int:
+    return prep.xi.shape[1] if prep.l_glob is None else prep.l_glob
+
+
+def _chain_params(cfg: CompositeConfig, b: int, l: int, w: int, wp: int,
+                  row0: int = 0, l_glob: int | None = None) -> _ChainParams:
     do_pre = (cfg.composite_preemphasis != 0
               and cfg.composite_preemphasis_cut > 0)
     if not cfg.composite_out_chroma_lowpass:
@@ -165,7 +281,8 @@ def _chain_params(cfg: CompositeConfig, b: int, l: int, w: int,
         svideo=int(cfg.vhs_svideo_out),
         chroma_loss=int(cfg.video_chroma_loss != 0),
         yc_recombine=cfg.video_yc_recombine,
-        out_lowpass=out_lowpass)
+        out_lowpass=out_lowpass,
+        row0=row0, l_glob=l if l_glob is None else l_glob)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -185,26 +302,7 @@ def _u32_as_i32(keys: torch.Tensor) -> torch.Tensor:
     return torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)
 
 
-def composite_layer_rgb_fused(rgb: torch.Tensor, prep: Prepared, *,
-                              cfg: CompositeConfig) -> torch.Tensor:
-    """The gen-2 chain on uint8 [B, L, W, 3] fields; uint8 out.
-
-    A CPU tensor runs chain_reference. A CUDA tensor launches the kernel
-    of csrc/yiq_chain.cu (built at first use) or raises; there is no
-    fallback."""
-    global KERNEL_LAUNCHES
-    if rgb.device.type == "cpu":
-        return chain_reference(rgb, prep, cfg=cfg)
-    if rgb.device.type != "cuda":
-        raise ValueError(f"no kernel for device {rgb.device}")
-    from cvsim_tpu_torch import kernels
-
-    dev = rgb.device
-    if rgb.ndim != 4:
-        raise ValueError(f"rgb: expected [B, L, W, 3], got {tuple(rgb.shape)}")
-    b, l, w, _ = rgb.shape
-    wp = -(-w // BLOCK) * BLOCK
-    _check("rgb", rgb, torch.uint8, (b, l, w, 3), dev)
+def _check_prep(prep: Prepared, b: int, l: int, dev: torch.device):
     _check("xi", prep.xi, torch.int32, (b, l), dev)
     _check("keys_ab", prep.keys_ab, torch.int64, (b, 2), dev)
     _check("sincos", prep.sincos, torch.float32, (b, l, 2), dev)
@@ -215,22 +313,145 @@ def composite_layer_rgb_fused(rgb: torch.Tensor, prep: Prepared, *,
     for k, (t, shape) in enumerate(zip(prep.tables, table_shapes)):
         _check(f"tables[{k}]", t, torch.float32, shape, dev)
 
+
+def _launch(name: str, fn, dev: torch.device, *args):
+    """Call the C entry point `fn` on dev's current stream; raise on a
+    refused launch."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        from cvsim_tpu_torch import kernels
+
+        raise RuntimeError(f"{name} launch failed: {kernels.error_string(rc)}")
+
+
+def _cuda_device(t: torch.Tensor, what: str):
+    """None for a CPU tensor (run the plain version), the device for a CUDA
+    tensor; raises for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+    return t.device
+
+
+def composite_layer_rgb_fused(rgb: torch.Tensor, prep: Prepared, *,
+                              cfg: CompositeConfig) -> torch.Tensor:
+    """The gen-2 chain on uint8 [B, L, W, 3] fields; uint8 out.
+
+    A CPU tensor runs chain_reference. A CUDA tensor launches the kernel
+    of csrc/yiq_chain.cu (built at first use) or raises; there is no
+    fallback."""
+    global KERNEL_LAUNCHES
+    dev = _cuda_device(rgb, "yiq_chain")
+    if dev is None:
+        return chain_reference(rgb, prep, cfg=cfg)
+    from cvsim_tpu_torch import kernels
+
+    if rgb.ndim != 4:
+        raise ValueError(f"rgb: expected [B, L, W, 3], got {tuple(rgb.shape)}")
+    b, l, w, _ = rgb.shape
+    if prep.row0 != 0 or _l_glob(prep) != l:
+        raise ValueError("yiq_chain runs whole fields; a row shard takes "
+                         "stage_a/stage_b1/stage_b2")
+    wp = _wp(w)
+    _check("rgb", rgb, torch.uint8, (b, l, w, 3), dev)
+    _check_prep(prep, b, l, dev)
+
     keys = _u32_as_i32(prep.keys_ab)
     scratch = torch.empty((3, b, l, wp), dtype=torch.float32, device=dev)
     out = torch.empty_like(rgb)
     params = _chain_params(cfg, b, l, w, wp)
     lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cvsim_yiq_chain(
+    _launch("yiq_chain", lib.cvsim_yiq_chain, dev,
             rgb.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
             prep.sincos.data_ptr(), prep.keep.data_ptr(),
-            prep.shifts.data_ptr(),
-            *(t.data_ptr() for t in prep.tables),
-            scratch.data_ptr(), out.data_ptr(),
-            ctypes.addressof(params), stream)
-    if rc != 0:
-        raise RuntimeError(f"yiq_chain launch failed: {kernels.error_string(rc)}")
+            prep.shifts.data_ptr(), *(t.data_ptr() for t in prep.tables),
+            scratch.data_ptr(), out.data_ptr(), ctypes.addressof(params))
     KERNEL_LAUNCHES += 1
     return out
 
+
+def _split_params(cfg, prep: Prepared, b: int, l: int, w: int,
+                  dev: torch.device) -> _ChainParams:
+    _check_prep(prep, b, l, dev)
+    return _chain_params(cfg, b, l, w, _wp(w), prep.row0, _l_glob(prep))
+
+
+def stage_a(rgb: torch.Tensor, prep: Prepared, *,
+            cfg: CompositeConfig) -> torch.Tensor:
+    """Kernel #2 (yiq_a) on uint8 [B, L, W, 3] rows of a field: the encoded
+    luma, f32 [B, L, Wp]. CPU tensor: stage_a_reference; CUDA tensor: the
+    kernel or raise."""
+    global A_LAUNCHES
+    dev = _cuda_device(rgb, "yiq_a")
+    if dev is None:
+        return stage_a_reference(rgb, prep, cfg=cfg)
+    from cvsim_tpu_torch import kernels
+
+    if rgb.ndim != 4:
+        raise ValueError(f"rgb: expected [B, L, W, 3], got {tuple(rgb.shape)}")
+    b, l, w, _ = rgb.shape
+    _check("rgb", rgb, torch.uint8, (b, l, w, 3), dev)
+    params = _split_params(cfg, prep, b, l, w, dev)
+    keys = _u32_as_i32(prep.keys_ab)
+    y = torch.empty((b, l, _wp(w)), dtype=torch.float32, device=dev)
+    _launch("yiq_a", kernels.load().cvsim_yiq_a, dev,
+            rgb.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
+            *(t.data_ptr() for t in prep.tables), y.data_ptr(),
+            ctypes.addressof(params))
+    A_LAUNCHES += 1
+    return y
+
+
+def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig,
+             w: int):
+    """Kernel #3 (yiq_b1) on the head-switched luma f32 [B, L, Wp] of w
+    active samples: y, i, q f32 [B, L, Wp]. CPU tensor:
+    stage_b1_reference; CUDA tensor: the kernel or raise."""
+    global B1_LAUNCHES
+    dev = _cuda_device(y, "yiq_b1")
+    if dev is None:
+        return stage_b1_reference(y, prep, cfg=cfg, w=w)
+    from cvsim_tpu_torch import kernels
+
+    if y.ndim != 3:
+        raise ValueError(f"y: expected [B, L, Wp], got {tuple(y.shape)}")
+    b, l, wp = y.shape
+    _check("y", y, torch.float32, (b, l, _wp(w)), dev)
+    params = _split_params(cfg, prep, b, l, w, dev)
+    keys = _u32_as_i32(prep.keys_ab)
+    out = torch.empty((3, b, l, wp), dtype=torch.float32, device=dev)
+    _launch("yiq_b1", kernels.load().cvsim_yiq_b1, dev,
+            y.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
+            prep.sincos.data_ptr(), *(t.data_ptr() for t in prep.tables),
+            *(p.data_ptr() for p in out), ctypes.addressof(params))
+    B1_LAUNCHES += 1
+    return tuple(out)
+
+
+def stage_b2(y: torch.Tensor, i: torch.Tensor, q: torch.Tensor,
+             prep: Prepared, *, cfg: CompositeConfig, w: int) -> torch.Tensor:
+    """Kernel #4 (yiq_b2) on the blended y, i, q f32 [B, L, Wp] of w
+    active samples: uint8 RGB [B, L, w, 3]. CPU tensor:
+    stage_b2_reference; CUDA tensor: the kernel or raise."""
+    global B2_LAUNCHES
+    dev = _cuda_device(y, "yiq_b2")
+    if dev is None:
+        return stage_b2_reference(y, i, q, prep, cfg=cfg, w=w)
+    from cvsim_tpu_torch import kernels
+
+    if y.ndim != 3:
+        raise ValueError(f"y: expected [B, L, Wp], got {tuple(y.shape)}")
+    b, l, _ = y.shape
+    for name, p in (("y", y), ("i", i), ("q", q)):
+        _check(name, p, torch.float32, (b, l, _wp(w)), dev)
+    params = _split_params(cfg, prep, b, l, w, dev)
+    out = torch.empty((b, l, w, 3), dtype=torch.uint8, device=dev)
+    _launch("yiq_b2", kernels.load().cvsim_yiq_b2, dev,
+            y.data_ptr(), i.data_ptr(), q.data_ptr(), prep.xi.data_ptr(),
+            prep.keep.data_ptr(), *(t.data_ptr() for t in prep.tables),
+            out.data_ptr(), ctypes.addressof(params))
+    B2_LAUNCHES += 1
+    return out

@@ -90,20 +90,38 @@ def random_walk_per_field(keys: torch.Tensor, n: int, mag: int,
     return iir_lowpass(u.to(dtype), 0.5, 0.0)
 
 
-def smoothed_noise_walk_rows(keys: torch.Tensor, l: int, w: int, mag: int,
-                             dtype=torch.float32) -> torch.Tensor:
-    """Per-scanline smoothed walks [B, l, w]: element (y, x) draws stream
-    index y*w + x and the walk resets to 0 at each line start."""
-    u = randint_per_field(keys, (l, w), -mag, mag + 1)
+def _row_walks(keys: torch.Tensor, plane_offs, row0: int, l: int, w: int,
+               mag: int, dtype) -> torch.Tensor:
+    """Smoothed walks [B, P, l, w]: plane p's element (y, x) draws stream
+    index plane_offs[p] + (row0 + y)*w + x (u32 wrap)."""
+    dev = keys.device
+    offs = torch.tensor(plane_offs, dtype=torch.int64, device=dev)
+    rows = torch.arange(row0, row0 + l, dtype=torch.int64, device=dev)
+    cols = torch.arange(w, dtype=torch.int64, device=dev)
+    idx = (offs[:, None, None] + rows[:, None] * w + cols) & MASK32
+    u = _randint_bits(_bits(keys[:, None, None, None], idx[None]),
+                      -mag, mag + 1)
     return _shift_in_zero(iir_lowpass(u.to(dtype), 0.5, 0.0))
+
+
+def smoothed_noise_walk_rows(keys: torch.Tensor, l: int, w: int, mag: int,
+                             dtype=torch.float32, row0: int = 0,
+                             plane_off: int = 0) -> torch.Tensor:
+    """Per-scanline smoothed walks [B, l, w]: element (y, x) draws stream
+    index plane_off + (row0 + y)*w + x and the walk resets to 0 at each
+    line start. A row shard starting at global row row0 draws its rows of
+    the whole field's walk."""
+    return _row_walks(keys, [plane_off], row0, l, w, mag, dtype)[:, 0]
 
 
 def chroma_noise_walk_rows(keys: torch.Tensor, l: int, w: int, mag: int,
-                           dtype=torch.float32) -> torch.Tensor:
+                           dtype=torch.float32, row0: int = 0,
+                           l_glob: int | None = None) -> torch.Tensor:
     """Two per-scanline smoothed walk planes [B, 2, l, w] (I/Q); plane c's
-    element (y, x) draws stream index c*l*w + y*w + x."""
-    u = randint_per_field(keys, (2, l, w), -mag, mag + 1)
-    return _shift_in_zero(iir_lowpass(u.to(dtype), 0.5, 0.0))
+    element (y, x) draws stream index c*l_glob*w + (row0 + y)*w + x, where
+    l_glob is the whole field's height (l for an unsharded field)."""
+    l_glob = l if l_glob is None else l_glob
+    return _row_walks(keys, [0, l_glob * w], row0, l, w, mag, dtype)
 
 
 def uniform_pm1_per_field(keys: torch.Tensor,

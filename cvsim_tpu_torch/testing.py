@@ -93,3 +93,73 @@ def assert_chain_equal(a, b, err_msg: str = "") -> None:
         return
     if not (dmax <= 1 and frac <= 1e-3):
         raise AssertionError(f"{err_msg}: max diff {dmax}, frac {frac:.2e}")
+
+
+# The tolerance for a plane between the split kernels (#2's encoded luma):
+# its values are luma x256 plus the lowpassed chroma, so a float32 pole
+# product one ULP apart truncates the chroma one integer apart, and the
+# preemphasis gain (7 in the "preemph" configuration) multiplies that. The
+# JAX package's own stage path and its kernel A differ by up to 4 on 1.4%
+# of the samples of that configuration. The chain tolerance applies where
+# the planes become 8-bit output.
+PLANE_MAX_DIFF = 16
+PLANE_MAX_FRAC = 0.02
+
+
+def assert_plane_close(a, b, err_msg: str = "") -> None:
+    """An intermediate plane of the split chain within PLANE_MAX_DIFF on at
+    most PLANE_MAX_FRAC of samples."""
+    dmax, frac = chain_diff(a, b)
+    if not (dmax <= PLANE_MAX_DIFF and frac <= PLANE_MAX_FRAC):
+        raise AssertionError(f"{err_msg}: plane max diff {dmax}, "
+                             f"frac {frac:.2e}")
+
+
+def check_split_kernels(cfg: CompositeConfig, rgb, prep,
+                        err_msg: str = "") -> dict:
+    """Kernels #2-#4 (models/fused_yiq.stage_a/_b1/_b2) against their
+    plain versions on the same inputs: uint8 rows `rgb` [B, L, W, 3] of a
+    field and their prepare(). #4's output is held to assert_chain_equal;
+    #2's and #3's planes to assert_plane_close, and then each is carried to
+    8-bit output through the same kernels downstream and held to
+    assert_chain_equal. Returns {kernel: {"plane": (max diff, frac),
+    "rgb": (max diff, frac)}} ("plane" is the kernel's own output)."""
+    from cvsim_tpu_torch.models import fused_yiq as fy
+
+    w = rgb.shape[2]
+
+    def hs(y):
+        return (fy.head_switch_rows(y, prep.shifts, w)
+                if cfg.vhs_head_switching else y)
+
+    def b1(y, plain=False):
+        fn = fy.stage_b1_reference if plain else fy.stage_b1
+        return fn(y, prep, cfg=cfg, w=w)
+
+    def b2(planes, plain=False):
+        fn = fy.stage_b2_reference if plain else fy.stage_b2
+        return fn(*planes, prep, cfg=cfg, w=w).cpu().numpy()
+
+    def np_(t):
+        return t.cpu().numpy()
+
+    out = {}
+    a_k = fy.stage_a(rgb, prep, cfg=cfg)
+    a_p = fy.stage_a_reference(rgb, prep, cfg=cfg)
+    b1_k = b1(hs(a_k))
+    b1_p = b1(hs(a_k), plain=True)
+    rgb_k = b2(b1_k)
+    checks = (
+        ("yiq_a", [(np_(a_k), np_(a_p))], rgb_k, b2(b1(hs(a_p)))),
+        ("yiq_b1", [(np_(k), np_(p)) for k, p in zip(b1_k, b1_p)],
+         rgb_k, b2(b1_p)),
+        ("yiq_b2", [], rgb_k, b2(b1_k, plain=True)))
+    for name, planes, got, want in checks:
+        for k, (pk, pp) in enumerate(planes):
+            assert_plane_close(pk, pp, err_msg=f"{err_msg} {name} plane {k}")
+        assert_chain_equal(got, want, err_msg=f"{err_msg} {name} to RGB")
+        plane = ((max(chain_diff(a, b)[0] for a, b in planes),
+                  max(chain_diff(a, b)[1] for a, b in planes))
+                 if planes else chain_diff(got, want))
+        out[name] = {"plane": plane, "rgb": chain_diff(got, want)}
+    return out

@@ -121,11 +121,17 @@ def test_cuda_default_without_gpu_fails(tmp_path, capsys):
     (["-audio-in", "x.wav", "-audio-out", "y.wav"], "not yet ported"),
 ])
 def test_not_yet_ported_errors(tmp_path, capsys, flag, msg):
+    """-audio-in is not ported yet and fails with a clear error; -devices
+    is ported now and runs (here over a 2-device CPU mesh)."""
     src = make_clip(str(tmp_path / "in.y4m"))
     out = str(tmp_path / "out.y4m")
-    assert main(["--device", "cpu", "ntsc", "-i", src, "-o", out,
-                 *flag]) == 1
-    assert msg in capsys.readouterr().err
+    rc = main(["--device", "cpu", "ntsc", "-i", src, "-o", out, *flag])
+    err = capsys.readouterr().err
+    if flag[0] == "-devices":
+        assert rc == 0 and msg not in err
+        assert len(read_all(out)[1]) == 8
+    else:
+        assert rc == 1 and msg in err
 
 
 def _run(src, out, ckpt_path=None, fail_after=None, mode="wb"):
@@ -154,3 +160,21 @@ def test_crash_resume_bit_identical(tmp_path):
     assert not os.path.exists(ck)
     with open(golden, "rb") as a, open(out, "rb") as b:
         assert a.read() == b.read()
+
+
+def test_resume_refuses_a_short_output(tmp_path):
+    """An output that lost frames after its checkpoint was saved (a write
+    the disk never kept) is refused on resume instead of being padded with
+    zeros; the checkpoint stays for the user to delete."""
+    src = make_clip(str(tmp_path / "in.y4m"), frames=6)
+    out = str(tmp_path / "out.y4m")
+    ck = out + ".ckpt"
+    with pytest.raises(RuntimeError, match="injected"):
+        _run(src, out, ckpt_path=ck, fail_after=2)
+    size = os.path.getsize(out)
+    with open(out, "r+b") as f:
+        f.truncate(size - 100)
+    with pytest.raises(ValueError, match="lost frames"):
+        _run(src, out, ckpt_path=ck, mode="r+b")
+    assert os.path.getsize(out) == size - 100
+    assert os.path.exists(ck)

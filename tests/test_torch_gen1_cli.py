@@ -1,8 +1,9 @@
 """The port's gen-1 `to-composite` tool on the CPU: `python -m
 cvsim_tpu_torch --device cpu to-composite` against the JAX package's
 `cvsim to-composite` on the same clip, the black-key carry across GOPs,
-checkpoint/resume, the device and not-yet-ported errors, and the no-jax
-import contract.
+checkpoint/resume (and its refusal of an output shorter than the
+checkpoint), the device and not-yet-ported errors, and the no-jax import
+contract.
 
 Tolerance for output planes: assert_chain_equal (at most 1 LSB on at most
 0.1% of samples): float32 products and sin/cos round differently in the
@@ -110,6 +111,23 @@ def test_crash_resume_with_bkey_carry_bit_identical(tmp_path):
         assert a.read() == b.read()
 
 
+def test_resume_refuses_a_short_output(tmp_path):
+    """An output that lost frames after its checkpoint was saved is
+    refused on resume instead of being padded with zeros."""
+    src = make_clip(str(tmp_path / "in.y4m"), frames=10)
+    out = str(tmp_path / "out.y4m")
+    ck = out + ".ckpt"
+    with pytest.raises(RuntimeError, match="injected"):
+        _run(src, out, ckpt_path=ck, fail_after=2)
+    size = os.path.getsize(out)
+    with open(out, "r+b") as f:
+        f.truncate(size - 100)
+    with pytest.raises(ValueError, match="lost frames"):
+        _run(src, out, ckpt_path=ck, mode="r+b")
+    assert os.path.getsize(out) == size - 100
+    assert os.path.exists(ck)
+
+
 def test_cuda_default_without_gpu_fails(tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device works")
@@ -126,11 +144,18 @@ def test_cuda_default_without_gpu_fails(tmp_path, capsys):
     ["-audio-in", "x.wav", "-audio-out", "y.wav"],
 ], ids=["devices", "audio-in"])
 def test_not_yet_ported_errors(tmp_path, capsys, flag):
+    """-audio-in is not ported yet and fails with a clear error; -devices
+    is ported now and runs (here over a 2-device CPU mesh)."""
     src = make_clip(str(tmp_path / "in.y4m"))
     out = str(tmp_path / "out.y4m")
-    assert main(["--device", "cpu", "to-composite", "-i", src, "-o", out,
-                 *flag]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    rc = main(["--device", "cpu", "to-composite", "-i", src, "-o", out,
+               *flag])
+    err = capsys.readouterr().err
+    if flag[0] == "-devices":
+        assert rc == 0 and "not yet ported" not in err
+        assert len(read_all(out)[1]) == 8
+    else:
+        assert rc == 1 and "not yet ported" in err
 
 
 def test_to_composite_imports_no_jax(tmp_path):

@@ -1,5 +1,6 @@
-"""The CUDA kernels of the gen-2 chain (csrc/yiq_chain.cu) and of the gen-1
-chain (csrc/yuv_chain.cu) against their plain PyTorch versions, and the
+"""The CUDA kernels of the gen-2 chain (csrc/yiq_chain.cu: #1 the whole
+chain, #2-#4 its split stage groups for row shards) and of the gen-1 chain
+(csrc/yuv_chain.cu, #5) against their plain PyTorch versions, and the
 wrappers' contracts.
 
 Imports torch and the port only (no jax), so that on a GPU host the
@@ -10,6 +11,9 @@ Imports torch and the port only (no jax), so that on a GPU host the
 Without a card they skip. Tolerance: assert_chain_equal (at most 1 LSB on at most 0.1% of
 samples): the kernel and the plain chain run the same float32 math, but
 the plain chain's products go through cuBLAS with another summation order.
+The split kernels' float planes are held by testing.check_split_kernels
+(assert_plane_close on the plane, assert_chain_equal once carried to 8-bit
+output).
 """
 
 import zlib
@@ -19,9 +23,10 @@ import pytest
 import torch
 
 from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+from cvsim_tpu_torch.parallel import run_fused_lines_local
 from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, BENCH_VHS_EP,
                                      CHAIN_CONFIGS, GEN1_CHAIN_CONFIGS,
-                                     assert_chain_equal)
+                                     assert_chain_equal, check_split_kernels)
 
 SHAPES = [(2, 32, 128), (1, 16, 176)]
 CASES = [(n, s) for n in sorted(CHAIN_CONFIGS) for s in SHAPES]
@@ -106,6 +111,85 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         fused_yiq.composite_layer_rgb_fused(
             rgb, prep._replace(keep=prep.keep.cpu()), cfg=cfg)
+
+
+# ------------------------------------------------------------ split kernels
+
+SPLIT_CASES = [(n, s, r) for n in sorted(CHAIN_CONFIGS)
+               for s, r in (((2, 64, 128), 0), ((2, 64, 128), 48),
+                            ((1, 64, 176), 16))]
+
+
+def _shard(name, shape, row0, device, rows=16):
+    """Rows row0 .. row0+rows-1 of a batch of fields and their prepare()."""
+    rgb, fn, par = _batch(name, shape, device)
+    rgb = rgb[:, row0:row0 + rows].contiguous()
+    return rgb, fused_yiq.prepare(CHAIN_CONFIGS[name], rgb, fn, par, 5,
+                                  row0=row0, l_glob=shape[1])
+
+
+def test_split_cpu_wrappers_run_plain_versions():
+    """On CPU tensors the split wrappers run their plain versions and count
+    no launch."""
+    cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
+    rgb, prep = _shard("vhs-ep-stochastic", (2, 64, 128), 48, "cpu")
+    counts = (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
+              fused_yiq.B2_LAUNCHES)
+    y = fused_yiq.stage_a(rgb, prep, cfg=cfg)
+    assert torch.equal(y, fused_yiq.stage_a_reference(rgb, prep, cfg=cfg))
+    planes = fused_yiq.stage_b1(y, prep, cfg=cfg, w=128)
+    for g, w in zip(planes, fused_yiq.stage_b1_reference(y, prep, cfg=cfg,
+                                                         w=128)):
+        assert torch.equal(g, w)
+    out = fused_yiq.stage_b2(*planes, prep, cfg=cfg, w=128)
+    assert torch.equal(out, fused_yiq.stage_b2_reference(*planes, prep,
+                                                         cfg=cfg, w=128))
+    diffs = check_split_kernels(cfg, rgb, prep)
+    assert all(d["rgb"] == (0, 0.0) for d in diffs.values())
+    assert counts == (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
+                      fused_yiq.B2_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,row0", SPLIT_CASES)
+def test_split_kernels_match_plain(cuda_device, name, shape, row0):
+    rgb, prep = _shard(name, shape, row0, cuda_device)
+    before = (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
+              fused_yiq.B2_LAUNCHES)
+    check_split_kernels(CHAIN_CONFIGS[name], rgb, prep, err_msg=name)
+    after = (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
+             fused_yiq.B2_LAUNCHES)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 240, 704), (2, 540, 1888)])
+def test_split_program_matches_whole_chain_kernel(cuda_device, shape):
+    """The line-split program over 4 row shards on one card (kernels
+    #2-#4 with the seams) against kernel #1 on the whole field."""
+    rgb, fn, par = _batch("split", shape, cuda_device)
+    prep = fused_yiq.prepare(BENCH_VHS_EP, rgb, fn, par, 7)
+    want = fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=BENCH_VHS_EP)
+    got = run_fused_lines_local(BENCH_VHS_EP, rgb, fn, par, 7, sp=4)
+    assert_chain_equal(got.cpu().numpy(), want.cpu().numpy(),
+                       err_msg=str(shape))
+
+
+@pytest.mark.cuda
+def test_split_wrappers_reject_bad_inputs(cuda_device):
+    cfg = CHAIN_CONFIGS["vhs-sp"]
+    rgb, prep = _shard("vhs-sp", (2, 64, 128), 16, cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_yiq.stage_a(rgb.to(torch.int32), prep, cfg=cfg)
+    y = fused_yiq.stage_a(rgb, prep, cfg=cfg)
+    with pytest.raises(ValueError, match="shape"):
+        fused_yiq.stage_b1(y[..., :100], prep, cfg=cfg, w=128)
+    planes = fused_yiq.stage_b1(y, prep, cfg=cfg, w=128)
+    with pytest.raises(ValueError, match="on cpu"):
+        fused_yiq.stage_b2(*planes, prep._replace(keep=prep.keep.cpu()),
+                           cfg=cfg, w=128)
+    with pytest.raises(ValueError, match="whole fields"):
+        fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)
 
 
 # ------------------------------------------------------------ gen-1 kernel
