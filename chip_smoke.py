@@ -15,7 +15,12 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      (2,540,1888); the split gen-2 kernels (yiq_a, yiq_b1, yiq_b2) on row
      shards at row0 = 0 and row0 > 0 for every gen-2 configuration and for
      the bench configuration at 240x704 B=64 and 540x1888 B=16 cut into 4
-     shards; prepare() on the card == on the CPU for all;
+     shards; the split gen-1 kernels (yuv_a, yuv_b1, yuv_b2) on every
+     gen-1 configuration at the two small shapes and the bench
+     configuration at 288x720 PAL B=64 and 540x1888 B=16, and the split
+     route against yuv_chain on the same inputs; the pole cascade
+     (fused_iir) in each of the stage path's shapes at [64*240, 720] and
+     [16*540, 1888]; prepare() on the card == on the CPU for all;
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -23,16 +28,29 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      kept; the first 8 frames again through `--device cpu`, compared
      within the chain tolerance; then a short `to-composite
      -bkey-feedback 20` run on a clip with dark, keyed rows, cuda vs cpu;
+     `to-composite -tvstd pal -vhs` on 64 frames of 720x576 (the split
+     route, yuv_a/_b1/_b2) and `to-composite -nocolor-subcarrier -vhs` on
+     the 720x480 clip (the debug-tap route, fused_iir), each against
+     its first 8 frames through `--device cpu`;
      then the multi-device paths: both tools with `-devices 1`, byte-
      identical to the runs without it; `-devices <count+1>` fails and names
      the count; the line-sharded program (4 row shards on one card, and
      over every card) at 240x704 B=64 and 540x1888 B=16 against kernel #1;
      with more than one card, both tools with `-devices <count>`;
-  5. times: each kernel vs its plain version at B=64 (240x704 gen-2,
-     240x720 gen-1; the split kernels also at 540x1888 B=16; CUDA events,
-     median of 5), the split program vs kernel #1's path, the gen-1
+  5. times, each taken in turns in this run: each kernel vs its plain
+     version at B=64 (240x704 gen-2, 240x720 gen-1; the split kernels also
+     at 540x1888 B=16, the gen-1 split kernels at 288x720 PAL B=64 and
+     540x1888 B=16, the pole cascade at [64*240, 720] and [16*540, 1888];
+     CUDA events, median of 5), the gen-2 split program vs kernel #1's
+     path, the gen-1 split route vs yuv_chain at 576i and 1080i, the gen-1
      black-key scan's host cost per GOP, and each CLI's end-to-end
      fields/s.
+Each kernel's bound is the larger of two times at the H100 SXM data
+sheet's rates: the float32 operations its one-pole recurrences need (3
+per sample per pole, plus #9's combine) over 67 TFLOP/s, and its bytes
+(each input read once, each output written once) over 3.35 TB/s. The
+count leaves out the element-wise stages and the noise hashing, so it is
+a lower count and the bound a lower bound on time.
 The line before the last is the card's name and power limit; the one
 before it lists each kernel as JSON. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -49,7 +67,9 @@ import time
 import zlib
 from fractions import Fraction
 
-sys.modules["jax"] = None   # the port must never import jax
+# the port imports neither jax nor the JAX package
+sys.modules["jax"] = None
+sys.modules["cvsim_tpu"] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -57,6 +77,17 @@ sys.path.insert(0, ROOT)
 # chain tolerance (cvsim_tpu_torch.testing.assert_chain_equal): at most
 # 1 LSB on at most 0.1% of samples
 TOLERANCE = "max |diff| <= 1 LSB on <= 0.1% of samples"
+IIR_TOLERANCE = "max |diff| <= 8 float32 ULPs of max|x| times (1 + |gain|)"
+
+# the H100 SXM data sheet's peaks (float32 outside the tensor cores, HBM3)
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# one pole y[t] = y[t-1] + a * (x[t] - y[t-1]) per sample: a subtract and a
+# multiply-add, 3 operations (a multiply-add counts 2, as the peak does).
+# The kernels' blocked form (pole.cuh) does far more: a 128 x 128
+# lower-triangular product per block, 129 operations per sample for one
+# pole or for a group of three.
+POLE_FLOPS = 3
 
 
 def card_line() -> str:
@@ -82,8 +113,8 @@ def colour_bars(w: int, h: int):
 def write_bars_y4m(path: str, frames: int, w: int = 720, h: int = 480):
     import numpy as np
 
-    from cvsim_tpu.host import y4m
-    from cvsim_tpu.host.colorconv import rgb_to_yuv601_np
+    from cvsim_tpu_torch.host import y4m
+    from cvsim_tpu_torch.host.colorconv import rgb_to_yuv601_np
 
     rgb, _ = colour_bars(w, h)
     y, u, v = (p.astype(np.uint8) for p in rgb_to_yuv601_np(
@@ -104,7 +135,7 @@ def write_dark_y4m(path: str, frames: int, w: int = 720, h: int = 480):
     to field."""
     import numpy as np
 
-    from cvsim_tpu.host import y4m
+    from cvsim_tpu_torch.host import y4m
 
     y, u, v = write_bars_y4m(path, 0, w, h)
     rng = np.random.default_rng(20)
@@ -121,7 +152,7 @@ def write_dark_y4m(path: str, frames: int, w: int = 720, h: int = 480):
 
 
 def read_y4m(path: str):
-    from cvsim_tpu.host import y4m
+    from cvsim_tpu_torch.host import y4m
 
     with open(path, "rb") as f:
         r = y4m.Y4MReader(f)
@@ -150,14 +181,19 @@ def check_bars(frames, y_in, u_in, v_in, limit: float) -> float:
     return worst
 
 
-def compare_cli(frames_gpu, frames_cpu, n_fields: int, what: str) -> int:
+def compare_cli(frames_gpu, frames_cpu, n_fields: int | None,
+                what: str) -> int:
     """CUDA CLI output vs CPU CLI output, frame by frame, within the chain
-    tolerance; returns the largest difference."""
+    tolerance: the CPU run's fields (n_fields of them, when given) against
+    the first as many of the CUDA run's; returns the largest difference."""
     from cvsim_tpu_torch.testing import assert_chain_equal, chain_diff
 
-    if len(frames_cpu) != n_fields:
+    if n_fields is not None and len(frames_cpu) != n_fields:
         raise AssertionError(f"{what} CPU run: {len(frames_cpu)} fields, "
                              f"expected {n_fields}")
+    if not 0 < len(frames_cpu) <= len(frames_gpu):
+        raise AssertionError(f"{what}: {len(frames_cpu)} CPU fields against "
+                             f"{len(frames_gpu)} CUDA fields")
     err = 0
     for k, (fc, fg) in enumerate(zip(frames_cpu, frames_gpu)):
         for pc, pg in zip(fc, fg):
@@ -248,7 +284,7 @@ def kernel_cases_gen1(dev, key) -> int:
               ("bench-gen1-ep-pal", BENCH_GEN1_EP.with_(ntsc=False),
                (8, 288, 720)),
               ("bench-gen1-ep", BENCH_GEN1_EP, (2, 540, 1888))]
-    max_err = 0
+    max_err, exact = 0, 0
     for name, cfg, (b, l, w) in cases:
         rng = np.random.default_rng(zlib.crc32(f"g1{name}{b}{l}{w}".encode()))
         planes_np = [rng.integers(0, 256, s).astype(np.uint8)
@@ -267,13 +303,14 @@ def kernel_cases_gen1(dev, key) -> int:
             assert_chain_equal(g, wnt, err_msg=f"{name} {(b, l, w)} plane {k}")
         dmax = max(d for d, _ in diffs)
         max_err = max(max_err, dmax)
+        exact += dmax == 0
         print(f"[3] yuv_chain {name} {(b, l, w)}: kernel vs plain max {dmax}, "
               f"frac y/u/v {' '.join(f'{f:.2e}' for _, f in diffs)}")
         check_prepare(prep, lambda: fused_yuv.prepare(
             cfg, torch.from_numpy(planes_np[0]), fn, par, key), name)
-    print(f"[3] yuv_chain: prepare() on the card == on the CPU for xi, "
-          f"keys_ab, keep, shifts in all {len(cases)} cases; tolerance: "
-          f"{TOLERANCE}")
+    print(f"[3] yuv_chain: exact in {exact} of {len(cases)} cases; prepare() "
+          f"on the card == on the CPU for xi, keys_ab, keep, shifts in all; "
+          f"tolerance: {TOLERANCE}")
     return max_err
 
 
@@ -325,17 +362,184 @@ def kernel_cases_split(dev, key) -> dict:
     return errs
 
 
-def run_cli(cli_main, module, args):
-    """One in-process CLI run with `module`'s launch count set to 0 just
-    before it; returns (seconds, launches, header, frames)."""
+GEN1_SPLIT_KERNELS = ("yuv_a", "yuv_b1", "yuv_b2")
+
+
+def gen1_inputs(dev, key, cfg, shape, tag: str):
+    """Random uint8 gen-1 planes y [B, L, W], u, v [B, L, W//2] on dev and
+    their prepare()."""
+    import numpy as np
     import torch
 
-    module.KERNEL_LAUNCHES = 0
+    from cvsim_tpu_torch.models import fused_yuv
+
+    b, l, w = shape
+    rng = np.random.default_rng(zlib.crc32(f"{tag}{b}{l}{w}".encode()))
+    y, u, v = (torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+               .to(dev) for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2)))
+    fn = torch.arange(b, dtype=torch.int32) + 3
+    return y, u, v, fused_yuv.prepare(cfg, y, fn, fn % 2, key)
+
+
+def kernel_cases_gen1_split(dev, key) -> dict:
+    """[3] yuv_a, yuv_b1, yuv_b2 each vs its plain version, and the split
+    route vs yuv_chain (testing.check_gen1_split_kernels); returns each
+    one's largest difference."""
+    from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
+                                         check_gen1_split_kernels)
+
+    cases = [(n, c, s) for n, c in sorted(GEN1_CHAIN_CONFIGS.items())
+             for s in ((2, 32, 128), (1, 16, 176))]
+    cases += [("bench-gen1-ep-pal", BENCH_GEN1_EP.with_(ntsc=False),
+               (64, 288, 720)),
+              ("bench-gen1-ep", BENCH_GEN1_EP, (16, 540, 1888))]
+    errs, exact = {}, 0
+    for name, cfg, shape in cases:
+        y, u, v, prep = gen1_inputs(dev, key, cfg, shape, f"g1split{name}")
+        diffs = check_gen1_split_kernels(cfg, y, u, v, prep,
+                                         err_msg=f"{name} {shape}")
+        for k, (dmax, _) in diffs.items():
+            errs[k] = max(errs.get(k, 0), dmax)
+        exact += all(d == (0, 0.0) for d in diffs.values())
+        print(f"[3] gen-1 split {name} {shape}: " + "; ".join(
+            f"{k} max {d[0]} frac {d[1]:.2e}" for k, d in diffs.items()))
+    print(f"[3] gen-1 split kernels: all outputs exact in {exact} of "
+          f"{len(cases)} cases; tolerance: {TOLERANCE}")
+    return errs
+
+
+def iir_shapes():
+    """The pole cascade's calls on the gen-1 stage path at the VHS-EP cuts:
+    (label, alphas, y0s, mode, gain)."""
+    from cvsim_tpu_torch.config import (NTSC_RATE, NTSC_RATE_422, VHSSpeed,
+                                        iir_alpha)
+
+    ep = VHSSpeed.EP
+    luma = float(iir_alpha(NTSC_RATE, ep.luma_cut))
+    chroma = float(iir_alpha(NTSC_RATE_422, ep.chroma_cut))
+    sharp = float(iir_alpha(NTSC_RATE, ep.luma_cut * 2))
+    pre = float(iir_alpha(NTSC_RATE, 315000000 / 88))
+    return [("VHS luma, emph 4 poles", (luma,) * 4, (16.0,) * 4, "emph", 1.6),
+            ("VHS chroma, none 3 poles", (chroma,) * 3, (128.0,) * 3, "none",
+             0.0),
+            ("sharpen, unsharp 3 poles", (sharp,) * 3, (16.0,) * 3,
+             "unsharp", 1.5),
+            ("preemphasis, emph 1 pole", (pre,), (16.0,), "emph", 7.0)]
+
+
+def iir_input(dev, rows: int, w: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(rows + w)
+    return torch.from_numpy(rng.integers(0, 256, (rows, w)).astype(
+        np.float32)).to(dev)
+
+
+def kernel_cases_iir(dev) -> float:
+    """[3] fused_iir vs fused_iir_reference in each of the stage path's
+    shapes at [64*240, 720] and [16*540, 1888]; returns the largest
+    difference."""
+    import torch
+
+    from cvsim_tpu_torch.ops import fused_iir
+    from cvsim_tpu_torch.testing import iir_bound
+
+    max_err = 0.0
+    for rows, w in ((64 * 240, 720), (16 * 540, 1888)):
+        x = iir_input(dev, rows, w)
+        for label, alphas, y0s, mode, gain in iir_shapes():
+            kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
+            got = fused_iir.fused_iir(x, **kw)
+            torch.cuda.synchronize()
+            want = fused_iir.fused_iir_reference(x, **kw)
+            err = float((got - want).abs().max())
+            bound = iir_bound(float(x.abs().max()), gain)
+            max_err = max(max_err, err)
+            print(f"[3] fused_iir [{rows}, {w}] {label}: kernel vs plain max "
+                  f"{err} (bound {bound:.3e})")
+            if not err <= bound:
+                raise AssertionError(f"fused_iir {label} [{rows}, {w}]: "
+                                     f"max diff {err} > {bound}")
+    print(f"[3] fused_iir: tolerance {IIR_TOLERANCE}")
+    return max_err
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def prep_bytes(prep) -> int:
+    """Bytes of a prepare()'s per-line inputs and constant tables."""
+    return nbytes(*(t for t in prep if hasattr(t, "numel")), *prep.tables)
+
+
+def bound_ms(flops: float, n_bytes: float) -> tuple[float, str]:
+    """(least time in ms, "operations" or "bytes"): the larger of flops
+    over the float32 peak and bytes over the memory rate."""
+    t_ops = flops / F32_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def gen2_poles(cfg) -> dict:
+    """One-pole passes per row of kernels #1-#4 for cfg, all at the luma
+    width, counted from yiq_chain.cu's row functions: a lowpass writeback
+    is three poles, the VHS luma emphasis four, a noise walk one."""
+    from cvsim_tpu_torch.models import fused_yiq
+
+    p = fused_yiq._chain_params(cfg, 1, 1, 8, 128)
+    a = 6 * p.in_lowpass + p.preemph + int(p.video_noise != 0)
+    b1 = 2 * int(p.chroma_noise != 0) + 10 * p.vhs
+    b2 = 3 * p.vhs + 6 * int(p.out_lowpass != 0)
+    return {"yiq_a": a, "yiq_b1": b1, "yiq_b2": b2, "yiq_chain": a + b1 + b2}
+
+
+def gen2_flops(cfg, name: str, b: int, l: int, w: int) -> float:
+    return b * l * w * gen2_poles(cfg)[name] * POLE_FLOPS
+
+
+def gen1_poles(cfg) -> dict:
+    """(luma poles at w, chroma poles at w/2) per row of kernels #5-#8 for
+    cfg, counted from yuv_chain.cu's row functions: a full chroma lowpass
+    is four poles (the half-cut pole and three at the cut), a lite one or
+    a VHS bandlimit three, the VHS luma emphasis four, a noise walk one."""
+    from cvsim_tpu_torch.models import fused_yuv
+
+    p = fused_yuv._yuv_params(cfg, 1, 1, 8, 128, 4, 128)
+    out_lp = {0: 0, 1: 6, 2: 8}[p.out_lowpass]
+    a = (p.preemph + int(p.video_noise != 0), 8 * p.in_lowpass)
+    b1 = (4 * p.vhs, 2 * int(p.chroma_noise != 0) + 6 * p.vhs)
+    b2 = (3 * p.vhs, 6 * p.vhs + out_lp)
+    return {"yuv_a": a, "yuv_b1": b1, "yuv_b2": b2,
+            "yuv_chain": tuple(map(sum, zip(a, b1, b2)))}
+
+
+def gen1_flops(cfg, name: str, b: int, l: int, w: int) -> float:
+    luma, chroma = gen1_poles(cfg)[name]
+    return b * l * (luma * w + chroma * (w // 2)) * POLE_FLOPS
+
+
+def iir_flops(rows: int, w: int, k: int, mode: str) -> float:
+    """k poles over rows rows of w samples, plus the emph/unsharp combine
+    (a subtract and a multiply-add per sample)."""
+    return rows * w * (k * POLE_FLOPS + (0 if mode == "none" else 3))
+
+
+def run_cli(cli_main, counters, args):
+    """One in-process CLI run with the launch counts `counters` ({name:
+    (module, attribute)}) set to 0 just before it; returns (seconds,
+    {name: launches}, header, frames)."""
+    import torch
+
+    for module, attr in counters.values():
+        setattr(module, attr, 0)
     t0 = time.perf_counter()
     rc = cli_main(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = module.KERNEL_LAUNCHES
+    launches = {name: getattr(module, attr)
+                for name, (module, attr) in counters.items()}
     if rc != 0:
         raise AssertionError(f"CLI {args[:3]} rc {rc}")
     hdr, frames = read_y4m(args[args.index("-o") + 1])
@@ -434,7 +638,8 @@ def main() -> int:
     from cvsim_tpu_torch import interop, kernels
     from cvsim_tpu_torch.cli.main import main as cli_main
     from cvsim_tpu_torch.host.pipeline import _bkey_scan
-    from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yiq
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yiq, yuv422
+    from cvsim_tpu_torch.ops import fused_iir
     from cvsim_tpu_torch.parallel import run_fused_lines_local
     from cvsim_tpu_torch.testing import BENCH_GEN1_EP, BENCH_VHS_EP
 
@@ -457,7 +662,7 @@ def main() -> int:
             print(f"    ptxas: {line.strip()}")
     # the CLI's frame scaler is a host C++ library built at first use
     # (g++, seconds); build it here so that the timed CLI runs exclude it
-    from cvsim_tpu.native.hostpix import scale_frame_to
+    from cvsim_tpu_torch.native.hostpix import scale_frame_to
 
     t0 = time.perf_counter()
     grey = np.full((8, 8), 128, np.uint8)
@@ -469,6 +674,8 @@ def main() -> int:
     err_yiq = kernel_cases_gen2(dev, key)
     err_yuv = kernel_cases_gen1(dev, key)
     err_split = kernel_cases_split(dev, key)
+    err_g1split = kernel_cases_gen1_split(dev, key)
+    err_iir = kernel_cases_iir(dev)
 
     # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
@@ -495,9 +702,10 @@ def main() -> int:
             # decode moves the saturated bars' U/V by ~100
             ("to-composite", fused_yuv, ["-vhs"], 40.0)):
         out = outs[tool] = os.path.join(tmp, f"out-{tool}.y4m")
-        cli_s, launches, hdr, frames = run_cli(
-            cli_main, module,
+        cli_s, counts, hdr, frames = run_cli(
+            cli_main, {"kernel": (module, "KERNEL_LAUNCHES")},
             ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags])
+        launches = counts["kernel"]
         n_fields = len(frames)
         gops = -(-n_fields // 64)
         print(f"[4] {tool} --device cuda: {n_fields} fields "
@@ -522,16 +730,70 @@ def main() -> int:
         paths[tool] = (launches, n_fields / cli_s)
 
     bkey = ["-vhs", "-bkey-feedback", "20", "-seed", "3"]
-    _, bk_launches, _, frames = run_cli(
-        cli_main, fused_yuv,
+    _, bk_counts, _, frames = run_cli(
+        cli_main, {"yuv_chain": (fused_yuv, "KERNEL_LAUNCHES")},
         ["--device", "cuda", "to-composite", "-i", dark, "-o",
          os.path.join(tmp, "out-bkey.y4m"), *bkey])
     cli_main(["--device", "cpu", "to-composite", "-i", dark, "-o", out_cpu,
               *bkey])
     bk_err = compare_cli(frames, read_y4m(out_cpu)[1], 16, "bkey")
     print(f"[4] to-composite -bkey-feedback 20, 16 fields with keyed dark "
-          f"rows: {bk_launches} launch, cuda vs cpu max diff {bk_err}; "
-          f"tolerance: {TOLERANCE}")
+          f"rows: {bk_counts['yuv_chain']} launch, cuda vs cpu max diff "
+          f"{bk_err}; tolerance: {TOLERANCE}")
+
+    # the gen-1 split route (576i PAL fields are above the reference's
+    # single-tile budget) and the debug-tap route (the stage path with its
+    # pole cascades on fused_iir), each with every gen-1 launch count
+    src_pal = os.path.join(tmp, "bars576.y4m")
+    src_pal8 = os.path.join(tmp, "bars576-8.y4m")
+    pal_in = write_bars_y4m(src_pal, 64, 720, 576)
+    write_bars_y4m(src_pal8, 8, 720, 576)
+    gen1_counters = {"yuv_chain": (fused_yuv, "KERNEL_LAUNCHES"),
+                     "yuv_a": (fused_yuv, "A_LAUNCHES"),
+                     "yuv_b1": (fused_yuv, "B1_LAUNCHES"),
+                     "yuv_b2": (fused_yuv, "B2_LAUNCHES"),
+                     "fused_iir": (fused_iir, "KERNEL_LAUNCHES")}
+    route_launches = {}
+    for what, source, source8, extra, expect, bars in (
+            ("to-composite -tvstd pal -vhs", src_pal, src_pal8,
+             ["-tvstd", "pal", "-vhs"], GEN1_SPLIT_KERNELS, pal_in),
+            # the tap drops the chroma subcarrier, so the bars lose colour
+            ("to-composite -nocolor-subcarrier -vhs", src, src8,
+             ["-nocolor-subcarrier", "-vhs"], ("fused_iir",), None)):
+        out = os.path.join(tmp, f"out-{expect[0]}.y4m")
+        cli_s, counts, hdr, frames = run_cli(
+            cli_main, gen1_counters, ["--device", "cuda", "to-composite",
+                                      "-i", source, "-o", out, *extra,
+                                      *flags])
+        gops = -(-len(frames) // 64)
+        print(f"[4] {what} --device cuda: {len(frames)} fields "
+              f"({hdr.width}x{hdr.height}) in {cli_s:.3f} s, {gops} GOPs, "
+              f"kernel launches {counts}")
+        for name, n in counts.items():
+            if (n > 0) != (name in expect):
+                raise AssertionError(f"{what}: launches {counts}, expected "
+                                     f"launches of {expect} only")
+        if expect == GEN1_SPLIT_KERNELS and any(counts[k] != gops
+                                                for k in expect):
+            raise AssertionError(f"{what}: split launches {counts} != GOPs "
+                                 f"{gops}")
+        if bars is None and len(frames) != 128:
+            raise AssertionError(f"{what}: {len(frames)} fields, expected "
+                                 "128")
+        route_launches.update((k, counts[k]) for k in expect)
+        if bars is not None:
+            worst = check_bars(frames, *bars, 40.0)
+            print(f"[4] {what} colour bars kept: worst per-bar mean "
+                  f"difference {worst:.3f} LSB (limit 40.0)")
+        rc = cli_main(["--device", "cpu", "to-composite", "-i", source8,
+                       "-o", out_cpu, *extra, *flags])
+        if rc != 0:
+            raise AssertionError(f"{what} CPU CLI rc {rc}")
+        frames_cpu = read_y4m(out_cpu)[1]
+        err = compare_cli(frames, frames_cpu, None, what)
+        print(f"[4] {what} --device cuda vs --device cpu, first "
+              f"{len(frames_cpu)} fields: max diff {err}; tolerance: "
+              f"{TOLERANCE}")
 
     # the multi-device paths: -devices through the CLI (fields over the
     # cards), then the line-sharded program
@@ -541,14 +803,15 @@ def main() -> int:
         for tool, module, extra in (("ntsc", fused_yiq, []),
                                     ("to-composite", fused_yuv, ["-vhs"])):
             out_n = os.path.join(tmp, f"out-{tool}-{n}.y4m")
-            _, launches, _, _ = run_cli(
-                cli_main, module, ["--device", "cuda", tool, "-i", src, "-o",
-                                   out_n, *extra, *flags, "-devices", str(n)])
+            _, counts, _, _ = run_cli(
+                cli_main, {"kernel": (module, "KERNEL_LAUNCHES")},
+                ["--device", "cuda", tool, "-i", src, "-o", out_n, *extra,
+                 *flags, "-devices", str(n)])
             if not same_bytes(out_n, outs[tool]):
                 raise AssertionError(f"{tool} -devices {n} output differs "
                                      "from the run without -devices")
             print(f"[4] {tool} -devices {n}: 128 fields byte-identical to the "
-                  f"run without -devices; kernel launches {launches}")
+                  f"run without -devices; kernel launches {counts['kernel']}")
     for tool in ("ntsc", "to-composite"):
         rc, err = cli_fails(cli_main, ["--device", "cuda", tool, "-i", src,
                                        "-o", os.path.join(tmp, "x.y4m"),
@@ -573,6 +836,9 @@ def main() -> int:
                                                        cfg=BENCH_VHS_EP)
     plain = lambda: fused_yiq.chain_reference(rgb, prep, cfg=BENCH_VHS_EP)
     times["yiq_chain"] = (time_ms(kern), time_ms(plain), time_ms(kern))
+    bounds = {"yiq_chain": bound_ms(
+        gen2_flops(BENCH_VHS_EP, "yiq_chain", b, l, w),
+        2 * nbytes(rgb) + prep_bytes(prep))}
 
     w = 720
     y, u, v = (torch.from_numpy(rng.integers(16, 236, s).astype(np.uint8))
@@ -583,6 +849,9 @@ def main() -> int:
     plain = lambda: fused_yuv.chain_reference(y, u, v, prep1,
                                               cfg=BENCH_GEN1_EP)
     times["yuv_chain"] = (time_ms(kern), time_ms(plain), time_ms(kern))
+    bounds["yuv_chain"] = bound_ms(
+        gen1_flops(BENCH_GEN1_EP, "yuv_chain", b, l, w),
+        2 * nbytes(y, u, v) + prep_bytes(prep1))
     for name, shape, (ms, plain_ms, ms2) in (
             ("yiq_chain", "240x704 bench VHS-EP", times["yiq_chain"]),
             ("yuv_chain", "240x720 gen-1 bench VHS-EP", times["yuv_chain"])):
@@ -609,10 +878,15 @@ def main() -> int:
                         lambda: fused_yiq.stage_b2_reference(
                             *p1, prep2, cfg=cfg, w=w2))}
         nb = rgb2.shape[0]
+        io_bytes = {"yiq_a": nbytes(rgb2, ya), "yiq_b1": nbytes(yh, *p1),
+                    "yiq_b2": nbytes(*p1, rgb2)}
         for name, (kern, plain) in t.items():
             ms, plain_ms = time_ms(kern), time_ms(plain)
             if label.startswith("240x704"):
                 times[name] = (ms, plain_ms)
+                bounds[name] = bound_ms(
+                    gen2_flops(cfg, name, nb, rgb2.shape[1], w2),
+                    io_bytes[name] + prep_bytes(prep2))
             print(f"[5] {name} {label} bench VHS-EP on {card}: kernel "
                   f"{ms:.3f} ms = {nb / ms * 1e3:.1f} fields/s; plain "
                   f"{plain_ms:.3f} ms = {nb / plain_ms * 1e3:.1f} fields/s")
@@ -627,6 +901,71 @@ def main() -> int:
               f"{prog:.3f} ms = {nb / prog * 1e3:.1f} fields/s; kernel #1's "
               f"path (prepare + yiq_chain) {main1:.3f} ms = "
               f"{nb / main1 * 1e3:.1f} fields/s")
+
+    # the gen-1 split kernels vs their plain versions, and the split route
+    # vs yuv_chain, at 576i PAL B=64 and 1080i B=16
+    for label, cfg1, shape in (
+            ("288x720 PAL B=64", BENCH_GEN1_EP.with_(ntsc=False),
+             (64, 288, 720)),
+            ("540x1888 B=16", BENCH_GEN1_EP, (16, 540, 1888))):
+        ys, us, vs, prep_s = gen1_inputs(dev, key, cfg1, shape, "time")
+        ya = fused_yuv.stage_a(ys, us, vs, prep_s, cfg=cfg1)
+        yh = fused_yuv.head_switch_rows(ya, prep_s.shifts)
+        p1 = fused_yuv.stage_b1(yh, prep_s, cfg=cfg1)
+        if yuv422.does_vblend(cfg1):
+            p1 = (p1[0], *fused_yuv.vblend_rows(*p1[1:]))
+        t = {"yuv_a": (
+                 lambda: fused_yuv.stage_a(ys, us, vs, prep_s, cfg=cfg1),
+                 lambda: fused_yuv.stage_a_reference(ys, us, vs, prep_s,
+                                                     cfg=cfg1)),
+             "yuv_b1": (
+                 lambda: fused_yuv.stage_b1(yh, prep_s, cfg=cfg1),
+                 lambda: fused_yuv.stage_b1_reference(yh, prep_s, cfg=cfg1)),
+             "yuv_b2": (
+                 lambda: fused_yuv.stage_b2(*p1, prep_s, cfg=cfg1),
+                 lambda: fused_yuv.stage_b2_reference(*p1, prep_s,
+                                                      cfg=cfg1))}
+        planes_b, luma_b = nbytes(ys, us, vs), nbytes(ys)
+        io_bytes = {"yuv_a": planes_b + luma_b, "yuv_b1": luma_b + planes_b,
+                    "yuv_b2": 2 * planes_b}
+        nb = shape[0]
+        for name, (kern, plain) in t.items():
+            ms, plain_ms, ms2 = time_ms(kern), time_ms(plain), time_ms(kern)
+            if label.startswith("288x720"):
+                times[name] = (ms, plain_ms)
+                bounds[name] = bound_ms(gen1_flops(cfg1, name, *shape),
+                                        io_bytes[name] + prep_bytes(prep_s))
+            print(f"[5] {name} {label} gen-1 bench VHS-EP on {card}: kernel "
+                  f"{ms:.3f} ms (again {ms2:.3f} ms) = "
+                  f"{nb / ms * 1e3:.1f} fields/s; plain {plain_ms:.3f} ms = "
+                  f"{nb / plain_ms * 1e3:.1f} fields/s")
+        split = lambda: fused_yuv.composite_video_process_split(
+            ys, us, vs, prep_s, cfg=cfg1)
+        merged = lambda: fused_yuv.composite_video_process_merged(
+            ys, us, vs, prep_s, cfg=cfg1)
+        s1, m1, s2, m2 = (time_ms(split), time_ms(merged), time_ms(split),
+                          time_ms(merged))
+        print(f"[5] {label} on {card}: split route (yuv_a, head switch, "
+              f"yuv_b1, blend, yuv_b2) {s1:.3f} / {s2:.3f} ms against "
+              f"yuv_chain {m1:.3f} / {m2:.3f} ms (in turns: split, chain, "
+              f"split, chain)")
+
+    # the pole cascade in each of the stage path's shapes
+    for n_rows, width in ((64 * 240, 720), (16 * 540, 1888)):
+        x = iir_input(dev, n_rows, width)
+        for label, alphas, y0s, mode, gain in iir_shapes():
+            kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
+            kern = lambda: fused_iir.fused_iir(x, **kw)
+            plain = lambda: fused_iir.fused_iir_reference(x, **kw)
+            ms, plain_ms, ms2 = time_ms(kern), time_ms(plain), time_ms(kern)
+            if (n_rows, mode, len(alphas)) == (64 * 240, "emph", 4):
+                times["fused_iir"] = (ms, plain_ms)
+                bounds["fused_iir"] = bound_ms(
+                    iir_flops(n_rows, width, len(alphas), mode),
+                    2 * nbytes(x) + len(alphas) * (128 * 128 + 128) * 4)
+            print(f"[5] fused_iir [{n_rows}, {width}] {label} on {card}: kernel "
+                  f"{ms:.3f} ms (again {ms2:.3f} ms); plain {plain_ms:.3f} "
+                  f"ms")
 
     # the gen-1 black-key scan: 64 sequential steps of small eager ops
     planes = [p.to(torch.int32) for p in (y, u, v)]
@@ -646,13 +985,32 @@ def main() -> int:
         print(f"[5] {tool} CLI end to end on {card}: {rate:.2f} fields/s "
               f"(128 fields, 720x480, build excluded, start-up included)")
 
-    rows = [("yiq_chain", "yiq_chain", "cvsim_tpu/models/fused_yiq.py:472",
-             paths["ntsc"][0], err_yiq),
-            ("yuv_chain", "yuv_chain", "cvsim_tpu/models/fused_yuv.py:343",
-             paths["to-composite"][0], err_yuv)]
-    rows += [(name, "yiq_chain", f"cvsim_tpu/models/fused_yiq.py:{line}",
-              split_launches[name], err_split[name])
-             for name, line in zip(SPLIT_KERNELS, (346, 537, 557))]
+    # name: (source, TPU kernel it replaces, main-path launches, largest
+    # difference against its plain version)
+    table = {
+        "yiq_chain": ("yiq_chain", "cvsim_tpu/models/fused_yiq.py:472",
+                      paths["ntsc"][0], err_yiq),
+        "yiq_a": ("yiq_chain", "cvsim_tpu/models/fused_yiq.py:346",
+                  split_launches["yiq_a"], err_split["yiq_a"]),
+        "yiq_b1": ("yiq_chain", "cvsim_tpu/models/fused_yiq.py:537",
+                   split_launches["yiq_b1"], err_split["yiq_b1"]),
+        "yiq_b2": ("yiq_chain", "cvsim_tpu/models/fused_yiq.py:557",
+                   split_launches["yiq_b2"], err_split["yiq_b2"]),
+        "yuv_chain": ("yuv_chain", "cvsim_tpu/models/fused_yuv.py:343",
+                      paths["to-composite"][0], err_yuv),
+        "yuv_a": ("yuv_chain", "cvsim_tpu/models/fused_yuv.py:220",
+                  route_launches["yuv_a"], err_g1split["yuv_a"]),
+        "yuv_b1": ("yuv_chain", "cvsim_tpu/models/fused_yuv.py:402",
+                   route_launches["yuv_b1"], err_g1split["yuv_b1"]),
+        "yuv_b2": ("yuv_chain", "cvsim_tpu/models/fused_yuv.py:422",
+                   route_launches["yuv_b2"], err_g1split["yuv_b2"]),
+        "fused_iir": ("fused_iir", "cvsim_tpu/ops/pallas/fused_iir.py:52",
+                      route_launches["fused_iir"], err_iir),
+    }
+    for name, (ms, by) in bounds.items():
+        print(f"[5] {name} bound {ms:.4f} ms ({by}); kernel "
+              f"{times[name][0]:.3f} ms = {ms / times[name][0]:.1%} of it")
+    # library_ms: no single PyTorch call computes these IIR chains
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -662,9 +1020,13 @@ def main() -> int:
         "max_abs_err": err,
         "ms": times[name][0],
         "plain_ms": times[name][1],
-    } for name, src_name, replaces, launches, err in rows]}))
-    if "jax" in sys.modules and sys.modules["jax"] is not None:
-        raise AssertionError("jax was imported")
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,
+    } for name, (src_name, replaces, launches, err) in table.items()]}))
+    for name in ("jax", "cvsim_tpu"):
+        if sys.modules.get(name) is not None:
+            raise AssertionError(f"{name} was imported")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

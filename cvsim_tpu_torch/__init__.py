@@ -14,12 +14,17 @@ reader expects it:
              by kernels.py
 - parallel/  the multi-device paths: fields over n devices (-devices),
              the line-sharded gen-2 program over row shards
-- host/      the gen-2 and gen-1 GOP pipelines
+- host/      the gen-2 and gen-1 GOP pipelines, and the host I/O they
+             need (Y4M, field clock, batching, checkpoints, ffmpeg pipes)
+- native/    the host frame scaler and the cvsim-av container tool
+             (C++, built with g++ at first use)
+- config.py, presets.py   the configuration dataclasses and flag parsing
 - cli/       `python -m cvsim_tpu_torch [--device cuda|cpu]
              ntsc|to-composite ...`
 
-The package imports torch and numpy and never jax. It reuses the jax-free
-modules of cvsim_tpu (config, presets, host I/O) as they are.
+The package imports torch and numpy, and neither jax nor cvsim_tpu: where
+it needs a module of the JAX package that has no device code (config,
+presets, host I/O, native), it keeps its own copy under the same name.
 """
 
 __version__ = "0.1.0"

@@ -19,7 +19,7 @@ import sys
 
 import torch
 
-from cvsim_tpu import presets
+from cvsim_tpu_torch import presets
 
 USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] "
          "ntsc|to-composite -i in.y4m -o out.y4m [flags]")
@@ -45,7 +45,7 @@ def _soft_sigint():
 
 def cmd_ntsc(argv, device: torch.device):
     """Gen-2 YIQ engine tool (ffmpeg_ntsc)."""
-    from cvsim_tpu.host import ffmpeg_pipe
+    from cvsim_tpu_torch.host import ffmpeg_pipe
     from cvsim_tpu_torch.host.pipeline_yiq import YIQPipeline
 
     st = presets.parse_composite_flags(argv, gen2=True)
@@ -75,7 +75,7 @@ def cmd_ntsc(argv, device: torch.device):
                 st.output_file)
         frame_log, log_rate = None, 90000
         if st.video_pts_in:
-            from cvsim_tpu.host import timing as _timing
+            from cvsim_tpu_torch.host import timing as _timing
 
             frame_log, log_rate = _timing.read_frame_pts_log(st.video_pts_in)
         try:
@@ -109,7 +109,7 @@ def cmd_to_composite(argv, device: torch.device):
     if st.audio_in:
         raise ValueError("-audio-in: audio is not yet ported to "
                          "cvsim_tpu_torch")
-    from cvsim_tpu.host import ffmpeg_pipe
+    from cvsim_tpu_torch.host import ffmpeg_pipe
     from cvsim_tpu_torch.host.pipeline import CompositePipeline
 
     die = _soft_sigint()
@@ -133,7 +133,7 @@ def cmd_to_composite(argv, device: torch.device):
             st.output_file, interlaced=cfg.output.interlaced_output)
     frame_log, log_rate = None, 90000
     if st.video_pts_in:
-        from cvsim_tpu.host import timing as _timing
+        from cvsim_tpu_torch.host import timing as _timing
 
         frame_log, log_rate = _timing.read_frame_pts_log(st.video_pts_in)
     try:
@@ -161,7 +161,7 @@ def _checkpoint_path(st, cfg):
         print("-checkpoint requires a .y4m output; ignoring",
               file=sys.stderr)
         return None, False
-    from cvsim_tpu.host import checkpoint as _ckpt
+    from cvsim_tpu_torch.host import checkpoint as _ckpt
 
     ckpt_path = st.output_file + ".ckpt"
     loaded = _ckpt.load(ckpt_path)

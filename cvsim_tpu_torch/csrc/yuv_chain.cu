@@ -182,37 +182,55 @@ __device__ void mask_luma(Row& r) {
   __syncthreads();
 }
 
-}  // namespace gen1
+// ---- the row functions: the TPU kernels' three groups and the seam
+// between the first two. Each is entered and left by all 128 threads and
+// ends synchronised.
 
-using gen1::Params;
-using gen1::Row;
-
-__global__ void __launch_bounds__(BLOCK)
-yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
-          const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
-          const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
-          const int* __restrict__ shifts, Tables tab, Params P,
-          uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
-          uint8_t* __restrict__ v_out) {
-  using namespace gen1;
-  extern __shared__ float sm[];
-  const int row = blockIdx.x;           // field * L + line
-  const int fld = row / P.l, line = row % P.l;
-  Row r = row_planes(sm, P);
-  const int w = r.w, wp = r.wp, w2 = r.w2, wp2 = r.wp2;
-  const int xi = xi_tab[row];
-
-  const uint8_t* py = y_in + (size_t)row * w;
-  const uint8_t* pu = u_in + (size_t)row * w2;
-  const uint8_t* pv = v_in + (size_t)row * w2;
-  for (int x = threadIdx.x; x < wp; x += BLOCK) r.y[x] = x < w ? (float)py[x] : 0.f;
-  for (int x = threadIdx.x; x < wp2; x += BLOCK) {
-    r.u[x] = x < w2 ? (float)pu[x] : 0.f;
-    r.v[x] = x < w2 ? (float)pv[x] : 0.f;
+// Loads uint8 row planes, zero past the active widths. With `blend`, the
+// chroma of line `line` > 0 is the 2-line vertical blend against the
+// previous line of the same planes (pu - w2), or against 128 for line 1
+// (the reference's delay line starts at 128): floor((p + c + 1) / 2).
+__device__ void load_planes(Row& r, const uint8_t* py, const uint8_t* pu,
+                            const uint8_t* pv, bool blend, int line) {
+  const int w2 = r.w2;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) r.y[x] = x < r.w ? (float)py[x] : 0.f;
+  if (pu != nullptr) {
+    for (int x = threadIdx.x; x < r.wp2; x += BLOCK) {
+      float uv = 0.f, vv = 0.f;
+      if (x < w2) {
+        uv = pu[x];
+        vv = pv[x];
+        if (blend) {
+          const float qu = line == 1 ? 128.f : (float)pu[x - w2];
+          const float qv = line == 1 ? 128.f : (float)pv[x - w2];
+          uv = floorf((qu + uv + 1.f) / 2.f);
+          vv = floorf((qv + vv + 1.f) / 2.f);
+        }
+      }
+      r.u[x] = uv;
+      r.v[x] = vv;
+    }
   }
   __syncthreads();
+}
 
-  // ---- _a_math
+// Stores the active samples of the row planes as uint8 (each value is a
+// clamped integer); u and v only when ou is given.
+__device__ void store_planes(const Row& r, uint8_t* oy, uint8_t* ou,
+                             uint8_t* ov) {
+  for (int x = threadIdx.x; x < r.w; x += BLOCK) oy[x] = (uint8_t)r.y[x];
+  if (ou != nullptr) {
+    for (int x = threadIdx.x; x < r.w2; x += BLOCK) {
+      ou[x] = (uint8_t)r.u[x];
+      ov[x] = (uint8_t)r.v[x];
+    }
+  }
+}
+
+// _a_math: input chroma lowpass, QAM encode, preemphasis, luma noise ->
+// the encoded luma in r.y (0 past w).
+__device__ void a_row(Row& r, const Tables& tab, const Params& P, int xi,
+                      uint32_t key, int line) {
   if (P.in_lowpass) {
     chroma_lowpass_full(r, r.u, tab[TAB_U_HP], tab[TAB_U], 2);
     chroma_lowpass_full(r, r.v, tab[TAB_V_HP], tab[TAB_V], P.v_delay);
@@ -220,38 +238,45 @@ yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
   qam_encode_u8(r, xi, P.amp);
   if (P.preemph) {
     pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb);
-    for (int x = threadIdx.x; x < wp; x += BLOCK)
+    for (int x = threadIdx.x; x < r.wp; x += BLOCK)
       r.y[x] = u8f(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
     __syncthreads();
   }
   if (P.video_noise)
-    add_walk(r.y, r.t1, tab[TAB_WALK], keys[2 * fld], line, P.video_noise,
-             0u, w, wp, true);
+    add_walk(r.y, r.t1, tab[TAB_WALK], key, line, P.video_noise, 0u, r.w,
+             r.wp, true);
   mask_luma(r);
+}
 
-  // ---- head switch: out[x] = pad[(x + s) mod twidth], pad = row then 16
-  const int s = shifts[row];
-  if (s != 0) {
-    const int twidth = w + w / 10;
-    const int sp = ((s % twidth) + twidth) % twidth;
-    for (int x = threadIdx.x; x < wp; x += BLOCK) {
-      float v = r.y[x];
-      if (x < w) {
-        const int j = x + sp;
-        v = j < w ? r.y[j] : (j >= twidth ? r.y[j - twidth] : 16.f);
-      }
-      r.t1[x] = v;
+// The VHS head switch: out[x] = pad[(x + s) mod twidth] over the row
+// padded with luma black (16) to twidth = w + w/10; gen-1 takes the switch
+// point for both axes, so s comes from the shared shift table.
+__device__ void head_switch_row(Row& r, int s) {
+  if (s == 0) return;
+  const int w = r.w;
+  const int twidth = w + w / 10;
+  const int sp = ((s % twidth) + twidth) % twidth;
+  for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+    float v = r.y[x];
+    if (x < w) {
+      const int j = x + sp;
+      v = j < w ? r.y[j] : (j >= twidth ? r.y[j - twidth] : 16.f);
     }
-    __syncthreads();
-    float* t = r.y;
-    r.y = r.t1;
-    r.t1 = t;
+    r.t1[x] = v;
   }
+  __syncthreads();
+  float* t = r.y;
+  r.y = r.t1;
+  r.t1 = t;
+}
 
-  // ---- _b_front
+// _b_front: decode, chroma noise, chroma phase noise (the gen-1 rotation
+// bug), VHS bandlimit -> y, u, v in r.
+__device__ void b1_row(Row& r, const Tables& tab, const Params& P, int xi,
+                       uint32_t key, int line, float sa, float ca) {
+  const int w = r.w, wp = r.wp, w2 = r.w2, wp2 = r.wp2;
   qam_decode_u8(r, xi, P.amp_back);
   if (P.chroma_noise) {
-    const uint32_t key = keys[2 * fld + 1];
     add_walk(r.u, r.tc, tab[TAB_WALK], key, line, P.chroma_noise, 0u, w2,
              wp2, true);
     add_walk(r.v, r.tc, tab[TAB_WALK], key, line, P.chroma_noise,
@@ -259,7 +284,6 @@ yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
   }
   if (P.phase_noise) {
     // the gen-1 rotation bug: u' = u cos - u sin, v' = v cos + v sin
-    const float sa = sincos[2 * row], ca = sincos[2 * row + 1];
     for (int x = threadIdx.x; x < wp2; x += BLOCK) {
       const float uu = r.u[x] - 128.f, vv = r.v[x] - 128.f;
       r.u[x] = x < w2 ? u8f(uu * ca - uu * sa + 128.f) : 0.f;
@@ -279,56 +303,13 @@ yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
     chroma_lowpass3(r, r.u, tab[TAB_VCHROMA], P.chroma_delay);
     chroma_lowpass3(r, r.v, tab[TAB_VCHROMA], P.chroma_delay);
   }
-
-  uint8_t* oy = y_out + (size_t)row * w;
-  uint8_t* ou = u_out + (size_t)row * w2;
-  uint8_t* ov = v_out + (size_t)row * w2;
-  for (int x = threadIdx.x; x < w; x += BLOCK) oy[x] = (uint8_t)r.y[x];
-  for (int x = threadIdx.x; x < w2; x += BLOCK) {
-    ou[x] = (uint8_t)r.u[x];
-    ov[x] = (uint8_t)r.v[x];
-  }
 }
 
-__global__ void __launch_bounds__(BLOCK)
-yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
-         const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
-         const float* __restrict__ keep, Tables tab, Params P,
-         uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
-         uint8_t* __restrict__ v_out) {
-  using namespace gen1;
-  extern __shared__ float sm[];
-  const int row = blockIdx.x;
-  const int line = row % P.l;
-  Row r = row_planes(sm, P);
+// _b_back: luma and chroma sharpen, re-encode/decode, dropout, Y/C
+// recombine, output lowpass.
+__device__ void b2_row(Row& r, const Tables& tab, const Params& P, int xi,
+                       float keep) {
   const int w = r.w, wp = r.wp, w2 = r.w2, wp2 = r.wp2;
-  const int xi = xi_tab[row];
-
-  // 2-line chroma blend against the front output of the line above: line
-  // 0 kept, line 1 blended with 128 (reference quirk), floor((p+c+1)/2)
-  const bool blend = P.vblend && line > 0;
-  const uint8_t* pu = u_in + (size_t)row * w2;
-  const uint8_t* pv = v_in + (size_t)row * w2;
-  for (int x = threadIdx.x; x < wp2; x += BLOCK) {
-    float uv = 0.f, vv = 0.f;
-    if (x < w2) {
-      uv = pu[x];
-      vv = pv[x];
-      if (blend) {
-        const float qu = line == 1 ? 128.f : (float)pu[x - w2];
-        const float qv = line == 1 ? 128.f : (float)pv[x - w2];
-        uv = floorf((qu + uv + 1.f) / 2.f);
-        vv = floorf((qv + vv + 1.f) / 2.f);
-      }
-    }
-    r.u[x] = uv;
-    r.v[x] = vv;
-  }
-  const uint8_t* py = y_in + (size_t)row * w;
-  for (int x = threadIdx.x; x < wp; x += BLOCK) r.y[x] = x < w ? (float)py[x] : 0.f;
-  __syncthreads();
-
-  // ---- _b_back
   if (P.vhs) {
     pole3(r.y, r.t1, tab[TAB_SHARP_Y], 16.f, r.nb, r.red);
     for (int x = threadIdx.x; x < wp; x += BLOCK) {
@@ -351,10 +332,9 @@ yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
     }
   }
   if (P.chroma_loss) {
-    const float k = keep[row];
     for (int x = threadIdx.x; x < wp2; x += BLOCK) {
-      r.u[x] = x < w2 ? r.u[x] * k + 128.f * (1.f - k) : 0.f;
-      r.v[x] = x < w2 ? r.v[x] * k + 128.f * (1.f - k) : 0.f;
+      r.u[x] = x < w2 ? r.u[x] * keep + 128.f * (1.f - keep) : 0.f;
+      r.v[x] = x < w2 ? r.v[x] * keep + 128.f * (1.f - keep) : 0.f;
     }
     __syncthreads();
   }
@@ -369,23 +349,144 @@ yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
     chroma_lowpass3(r, r.u, tab[TAB_LITE], 1);
     chroma_lowpass3(r, r.v, tab[TAB_LITE], 1);
   }
-
-  uint8_t* oy = y_out + (size_t)row * w;
-  uint8_t* ou = u_out + (size_t)row * w2;
-  uint8_t* ov = v_out + (size_t)row * w2;
-  for (int x = threadIdx.x; x < w; x += BLOCK) oy[x] = (uint8_t)r.y[x];
-  for (int x = threadIdx.x; x < w2; x += BLOCK) {
-    ou[x] = (uint8_t)r.u[x];
-    ov[x] = (uint8_t)r.v[x];
-  }
 }
 
+}  // namespace gen1
+
+using gen1::Params;
+using gen1::Row;
+
+// ---- kernel #5: the whole chain in two launches (split at the blend)
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
+          const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
+          const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
+          const int* __restrict__ shifts, Tables tab, Params P,
+          uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
+          uint8_t* __restrict__ v_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;           // field * L + line
+  const int fld = row / P.l, line = row % P.l;
+  Row r = row_planes(sm, P);
+  const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
+  const int xi = xi_tab[row];
+  load_planes(r, y_in + o1, u_in + o2, v_in + o2, false, line);
+  a_row(r, tab, P, xi, keys[2 * fld], line);
+  head_switch_row(r, shifts[row]);
+  b1_row(r, tab, P, xi, keys[2 * fld + 1], line, sincos[2 * row],
+         sincos[2 * row + 1]);
+  store_planes(r, y_out + o1, u_out + o2, v_out + o2);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
+         const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
+         const float* __restrict__ keep, Tables tab, Params P,
+         uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
+         uint8_t* __restrict__ v_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int line = row % P.l;
+  Row r = row_planes(sm, P);
+  const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
+  // the blend reads the front output of the line above (line 0 kept)
+  load_planes(r, y_in + o1, u_in + o2, v_in + o2, P.vblend && line > 0, line);
+  b2_row(r, tab, P, xi_tab[row], keep[row]);
+  store_planes(r, y_out + o1, u_out + o2, v_out + o2);
+}
+
+// ---- kernels #6-#8: the TPU's split program (A, B1, B2) with the head
+// switch and the blend run between them by the caller. The planes between
+// launches are uint8 at the active widths: every value at those seams is
+// clamped to [0, 255] or is the floor of a mean of such values.
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_a(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
+      const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
+      const uint32_t* __restrict__ keys, Tables tab, Params P,
+      uint8_t* __restrict__ y_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int fld = row / P.l, line = row % P.l;
+  Row r = row_planes(sm, P);
+  const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
+  load_planes(r, y_in + o1, u_in + o2, v_in + o2, false, line);
+  a_row(r, tab, P, xi_tab[row], keys[2 * fld], line);
+  store_planes(r, y_out + o1, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_b1(const uint8_t* __restrict__ y_in, const int* __restrict__ xi_tab,
+       const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
+       Tables tab, Params P, uint8_t* __restrict__ y_out,
+       uint8_t* __restrict__ u_out, uint8_t* __restrict__ v_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int fld = row / P.l, line = row % P.l;
+  Row r = row_planes(sm, P);
+  const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
+  load_planes(r, y_in + o1, nullptr, nullptr, false, line);
+  b1_row(r, tab, P, xi_tab[row], keys[2 * fld + 1], line, sincos[2 * row],
+         sincos[2 * row + 1]);
+  store_planes(r, y_out + o1, u_out + o2, v_out + o2);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+yuv_b2(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
+       const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
+       const float* __restrict__ keep, Tables tab, Params P,
+       uint8_t* __restrict__ y_out, uint8_t* __restrict__ u_out,
+       uint8_t* __restrict__ v_out) {
+  using namespace gen1;
+  extern __shared__ float sm[];
+  const int row = blockIdx.x;
+  const int line = row % P.l;
+  Row r = row_planes(sm, P);
+  const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
+  load_planes(r, y_in + o1, u_in + o2, v_in + o2, false, line);
+  b2_row(r, tab, P, xi_tab[row], keep[row]);
+  store_planes(r, y_out + o1, u_out + o2, v_out + o2);
+}
+
+namespace gen1 {
+
+// The launch shape shared by every gen-1 kernel: one CTA of BLOCK threads
+// per (field, row), the row's planes in dynamic shared memory. Returns 0,
+// or the error the C entry points return for arguments the kernels do not
+// take.
+template <typename K>
+int prepare_launch(const Params& P, K kernel, size_t* smem) {
+  if (P.wp % BLOCK != 0 || P.wp2 % BLOCK != 0 || P.w > P.wp || P.w < 3 ||
+      P.w2 > P.wp2 || P.w2 < 1 || 2 * P.w2 > P.w || P.b < 0 || P.l < 1)
+    return (int)cudaErrorInvalidValue;
+  *smem = (size_t)(3 * P.wp + 3 * P.wp2 + 4) * sizeof(float);
+  if (*smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return 0;
+}
+
+Tables tables(const void* tt, const void* d, const void* tt3, const void* d3,
+              const void* vt) {
+  return Tables{static_cast<const float*>(tt), static_cast<const float*>(d),
+                static_cast<const float*>(tt3), static_cast<const float*>(d3),
+                static_cast<const float*>(vt)};
+}
+
+}  // namespace gen1
 }  // namespace cvsim
 
-// C entry point (bound with ctypes by cvsim_tpu_torch/kernels.py). Launches
-// both kernels on `stream`, allocates nothing, does not synchronise, and
-// returns cudaGetLastError() (0 on success). scratch: 3 uint8 planes,
-// b*l*(w + 2*w2) bytes.
+// C entry points (bound with ctypes by cvsim_tpu_torch/kernels.py). Each
+// launches on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() (0 on success). Planes are uint8 [B, L, W]
+// (luma) and [B, L, W/2] (chroma), contiguous.
+
+// Kernel #5. scratch: 3 uint8 planes, b*l*(w + 2*w2) bytes.
 extern "C" int cvsim_yuv_chain(const void* y, const void* u, const void* v,
                                const void* xi, const void* keys,
                                const void* sincos, const void* keep,
@@ -396,19 +497,13 @@ extern "C" int cvsim_yuv_chain(const void* y, const void* u, const void* v,
                                void* stream) {
   using namespace cvsim;
   const Params P = *static_cast<const Params*>(params);
-  if (P.wp % BLOCK != 0 || P.wp2 % BLOCK != 0 || P.w > P.wp || P.w < 3 ||
-      P.w2 > P.wp2 || P.w2 < 1 || 2 * P.w2 > P.w)
-    return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int err = gen1::prepare_launch(P, yuv_front, &smem);
+  if (err == 0) err = gen1::prepare_launch(P, yuv_back, &smem);
+  if (err != 0) return err;
   const int rows = P.b * P.l;
   if (rows == 0) return 0;
-  const size_t smem = (size_t)(3 * P.wp + 3 * P.wp2 + 4) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(yuv_front, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    cudaFuncSetAttribute(yuv_back, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  const Tables tab{static_cast<const float*>(tt), static_cast<const float*>(d),
-                   static_cast<const float*>(tt3), static_cast<const float*>(d3),
-                   static_cast<const float*>(vt)};
+  const Tables tab = gen1::tables(tt, d, tt3, d3, vt);
   uint8_t* sy = static_cast<uint8_t*>(scratch);
   uint8_t* su = sy + (size_t)rows * P.w;
   uint8_t* sv = su + (size_t)rows * P.w2;
@@ -418,11 +513,75 @@ extern "C" int cvsim_yuv_chain(const void* y, const void* u, const void* v,
       static_cast<const uint8_t*>(v), static_cast<const int*>(xi),
       static_cast<const uint32_t*>(keys), static_cast<const float*>(sincos),
       static_cast<const int*>(shifts), tab, P, sy, su, sv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   yuv_back<<<rows, BLOCK, smem, s>>>(
       sy, su, sv, static_cast<const int*>(xi), static_cast<const float*>(keep),
       tab, P, static_cast<uint8_t*>(y_out), static_cast<uint8_t*>(u_out),
+      static_cast<uint8_t*>(v_out));
+  return (int)cudaGetLastError();
+}
+
+// Kernel #6 (A): y, u, v -> the encoded luma y_out, before the head switch.
+extern "C" int cvsim_yuv_a(const void* y, const void* u, const void* v,
+                           const void* xi, const void* keys, const void* tt,
+                           const void* d, const void* tt3, const void* d3,
+                           const void* vt, void* y_out, const void* params,
+                           void* stream) {
+  using namespace cvsim;
+  const Params P = *static_cast<const Params*>(params);
+  size_t smem = 0;
+  const int err = gen1::prepare_launch(P, yuv_a, &smem);
+  if (err != 0) return err;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  yuv_a<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(xi),
+      static_cast<const uint32_t*>(keys), gen1::tables(tt, d, tt3, d3, vt), P,
+      static_cast<uint8_t*>(y_out));
+  return (int)cudaGetLastError();
+}
+
+// Kernel #7 (B1): the head-switched luma -> y, u, v before the blend.
+extern "C" int cvsim_yuv_b1(const void* y, const void* xi, const void* keys,
+                            const void* sincos, const void* tt, const void* d,
+                            const void* tt3, const void* d3, const void* vt,
+                            void* y_out, void* u_out, void* v_out,
+                            const void* params, void* stream) {
+  using namespace cvsim;
+  const Params P = *static_cast<const Params*>(params);
+  size_t smem = 0;
+  const int err = gen1::prepare_launch(P, yuv_b1, &smem);
+  if (err != 0) return err;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  yuv_b1<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(y), static_cast<const int*>(xi),
+      static_cast<const uint32_t*>(keys), static_cast<const float*>(sincos),
+      gen1::tables(tt, d, tt3, d3, vt), P, static_cast<uint8_t*>(y_out),
+      static_cast<uint8_t*>(u_out), static_cast<uint8_t*>(v_out));
+  return (int)cudaGetLastError();
+}
+
+// Kernel #8 (B2): the blended y, u, v -> the chain's output.
+extern "C" int cvsim_yuv_b2(const void* y, const void* u, const void* v,
+                            const void* xi, const void* keep, const void* tt,
+                            const void* d, const void* tt3, const void* d3,
+                            const void* vt, void* y_out, void* u_out,
+                            void* v_out, const void* params, void* stream) {
+  using namespace cvsim;
+  const Params P = *static_cast<const Params*>(params);
+  size_t smem = 0;
+  const int err = gen1::prepare_launch(P, yuv_b2, &smem);
+  if (err != 0) return err;
+  const int rows = P.b * P.l;
+  if (rows == 0) return 0;
+  yuv_b2<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(xi),
+      static_cast<const float*>(keep), gen1::tables(tt, d, tt3, d3, vt), P,
+      static_cast<uint8_t*>(y_out), static_cast<uint8_t*>(u_out),
       static_cast<uint8_t*>(v_out));
   return (int)cudaGetLastError();
 }

@@ -33,9 +33,9 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from cvsim_tpu.config import RunConfig
-from cvsim_tpu.host import fieldops, timing, y4m
-from cvsim_tpu.host.batching import (
+from cvsim_tpu_torch.config import RunConfig
+from cvsim_tpu_torch.host import fieldops, timing, y4m
+from cvsim_tpu_torch.host.batching import (
     FieldBatcher,
     hscale_consts,
     render_index_tables,
@@ -142,8 +142,9 @@ class CompositePipeline:
         nu = max_frames * chroma_h * chroma_w
 
         def hscale(p, c):
-            # bit-identical to colorconv.hscale_bilinear: f32 lerp, round
-            # half to even
+            # bit-identical to colorconv.hscale_bilinear_np: f32 lerp,
+            # round half to even, clamp to 0..255 (an upscale's first
+            # samples extrapolate)
             p = p.to(torch.int32)
             if c is None:
                 return p
@@ -151,7 +152,8 @@ class CompositePipeline:
             pf = p.to(torch.float32)
             s0 = pf[..., x0]
             s1 = pf[..., x1]
-            return torch.round(s0 + (s1 - s0) * f).to(torch.int32)
+            return torch.round(s0 + (s1 - s0) * f).clamp(0, 255).to(
+                torch.int32)
 
         def gop_step(pix, meta, valid, filter_planes):
             fy = pix[:ny].view(max_frames, src_h, src_w)
@@ -273,7 +275,7 @@ class CompositePipeline:
         truncated to the recorded frame boundary, reader moved past the
         consumed source frames). _fail_after_gops is a test hook that
         injects a crash after N GOPs are written."""
-        from cvsim_tpu.host import checkpoint
+        from cvsim_tpu_torch.host import checkpoint
 
         cfg = self.cfg
         out = cfg.output

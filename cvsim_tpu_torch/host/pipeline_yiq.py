@@ -20,12 +20,12 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from cvsim_tpu.config import RunConfig
-from cvsim_tpu.host import timing, y4m
-from cvsim_tpu.host.colorconv import rgb_to_yuv601_np
+from cvsim_tpu_torch.config import RunConfig
+from cvsim_tpu_torch.host import timing, y4m
+from cvsim_tpu_torch.host.colorconv import rgb_to_yuv601_np
 # per-frame host scaling dispatches to the native kernel (bit-exact twin of
 # colorconv.scale_frame_to_np; numpy fallback inside hostpix)
-from cvsim_tpu.native.hostpix import scale_frame_to as _scale_frame_to
+from cvsim_tpu_torch.native.hostpix import scale_frame_to as _scale_frame_to
 from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yiq
@@ -131,7 +131,7 @@ class YIQPipeline:
         own duration (3:2 pulldown cadence etc.); additional inputs keep
         their container CFR cadence. _fail_after_gops is a test hook that
         injects a crash after N GOPs are written."""
-        from cvsim_tpu.host import checkpoint
+        from cvsim_tpu_torch.host import checkpoint
 
         cfg = self.cfg
         out = cfg.output

@@ -1,15 +1,18 @@
 """State that crosses from the JAX package to the port.
 
-The chain has no weights. Its parameters are the PRNG key (collapsed to
-one u32 stream seed) and the IIR constant tables; the tests feed both
-packages through these functions.
+The chain has no weights. Its state is the configuration, the PRNG key
+(collapsed to one u32 stream seed) and the IIR constant tables; the tests
+feed both packages through these functions. Nothing here imports the JAX
+package: a reference object is read by its field names.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from cvsim_tpu.config import CompositeConfig
+import dataclasses
+
+from cvsim_tpu_torch.config import CompositeConfig, VHSSpeed
 from cvsim_tpu_torch.models.fused_yiq import _alpha_consts
 from cvsim_tpu_torch.ops.noise import MASK32, key32
 
@@ -30,3 +33,18 @@ def alpha_consts(cfg: CompositeConfig):
     """(tt, d, tt3, d3, vt) numpy tables, bit-equal to the JAX package's
     fused_yiq._alpha_consts(cfg)."""
     return _alpha_consts(cfg)
+
+
+def convert_config(cfg, config_cls, speed_cls):
+    """A `config_cls` built from any object with its fields (by name),
+    the tape speed by enum member name. The two packages' configs share
+    field and member names, so this maps either way."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(config_cls)}
+    kw["vhs_tape_speed"] = speed_cls[kw["vhs_tape_speed"].name]
+    return config_cls(**kw)
+
+
+def config_from_reference(cfg) -> CompositeConfig:
+    """The port's CompositeConfig from the JAX package's (or any object
+    with its fields)."""
+    return convert_config(cfg, CompositeConfig, VHSSpeed)

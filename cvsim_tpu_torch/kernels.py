@@ -107,7 +107,9 @@ def load():
             # the stream)
             for name, n_args in (("cvsim_yiq_chain", 15), ("cvsim_yiq_a", 11),
                                  ("cvsim_yiq_b1", 14), ("cvsim_yiq_b2", 13),
-                                 ("cvsim_yuv_chain", 19)):
+                                 ("cvsim_yuv_chain", 19), ("cvsim_yuv_a", 13),
+                                 ("cvsim_yuv_b1", 14), ("cvsim_yuv_b2", 15),
+                                 ("cvsim_fused_iir", 6)):
                 fn = getattr(lib, name)
                 fn.argtypes = [ptr] * n_args
                 fn.restype = ctypes.c_int

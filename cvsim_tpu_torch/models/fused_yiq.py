@@ -31,9 +31,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cvsim_tpu.config import CompositeConfig, NTSC_RATE, iir_alpha
+from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.models import yiq
-from cvsim_tpu_torch.ops.blocked_iir import BLOCK, _cascade3_consts, _decay_consts
+from cvsim_tpu_torch.ops.blocked_iir import (BLOCK, _cascade3_consts, _decay_consts,
+                                             full_float32)
 
 # counts of kernel launches (one per wrapper call on a CUDA tensor), read
 # by tests and chip_smoke.py to prove that a path ran through the kernels:
@@ -134,14 +135,6 @@ def _streams(prep: Prepared) -> yiq.FieldStreams:
                             prep.shifts)
 
 
-def _full_float32(t: torch.Tensor):
-    """The plain versions run with full float32 matrix products on the
-    card: the blocked IIR's integer exactness needs them."""
-    if t.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-
-
 # ------------------------------------------------------------ plain version
 
 def chain_reference(rgb: torch.Tensor, prep: Prepared, *,
@@ -151,7 +144,7 @@ def chain_reference(rgb: torch.Tensor, prep: Prepared, *,
     stage functions derive the same IIR tables from cfg that `prep`
     carries (both come from _decay_consts/_cascade3_consts on the same
     alphas)."""
-    _full_float32(rgb)
+    full_float32(rgb)
     return yiq.composite_layer_rgb_streams(rgb, _streams(prep), cfg=cfg)
 
 
@@ -170,7 +163,7 @@ def stage_a_reference(rgb: torch.Tensor, prep: Prepared, *,
                       cfg: CompositeConfig) -> torch.Tensor:
     """Plain version of kernel #2: uint8 [B, L, W, 3] -> the encoded luma,
     f32 [B, L, Wp] (zero past W), before the head switch."""
-    _full_float32(rgb)
+    full_float32(rgb)
     _, _, w, _ = rgb.shape
     c = rgb.to(torch.int32)
     y, i, q = yiq.rgb_to_yiq(c[..., 0], c[..., 1], c[..., 2])
@@ -183,7 +176,7 @@ def stage_b1_reference(y: torch.Tensor, prep: Prepared, *,
                        cfg: CompositeConfig, w: int):
     """Plain version of kernel #3: the head-switched luma f32 [B, L, Wp]
     -> y, i, q f32 [B, L, Wp] (zero past w)."""
-    _full_float32(y)
+    full_float32(y)
     out = yiq.composite_front_b1(_planes_in(y, w), cfg=cfg,
                                  streams=_streams(prep), row0=prep.row0,
                                  l_glob=_l_glob(prep))
@@ -195,7 +188,7 @@ def stage_b2_reference(y: torch.Tensor, i: torch.Tensor, q: torch.Tensor,
                        w: int) -> torch.Tensor:
     """Plain version of kernel #4: the blended y, i, q f32 [B, L, Wp] ->
     uint8 RGB [B, L, w, 3]."""
-    _full_float32(y)
+    full_float32(y)
     y, i, q = yiq.composite_back_b2(*(_planes_in(p, w) for p in (y, i, q)),
                                     cfg=cfg, streams=_streams(prep))
     return torch.stack(yiq.yiq_to_rgb(y, i, q), dim=-1).to(torch.uint8)

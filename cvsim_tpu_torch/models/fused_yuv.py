@@ -1,22 +1,31 @@
-"""The whole gen-1 chain as one hand-written CUDA kernel pair (twin of
+"""The gen-1 chain as hand-written CUDA kernels (twin of
 cvsim_tpu.models.fused_yuv).
-
-Three parts, as in models/fused_yiq.py:
 
 - `prepare`: every per-field and per-line input of the chain (phase xi,
   the two in-kernel noise stream ids, chroma-phase sin/cos, dropout keep
   mask, the full per-row head-switch shift table) plus the 11 stacked IIR
   constant tables of the gen-1 chain.
-- `chain_reference`: the plain PyTorch version of the kernel, built from
-  the stage functions of models/yuv422.py, with the kernel's signature.
-- `composite_video_process_fused`: the wrapper of csrc/yuv_chain.cu. On a
-  CPU tensor it runs `chain_reference`; on a CUDA tensor it launches the
-  kernel or raises.
+- Kernel #5, the whole chain: `composite_video_process_merged` wraps
+  csrc/yuv_chain.cu's `cvsim_yuv_chain`; `chain_reference` is its plain
+  PyTorch version, built from the stage functions of models/yuv422.py.
+- Kernels #6-#8, the JAX package's split program (its kernels A, B1,
+  B2): `stage_a`, `stage_b1`, `stage_b2` wrap `cvsim_yuv_a/_b1/_b2`;
+  `stage_*_reference` are their plain versions (yuv422.composite_front_a,
+  _front_b1, composite_back_b2). Between them run the seams
+  `head_switch_rows` and `vblend_rows` in plain PyTorch, as the JAX
+  package runs them in XLA; `composite_video_process_split` chains them.
+- `composite_video_process_fused` takes the route the JAX dispatcher
+  takes (`takes_split`): #5 while a field fits the reference's
+  single-tile budget, #6-#8 above it (576i PAL, 1080i).
 
-Planes are uint8 in and out: y [B, L, W], u and v [B, L, W//2]. The TPU
-path's line tiling, 8-aligned head-switch window and stride-2 pick
-matrices exist for Mosaic's layout rules and have no counterpart here.
-yuv422.composite_video_process_auto is the entry point of the main path.
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. Planes are uint8 in and out: y [B, L, W],
+u and v [B, L, W//2], and so are the planes between #6, #7 and #8 (every
+value there is clamped to [0, 255] or is the floor of a mean of such
+values). The TPU path's line tiling, 8-aligned head-switch window and
+stride-2 pick matrices exist for Mosaic's layout rules and have no
+counterpart here. yuv422.composite_video_process_auto is the entry point
+of the main path.
 """
 
 from __future__ import annotations
@@ -25,16 +34,31 @@ import ctypes
 
 import torch
 
-from cvsim_tpu.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, iir_alpha
+from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, iir_alpha
 from cvsim_tpu_torch.models import yiq, yuv422
-from cvsim_tpu_torch.models.fused_yiq import (Prepared, _check,
-                                              _stack_alpha_consts, _u32_as_i32)
-from cvsim_tpu_torch.ops.blocked_iir import BLOCK
+from cvsim_tpu_torch.models.fused_yiq import (Prepared, _check, _cuda_device,
+                                              _launch, _stack_alpha_consts,
+                                              _u32_as_i32)
+from cvsim_tpu_torch.ops.blocked_iir import BLOCK, full_float32
 
-# count of kernel launches (one per composite_video_process_fused call on a
-# CUDA tensor); read by tests and chip_smoke.py to prove the path ran
+# counts of kernel launches (one per wrapper call on a CUDA tensor), read
+# by tests and chip_smoke.py to prove that a path ran through the kernels:
+# #5 (composite_video_process_merged) and #6-#8 (stage_a, stage_b1,
+# stage_b2)
 KERNEL_LAUNCHES = 0
+A_LAUNCHES = 0
+B1_LAUNCHES = 0
+B2_LAUNCHES = 0
 N_TABLES = 11
+
+# The JAX dispatcher's route (cvsim_tpu/models/fused_yuv.py:57-59,
+# 493-503): its merged kernel while a field of L lines fits
+# L * wp_ref <= min(single-tile budget, 2 * tile budget), its split
+# program above. These are the reference's VMEM budgets, copied so that
+# the port runs the reference's program at every raster; the card has no
+# such limit.
+REF_SINGLE_TILE_BUDGET = 200_000
+REF_TILE_BUDGET = 130_000
 
 
 # ------------------------------------------------------------ IIR tables
@@ -83,26 +107,86 @@ def prepare(cfg: CompositeConfig, y: torch.Tensor, fieldno: torch.Tensor,
     return Prepared(s.xi, s.keys_ab, s.sincos, s.keep, s.shifts, tables)
 
 
-# ------------------------------------------------------------ plain version
+def takes_split(l: int, w: int) -> bool:
+    """Whether the JAX dispatcher runs a field of l lines and w samples
+    through its split program: l * wp_ref above the single-tile budget,
+    with wp_ref = 2 * (w/2 padded to 128), the padded width of its
+    stride-2 selection (not the port's: 2048 vs 1920 at w = 1888)."""
+    wp_ref = 2 * (-(-(w // 2) // BLOCK) * BLOCK)
+    return l * wp_ref > min(REF_SINGLE_TILE_BUDGET, 2 * REF_TILE_BUDGET)
+
+
+# ------------------------------------------------------------ plain versions
+
+def _streams(prep: Prepared) -> yiq.FieldStreams:
+    return yiq.FieldStreams(prep.xi, prep.keys_ab, prep.sincos, prep.keep,
+                            prep.shifts)
+
+
+def _u8(planes):
+    return tuple(p.to(torch.uint8) for p in planes)
+
+
+def _i32(planes):
+    return tuple(p.to(torch.int32) for p in planes)
+
 
 def chain_reference(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                     prep: Prepared, *, cfg: CompositeConfig):
-    """Plain PyTorch version of the kernel: uint8 planes in and out, the
+    """Plain PyTorch version of kernel #5: uint8 planes in and out, the
     stage path of models/yuv422.py on `prep`'s per-line inputs. The stage
     functions derive the same IIR tables from cfg that `prep` carries."""
-    if y.is_cuda:
-        # the blocked IIR's integer exactness needs full float32 products
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-    streams = yiq.FieldStreams(prep.xi, prep.keys_ab, prep.sincos,
-                               prep.keep, prep.shifts)
+    full_float32(y)
     out = yuv422.composite_video_process_streams(
-        y.to(torch.int32), u.to(torch.int32), v.to(torch.int32), cfg=cfg,
-        streams=streams)
-    return tuple(p.to(torch.uint8) for p in out)
+        *_i32((y, u, v)), cfg=cfg, streams=_streams(prep))
+    return _u8(out)
 
 
-# ------------------------------------------------------------ the kernel
+def stage_a_reference(y, u, v, prep: Prepared, *, cfg: CompositeConfig):
+    """Plain version of kernel #6: uint8 planes -> the encoded luma, uint8
+    [B, L, W], before the head switch."""
+    full_float32(y)
+    y_enc, _, _ = yuv422.composite_front_a(*_i32((y, u, v)), cfg=cfg,
+                                           streams=_streams(prep))
+    return y_enc.to(torch.uint8)
+
+
+def stage_b1_reference(y, prep: Prepared, *, cfg: CompositeConfig):
+    """Plain version of kernel #7: the head-switched luma, uint8 [B, L, W]
+    -> y, u, v uint8, before the vertical blend."""
+    full_float32(y)
+    out = yuv422.composite_front_b1(y.to(torch.int32), None, None, cfg=cfg,
+                                    streams=_streams(prep))
+    return _u8(out)
+
+
+def stage_b2_reference(y, u, v, prep: Prepared, *, cfg: CompositeConfig):
+    """Plain version of kernel #8: the blended y, u, v uint8 -> the chain's
+    output, uint8."""
+    full_float32(y)
+    out = yuv422.composite_back_b2(*_i32((y, u, v)), cfg=cfg,
+                                   streams=_streams(prep))
+    return _u8(out)
+
+
+# ------------------------------------------------------------ the seams
+
+def head_switch_rows(y: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """The VHS head switch between #6 and #7 on the uint8 luma [B, L, W]:
+    each row rotates by its shift within the row padded with luma black
+    (16) (yiq.head_switching_stage; gen-1 takes the switch point for both
+    axes, so the one shift table serves)."""
+    return yiq.head_switching_stage(y, shifts, fill=16)
+
+
+def vblend_rows(u: torch.Tensor, v: torch.Tensor):
+    """The 2-line chroma blend between #7 and #8 on uint8 chroma
+    [B, L, W//2]: line 0 kept, line 1 blended with 128, line l with line
+    l-1 (yuv422.vhs_chroma_vert_blend)."""
+    return _u8(yuv422.vhs_chroma_vert_blend(*_i32((u, v))))
+
+
+# ------------------------------------------------------------ the kernels
 
 class _YuvParams(ctypes.Structure):
     """Mirror of `gen1::Params` in csrc/yuv_chain.cu (field order matters)."""
@@ -149,35 +233,22 @@ def _yuv_params(cfg: CompositeConfig, b: int, l: int, w: int, wp: int,
         out_lowpass=out_lowpass)
 
 
-def composite_video_process_fused(y: torch.Tensor, u: torch.Tensor,
-                                  v: torch.Tensor, prep: Prepared, *,
-                                  cfg: CompositeConfig):
-    """The gen-1 chain on uint8 planes y [B, L, W], u, v [B, L, W//2];
-    uint8 out. The debug taps (-nocolor-subcarrier[-after-yc-sep]) are
-    not carried (yuv422.composite_video_process_auto routes them).
-
-    A CPU tensor runs chain_reference. A CUDA tensor launches the kernel
-    of csrc/yuv_chain.cu (built at first use) or raises; there is no
-    fallback."""
-    global KERNEL_LAUNCHES
+def _no_taps(cfg: CompositeConfig):
     if cfg.nocolor_subcarrier or cfg.nocolor_subcarrier_after_yc_sep:
-        raise ValueError("the gen-1 kernel does not carry the debug taps")
-    if y.device.type == "cpu":
-        return chain_reference(y, u, v, prep, cfg=cfg)
-    if y.device.type != "cuda":
-        raise ValueError(f"no kernel for device {y.device}")
-    from cvsim_tpu_torch import kernels
+        raise ValueError("the gen-1 kernels do not carry the debug taps "
+                         "(yuv422.composite_video_process_auto routes them)")
 
-    dev = y.device
+
+def _launch_params(cfg: CompositeConfig, prep: Prepared, y: torch.Tensor,
+                   dev: torch.device, planes: dict) -> _YuvParams:
+    """Checks the uint8 planes ({name: (tensor, "luma" | "chroma")}) and
+    the per-line inputs against y's [B, L, W]; the launch arguments."""
     if y.ndim != 3:
         raise ValueError(f"y: expected [B, L, W], got {tuple(y.shape)}")
     b, l, w = y.shape
     w2 = w // 2
-    wp = -(-w // BLOCK) * BLOCK
-    wp2 = -(-w2 // BLOCK) * BLOCK
-    _check("y", y, torch.uint8, (b, l, w), dev)
-    _check("u", u, torch.uint8, (b, l, w2), dev)
-    _check("v", v, torch.uint8, (b, l, w2), dev)
+    for name, (t, kind) in planes.items():
+        _check(name, t, torch.uint8, (b, l, w if kind == "luma" else w2), dev)
     _check("xi", prep.xi, torch.int32, (b, l), dev)
     _check("keys_ab", prep.keys_ab, torch.int64, (b, 2), dev)
     _check("sincos", prep.sincos, torch.float32, (b, l, 2), dev)
@@ -188,23 +259,140 @@ def composite_video_process_fused(y: torch.Tensor, u: torch.Tensor,
                     (N_TABLES, BLOCK, 8))
     for k, (t, shape) in enumerate(zip(prep.tables, table_shapes)):
         _check(f"tables[{k}]", t, torch.float32, shape, dev)
+    wp = -(-w // BLOCK) * BLOCK
+    wp2 = -(-w2 // BLOCK) * BLOCK
+    return _yuv_params(cfg, b, l, w, wp, w2, wp2)
 
+
+def composite_video_process_merged(y: torch.Tensor, u: torch.Tensor,
+                                   v: torch.Tensor, prep: Prepared, *,
+                                   cfg: CompositeConfig):
+    """Kernel #5 (yuv_chain): the whole gen-1 chain on uint8 planes y
+    [B, L, W], u, v [B, L, W//2]; uint8 out. A CPU tensor runs
+    chain_reference; a CUDA tensor launches the kernel of
+    csrc/yuv_chain.cu (built at first use) or raises."""
+    global KERNEL_LAUNCHES
+    _no_taps(cfg)
+    dev = _cuda_device(y, "yuv_chain")
+    if dev is None:
+        return chain_reference(y, u, v, prep, cfg=cfg)
+    from cvsim_tpu_torch import kernels
+
+    params = _launch_params(cfg, prep, y, dev, {
+        "y": (y, "luma"), "u": (u, "chroma"), "v": (v, "chroma")})
+    b, l, w = y.shape
     keys = _u32_as_i32(prep.keys_ab)
-    scratch = torch.empty(b * l * (w + 2 * w2), dtype=torch.uint8, device=dev)
-    y_out = torch.empty_like(y)
-    u_out = torch.empty_like(u)
-    v_out = torch.empty_like(v)
-    params = _yuv_params(cfg, b, l, w, wp, w2, wp2)
-    lib = kernels.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cvsim_yuv_chain(
+    scratch = torch.empty(b * l * (w + 2 * (w // 2)), dtype=torch.uint8,
+                          device=dev)
+    y_out, u_out, v_out = (torch.empty_like(p) for p in (y, u, v))
+    _launch("yuv_chain", kernels.load().cvsim_yuv_chain, dev,
             y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
             keys.data_ptr(), prep.sincos.data_ptr(), prep.keep.data_ptr(),
             prep.shifts.data_ptr(), *(t.data_ptr() for t in prep.tables),
             scratch.data_ptr(), y_out.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), ctypes.addressof(params), stream)
-    if rc != 0:
-        raise RuntimeError(f"yuv_chain launch failed: {kernels.error_string(rc)}")
+            v_out.data_ptr(), ctypes.addressof(params))
     KERNEL_LAUNCHES += 1
     return y_out, u_out, v_out
+
+
+def stage_a(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+            prep: Prepared, *, cfg: CompositeConfig) -> torch.Tensor:
+    """Kernel #6 (yuv_a): uint8 planes -> the encoded luma, uint8
+    [B, L, W]. CPU tensor: stage_a_reference; CUDA tensor: the kernel or
+    raise."""
+    global A_LAUNCHES
+    _no_taps(cfg)
+    dev = _cuda_device(y, "yuv_a")
+    if dev is None:
+        return stage_a_reference(y, u, v, prep, cfg=cfg)
+    from cvsim_tpu_torch import kernels
+
+    params = _launch_params(cfg, prep, y, dev, {
+        "y": (y, "luma"), "u": (u, "chroma"), "v": (v, "chroma")})
+    keys = _u32_as_i32(prep.keys_ab)
+    y_out = torch.empty_like(y)
+    _launch("yuv_a", kernels.load().cvsim_yuv_a, dev,
+            y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
+            keys.data_ptr(), *(t.data_ptr() for t in prep.tables),
+            y_out.data_ptr(), ctypes.addressof(params))
+    A_LAUNCHES += 1
+    return y_out
+
+
+def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig):
+    """Kernel #7 (yuv_b1): the head-switched uint8 luma [B, L, W] -> y, u,
+    v uint8. CPU tensor: stage_b1_reference; CUDA tensor: the kernel or
+    raise."""
+    global B1_LAUNCHES
+    _no_taps(cfg)
+    dev = _cuda_device(y, "yuv_b1")
+    if dev is None:
+        return stage_b1_reference(y, prep, cfg=cfg)
+    from cvsim_tpu_torch import kernels
+
+    params = _launch_params(cfg, prep, y, dev, {"y": (y, "luma")})
+    b, l, w = y.shape
+    keys = _u32_as_i32(prep.keys_ab)
+    y_out = torch.empty_like(y)
+    u_out = torch.empty((b, l, w // 2), dtype=torch.uint8, device=dev)
+    v_out = torch.empty_like(u_out)
+    _launch("yuv_b1", kernels.load().cvsim_yuv_b1, dev,
+            y.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
+            prep.sincos.data_ptr(), *(t.data_ptr() for t in prep.tables),
+            y_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            ctypes.addressof(params))
+    B1_LAUNCHES += 1
+    return y_out, u_out, v_out
+
+
+def stage_b2(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+             prep: Prepared, *, cfg: CompositeConfig):
+    """Kernel #8 (yuv_b2): the blended uint8 y, u, v -> the chain's output,
+    uint8. CPU tensor: stage_b2_reference; CUDA tensor: the kernel or
+    raise."""
+    global B2_LAUNCHES
+    _no_taps(cfg)
+    dev = _cuda_device(y, "yuv_b2")
+    if dev is None:
+        return stage_b2_reference(y, u, v, prep, cfg=cfg)
+    from cvsim_tpu_torch import kernels
+
+    params = _launch_params(cfg, prep, y, dev, {
+        "y": (y, "luma"), "u": (u, "chroma"), "v": (v, "chroma")})
+    y_out, u_out, v_out = (torch.empty_like(p) for p in (y, u, v))
+    _launch("yuv_b2", kernels.load().cvsim_yuv_b2, dev,
+            y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
+            prep.keep.data_ptr(), *(t.data_ptr() for t in prep.tables),
+            y_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            ctypes.addressof(params))
+    B2_LAUNCHES += 1
+    return y_out, u_out, v_out
+
+
+def composite_video_process_split(y: torch.Tensor, u: torch.Tensor,
+                                  v: torch.Tensor, prep: Prepared, *,
+                                  cfg: CompositeConfig):
+    """The JAX package's split program: #6, the head switch, #7, the
+    blend, #8, on uint8 planes; uint8 out."""
+    y_enc = stage_a(y, u, v, prep, cfg=cfg)
+    if cfg.vhs_head_switching:
+        y_enc = head_switch_rows(y_enc, prep.shifts)
+    y1, u1, v1 = stage_b1(y_enc, prep, cfg=cfg)
+    if yuv422.does_vblend(cfg):
+        u1, v1 = vblend_rows(u1, v1)
+    return stage_b2(y1, u1, v1, prep, cfg=cfg)
+
+
+def composite_video_process_fused(y: torch.Tensor, u: torch.Tensor,
+                                  v: torch.Tensor, prep: Prepared, *,
+                                  cfg: CompositeConfig):
+    """The gen-1 chain on uint8 planes y [B, L, W], u, v [B, L, W//2];
+    uint8 out, by the JAX dispatcher's route: kernel #5 while the field
+    fits the reference's single-tile budget, #6-#8 above it
+    (takes_split). The debug taps (-nocolor-subcarrier[-after-yc-sep])
+    are not carried (yuv422.composite_video_process_auto routes them)."""
+    if y.ndim != 3:
+        raise ValueError(f"y: expected [B, L, W], got {tuple(y.shape)}")
+    if takes_split(y.shape[1], y.shape[2]):
+        return composite_video_process_split(y, u, v, prep, cfg=cfg)
+    return composite_video_process_merged(y, u, v, prep, cfg=cfg)

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cvsim_tpu.config import CompositeConfig, NTSC_RATE, iir_alpha
+from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.ops.cmath import c_div, c_int
 from cvsim_tpu_torch.ops.iir import (
     cascade_emph,

@@ -11,6 +11,14 @@ The per-line inputs (phase xi, noise stream ids, chroma-phase sin/cos,
 dropout keep mask, head-switch shifts) come from yiq.field_streams with
 gen1=True, so the kernel and this path consume identical inputs.
 
+The chain splits where the JAX package's split program splits it
+(kernels A, B1, B2 of cvsim_tpu/models/fused_yuv.py):
+`composite_front_a`, the head switch, `composite_front_b1`, the vertical
+blend, `composite_back_b2`. The stage functions that run pole cascades
+take them as a `cascades` argument (ops/iir.Cascades): the plain T^3
+cascades by default, kernel #9's (ops/fused_iir.CASCADES) on the
+debug-tap route.
+
 Reference functions reimplemented here:
 - composite_video_chroma_lowpass[_lite]  ffmpeg_to_composite.cpp:353-431
 - composite_video_yuv_to_ntsc            ffmpeg_to_composite.cpp:434-477
@@ -23,17 +31,11 @@ from __future__ import annotations
 
 import torch
 
-from cvsim_tpu.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, iir_alpha
+from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, iir_alpha
 from cvsim_tpu_torch.models import yiq
 from cvsim_tpu_torch.models.yiq import FieldStreams, _by_phase, _flip_table
 from cvsim_tpu_torch.ops.cmath import c_div, c_int, clampu8
-from cvsim_tpu_torch.ops.iir import (
-    cascade_emph,
-    cascade_plain,
-    cascade_unsharp,
-    delay_writeback,
-    iir_highpass,
-)
+from cvsim_tpu_torch.ops.iir import PLAIN, Cascades, delay_writeback, iir_highpass
 from cvsim_tpu_torch.ops.noise import (
     chroma_noise_walk_rows,
     smoothed_noise_walk_rows,
@@ -49,7 +51,7 @@ def _u8(s: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------ chroma lowpass
 
-def chroma_lowpass(u, v, *, ntsc: bool = True):
+def chroma_lowpass(u, v, *, ntsc: bool = True, cascades: Cascades = PLAIN):
     """composite_video_chroma_lowpass (ffmpeg_to_composite.cpp:353-393):
     per chroma plane, a half-cutoff highpass "ringing" stage (s += hp(s))
     followed by 3 cascaded lowpasses, with delayed clampu8 writeback."""
@@ -59,7 +61,7 @@ def chroma_lowpass(u, v, *, ntsc: bool = True):
         alpha_lp = iir_alpha(NTSC_RATE_422, cutoff)
         s = p.to(F32)
         s = s + iir_highpass(s, alpha_hp, 128.0)
-        s = cascade_plain(s, alpha_lp, 128.0, 3)
+        s = cascades.plain(s, alpha_lp, 128.0, 3)
         return delay_writeback(p, _u8(s), delay)
 
     u = one(u, 1300000.0, 2)
@@ -67,13 +69,13 @@ def chroma_lowpass(u, v, *, ntsc: bool = True):
     return u, v
 
 
-def chroma_lowpass_lite(u, v):
+def chroma_lowpass_lite(u, v, cascades: Cascades = PLAIN):
     """_lite variant (ffmpeg_to_composite.cpp:395-431): 3 lowpasses at
     rate/4 cutoff, delay 1, no highpass stage."""
 
     def one(p):
         alpha = iir_alpha(NTSC_RATE_422, NTSC_RATE_422 / 4)
-        s = cascade_plain(p.to(F32), alpha, 128.0, 3)
+        s = cascades.plain(p.to(F32), alpha, 128.0, 3)
         return delay_writeback(p, _u8(s), 1)
 
     return one(u), one(v)
@@ -133,10 +135,11 @@ def ntsc_to_yuv(y, u, v, xi, subcarrier_amplitude_back: int,
 
 # --------------------------------------------------------------- distortions
 
-def composite_preemphasis_stage(y, pre_scale: float, pre_cut: float):
+def composite_preemphasis_stage(y, pre_scale: float, pre_cut: float,
+                                cascades: Cascades = PLAIN):
     """ffmpeg_to_composite.cpp:636-650."""
     alpha = iir_alpha(NTSC_RATE, pre_cut)
-    return _u8(cascade_emph(y.to(F32), alpha, 16.0, 0, pre_scale))
+    return _u8(cascades.emph(y.to(F32), alpha, 16.0, 0, pre_scale))
 
 
 def video_noise_stage(y, keys, mag: int):
@@ -175,18 +178,19 @@ def chroma_dropout_stage(u, v, keep):
 
 # ------------------------------------------------------------------ VHS block
 
-def vhs_luma_lowpass(y, luma_cut: float):
+def vhs_luma_lowpass(y, luma_cut: float, cascades: Cascades = PLAIN):
     """ffmpeg_to_composite.cpp:809-828."""
     alpha = iir_alpha(NTSC_RATE, luma_cut)
-    return _u8(cascade_emph(y.to(F32), alpha, 16.0, 3, 1.6))
+    return _u8(cascades.emph(y.to(F32), alpha, 16.0, 3, 1.6))
 
 
-def vhs_chroma_lowpass(u, v, chroma_cut: float, chroma_delay: int):
+def vhs_chroma_lowpass(u, v, chroma_cut: float, chroma_delay: int,
+                       cascades: Cascades = PLAIN):
     """ffmpeg_to_composite.cpp:830-852 (4:2:2 rate, 128 reset)."""
     alpha = iir_alpha(NTSC_RATE_422, chroma_cut)
 
     def one(p):
-        s = cascade_plain(p.to(F32), alpha, 128.0, 3)
+        s = cascades.plain(p.to(F32), alpha, 128.0, 3)
         return delay_writeback(p, _u8(s), chroma_delay)
 
     return one(u), one(v)
@@ -207,68 +211,79 @@ def vhs_chroma_vert_blend(u, v, init: int = 128):
     return blend(u), blend(v)
 
 
-def vhs_sharpen_luma(y, luma_cut: float, sharpen: float):
+def vhs_sharpen_luma(y, luma_cut: float, sharpen: float,
+                     cascades: Cascades = PLAIN):
     """ffmpeg_to_composite.cpp:882-898: unsharp vs 3-pass lowpass at 2x cut."""
     alpha = iir_alpha(NTSC_RATE, luma_cut * 2)
-    return _u8(cascade_unsharp(y.to(F32), alpha, 16.0, 3, sharpen))
+    return _u8(cascades.unsharp(y.to(F32), alpha, 16.0, 3, sharpen))
 
 
-def vhs_sharpen_chroma(u, v, chroma_cut: float, sharpen: float):
+def vhs_sharpen_chroma(u, v, chroma_cut: float, sharpen: float,
+                       cascades: Cascades = PLAIN):
     """ffmpeg_to_composite.cpp:900-923."""
     alpha = iir_alpha(NTSC_RATE_422, chroma_cut * 2)
 
     def one(p):
-        return _u8(cascade_unsharp(p.to(F32), alpha, 128.0, 3, sharpen))
+        return _u8(cascades.unsharp(p.to(F32), alpha, 128.0, 3, sharpen))
 
     return one(u), one(v)
 
 
 # ---------------------------------------------------------------- full chain
 
-def composite_video_process_streams(y, u, v, *, cfg: CompositeConfig,
-                                    streams: FieldStreams):
-    """Full gen-1 chain on a batch of fields with the given per-line inputs
-    (composite_video_process, ffmpeg_to_composite.cpp:629-952, stage order
-    kept). y, u, v: int32 planes; int32 out, uint8-valued."""
-    xi = streams.xi
+def composite_front_a(y, u, v, *, cfg: CompositeConfig, streams: FieldStreams,
+                      cascades: Cascades = PLAIN):
+    """The chain up to the head switch (kernel A's _a_math): input chroma
+    lowpass, QAM encode, preemphasis, luma noise. int32 planes in;
+    returns (encoded y, u, v): u and v are read further on only by the
+    debug taps."""
     if cfg.composite_in_chroma_lowpass:
-        u, v = chroma_lowpass(u, v, ntsc=cfg.ntsc)
-
-    y, u, v = yuv_to_ntsc(y, u, v, xi, cfg.subcarrier_amplitude,
+        u, v = chroma_lowpass(u, v, ntsc=cfg.ntsc, cascades=cascades)
+    y, u, v = yuv_to_ntsc(y, u, v, streams.xi, cfg.subcarrier_amplitude,
                           cfg.nocolor_subcarrier)
-
     if cfg.composite_preemphasis != 0 and cfg.composite_preemphasis_cut > 0:
         y = composite_preemphasis_stage(
-            y, cfg.composite_preemphasis, cfg.composite_preemphasis_cut)
-
+            y, cfg.composite_preemphasis, cfg.composite_preemphasis_cut,
+            cascades)
     if cfg.video_noise != 0:
         y = video_noise_stage(y, streams.keys_ab[:, 0], cfg.video_noise)
+    return y, u, v
 
-    if cfg.vhs_head_switching:
-        # luma pad is black (16)
-        y = yiq.head_switching_stage(y, streams.shifts, fill=16)
 
+def composite_front_b1(y, u, v, *, cfg: CompositeConfig,
+                       streams: FieldStreams, cascades: Cascades = PLAIN):
+    """The head-switched luma to the vertical blend (kernel B1's
+    _b_front): Y/C separation and QAM decode, chroma noise, chroma phase
+    noise, the VHS bandlimit. u, v: composite_front_a's chroma, read only
+    by the debug taps (None without them)."""
     if not cfg.nocolor_subcarrier:
-        y, u, v = ntsc_to_yuv(y, u, v, xi, cfg.subcarrier_amplitude_back,
+        y, u, v = ntsc_to_yuv(y, u, v, streams.xi,
+                              cfg.subcarrier_amplitude_back,
                               cfg.nocolor_subcarrier_after_yc_sep)
-
     if cfg.video_chroma_noise != 0:
         u, v = chroma_noise_stage(u, v, streams.keys_ab[:, 1],
                                   cfg.video_chroma_noise)
-
     if cfg.video_chroma_phase_noise != 0:
         u, v = chroma_phase_noise_stage(u, v, streams.sincos)
-
     if cfg.emulating_vhs:
         speed = cfg.vhs_tape_speed
-        y = vhs_luma_lowpass(y, speed.luma_cut)
+        y = vhs_luma_lowpass(y, speed.luma_cut, cascades)
         u, v = vhs_chroma_lowpass(u, v, speed.chroma_cut,
-                                  speed.chroma_delay_gen1)
-        if cfg.vhs_chroma_vert_blend and cfg.ntsc:
-            u, v = vhs_chroma_vert_blend(u, v)
-        y = vhs_sharpen_luma(y, speed.luma_cut, cfg.vhs_out_sharpen)
+                                  speed.chroma_delay_gen1, cascades)
+    return y, u, v
+
+
+def composite_back_b2(y, u, v, *, cfg: CompositeConfig, streams: FieldStreams,
+                      cascades: Cascades = PLAIN):
+    """The blended planes to the chain's output (kernel B2's _b_back):
+    luma and chroma sharpen with the re-encode/decode, dropout, Y/C
+    recombine, output lowpass."""
+    xi = streams.xi
+    if cfg.emulating_vhs:
+        speed = cfg.vhs_tape_speed
+        y = vhs_sharpen_luma(y, speed.luma_cut, cfg.vhs_out_sharpen, cascades)
         u, v = vhs_sharpen_chroma(u, v, speed.chroma_cut,
-                                  cfg.vhs_out_sharpen_chroma)
+                                  cfg.vhs_out_sharpen_chroma, cascades)
         if not cfg.vhs_svideo_out:
             y, u, v = yuv_to_ntsc(y, u, v, xi, cfg.subcarrier_amplitude)
             y, u, v = ntsc_to_yuv(y, u, v, xi, cfg.subcarrier_amplitude)
@@ -282,34 +297,66 @@ def composite_video_process_streams(y, u, v, *, cfg: CompositeConfig,
 
     # gen-1 precedence: the full lowpass wins whenever it is on
     if cfg.composite_out_chroma_lowpass:
-        u, v = chroma_lowpass(u, v, ntsc=cfg.ntsc)
+        u, v = chroma_lowpass(u, v, ntsc=cfg.ntsc, cascades=cascades)
     elif cfg.composite_out_chroma_lowpass_lite:
-        u, v = chroma_lowpass_lite(u, v)
-
+        u, v = chroma_lowpass_lite(u, v, cascades)
     return y, u, v
 
 
+def does_vblend(cfg: CompositeConfig) -> bool:
+    """Whether the chain runs the 2-line chroma blend between B1 and B2."""
+    return cfg.emulating_vhs and cfg.vhs_chroma_vert_blend and cfg.ntsc
+
+
+def composite_video_process_streams(y, u, v, *, cfg: CompositeConfig,
+                                    streams: FieldStreams,
+                                    cascades: Cascades = PLAIN):
+    """Full gen-1 chain on a batch of fields with the given per-line inputs
+    (composite_video_process, ffmpeg_to_composite.cpp:629-952, stage order
+    kept). y, u, v: int32 planes; int32 out, uint8-valued."""
+    y, u, v = composite_front_a(y, u, v, cfg=cfg, streams=streams,
+                                cascades=cascades)
+    if cfg.vhs_head_switching:
+        # luma pad is black (16)
+        y = yiq.head_switching_stage(y, streams.shifts, fill=16)
+    y, u, v = composite_front_b1(y, u, v, cfg=cfg, streams=streams,
+                                 cascades=cascades)
+    if does_vblend(cfg):
+        u, v = vhs_chroma_vert_blend(u, v)
+    return composite_back_b2(y, u, v, cfg=cfg, streams=streams,
+                             cascades=cascades)
+
+
 def composite_video_process(y, u, v, fieldno, field_parity, key: int, *,
-                            cfg: CompositeConfig):
+                            cfg: CompositeConfig,
+                            cascades: Cascades = PLAIN):
     """Full gen-1 chain (stage path). key: the u32 stream seed
     (interop.key32_from_seed). int32 planes in and out."""
     _, l, w = y.shape
     streams = yiq.field_streams(cfg, fieldno, field_parity, l, w, key,
                                 gen1=True)
     return composite_video_process_streams(
-        y.to(I32), u.to(I32), v.to(I32), cfg=cfg, streams=streams)
+        y.to(I32), u.to(I32), v.to(I32), cfg=cfg, streams=streams,
+        cascades=cascades)
 
 
 def composite_video_process_auto(y, u, v, fieldno, field_parity, key: int, *,
                                  cfg: CompositeConfig):
-    """The main path, dispatched on y's device: fused_yuv.prepare, then the
-    CUDA kernel for a CUDA tensor or fused_yuv.chain_reference for a CPU
-    tensor (composite_video_process_fused decides; it never falls back).
-    The debug taps (-nocolor-subcarrier[-after-yc-sep]), which the kernel
-    does not carry, take the stage path. uint8 planes out."""
+    """The main path, dispatched on y's device: fused_yuv.prepare, then
+    fused_yuv.composite_video_process_fused (kernel #5, or #6-#8 on
+    rasters above the reference's single-tile budget; their plain
+    versions on a CPU tensor; it never falls back). The debug taps
+    (-nocolor-subcarrier[-after-yc-sep]), which those kernels do not
+    carry, take the stage path with its pole cascades on kernel #9
+    (ops/fused_iir.CASCADES: the kernel on a CUDA tensor, its plain
+    version on a CPU one), as the JAX package's CVSIM_PALLAS=1 setting
+    does. uint8 planes out."""
     if cfg.nocolor_subcarrier or cfg.nocolor_subcarrier_after_yc_sep:
-        out = composite_video_process(y, u, v, fieldno, field_parity, key,
-                                      cfg=cfg)
+        from cvsim_tpu_torch.ops import fused_iir
+
+        out = composite_video_process(
+            y, u, v, fieldno.to(y.device), field_parity.to(y.device), key,
+            cfg=cfg, cascades=fused_iir.CASCADES)
         return tuple(p.to(torch.uint8) for p in out)
     from cvsim_tpu_torch.models import fused_yuv
 

@@ -1,0 +1,129 @@
+"""ctypes binding for the native host frame scaler (libhostpix).
+
+The port's copy of cvsim_tpu/native/hostpix.py, cut to what the port
+calls: `scale_frame_to`, the gen-2 pipeline's per-frame ingest. The C++
+kernel (hostpix.cpp, a copy of the reference package's) is bit-exact
+with colorconv.scale_frame_to_np (same float32 operation order, numpy
+rounding); it is built with g++ on first use into _build/ here, and
+the wrapper falls back to the numpy twin when g++ is unavailable.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "hostpix.cpp")
+# in a directory of its own: a .so beside the package's modules would be
+# listed as an importable module by pkgutil
+_LIB = os.path.join(_DIR, "_build", "libhostpix.so")
+_lock = threading.Lock()
+_state: list = []   # [lib | None] once resolved
+
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_L = ctypes.c_long
+
+
+def _load():
+    """The shared library, or None (no compiler). Never raises."""
+    with _lock:
+        if _state:
+            return _state[0]
+        lib = None
+        try:
+            if (not os.path.exists(_LIB)
+                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+                # private temp name + atomic rename: concurrent processes
+                # must never dlopen a half-linked library
+                os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+                tmp = f"{_LIB}.tmp.{os.getpid()}"
+                # -ffp-contract=off: FMA contraction would change the f32
+                # results vs numpy (see hostpix.cpp header). -march=native
+                # (the library is a self-built per-host cache) vectorizes
+                # rintf to a round instruction instead of a libm call —
+                # ~4x on the scale kernel; fall back to baseline codegen
+                # on compilers/hosts where it fails.
+                base = ["g++", "-O3", "-shared", "-fPIC",
+                        "-ffp-contract=off", "-fno-math-errno",
+                        "-o", tmp, _SRC]
+                try:
+                    subprocess.run(base[:1] + ["-march=native"] + base[1:],
+                                   check=True, capture_output=True)
+                except subprocess.CalledProcessError:
+                    subprocess.run(base, check=True, capture_output=True)
+                os.replace(tmp, _LIB)
+            lib = ctypes.CDLL(_LIB)
+            lib.cvsim_scale_frame.argtypes = [
+                _u8p, _u8p, _u8p, _L, _L, _L, _L, _L, _L,
+                _i64p, _i64p, _f32p, ctypes.c_int,
+                _i64p, _i64p, _f32p, ctypes.c_int, _i32p]
+            lib.cvsim_scale_frame_bc.argtypes = [
+                _u8p, _u8p, _u8p, _L, _L, _L, _L, _L, _L,
+                _i64p, _i64p, _f32p, ctypes.c_int,
+                _i64p, _i64p, _f32p, ctypes.c_int,
+                _i64p, _i64p, _f32p, ctypes.c_int,
+                _i64p, _i64p, _f32p, ctypes.c_int, _i32p]
+        except Exception:
+            lib = None
+        _state.append(lib)
+        return lib
+
+
+_ID = np.zeros(0, np.int64)
+_IDF = np.zeros(0, np.float32)
+
+
+def scale_frame_to(y, u, v, width: int, height: int,
+                   chroma: str = "repeat"):
+    """colorconv.scale_frame_to_np, native when available. chroma="bilinear"
+    interpolates chroma up to luma resolution (the restore tools' ingest —
+    the reference converts through an SWS_BILINEAR resampler,
+    ffmpeg_vhsled.cpp:318-323); "repeat" replicates (the engines')."""
+    lib = _load()
+    if lib is None:
+        from cvsim_tpu_torch.host.colorconv import scale_frame_to_np
+        return scale_frame_to_np(y, u, v, width, height, chroma)
+    from cvsim_tpu_torch.host.batching import hscale_consts
+
+    y = np.ascontiguousarray(y, np.uint8)
+    u = np.ascontiguousarray(u, np.uint8)
+    v = np.ascontiguousarray(v, np.uint8)
+    sh, sw = y.shape
+    ch, cw = u.shape
+    hc = hscale_consts(sw, width)
+    vc = hscale_consts(sh, height)
+    hx0, hx1, hf = (hc if hc is not None else (_ID, _ID, _IDF))
+    vx0, vx1, vf = (vc if vc is not None else (_ID, _ID, _IDF))
+    out = np.empty((height, width, 3), np.int32)
+    common = (y, u, v, sh, sw, ch, cw, height, width,
+              np.ascontiguousarray(hx0, np.int64),
+              np.ascontiguousarray(hx1, np.int64),
+              np.ascontiguousarray(hf, np.float32), int(hc is not None),
+              np.ascontiguousarray(vx0, np.int64),
+              np.ascontiguousarray(vx1, np.int64),
+              np.ascontiguousarray(vf, np.float32), int(vc is not None))
+    if chroma == "bilinear":
+        cu = hscale_consts(cw, sw)
+        cv = hscale_consts(ch, sh)
+        cux0, cux1, cuf = (cu if cu is not None else (_ID, _ID, _IDF))
+        cvx0, cvx1, cvf = (cv if cv is not None else (_ID, _ID, _IDF))
+        lib.cvsim_scale_frame_bc(
+            *common,
+            np.ascontiguousarray(cux0, np.int64),
+            np.ascontiguousarray(cux1, np.int64),
+            np.ascontiguousarray(cuf, np.float32), int(cu is not None),
+            np.ascontiguousarray(cvx0, np.int64),
+            np.ascontiguousarray(cvx1, np.int64),
+            np.ascontiguousarray(cvf, np.float32), int(cv is not None),
+            out)
+    else:
+        lib.cvsim_scale_frame(*common, out)
+    return out

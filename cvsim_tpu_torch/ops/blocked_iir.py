@@ -59,6 +59,14 @@ def _cascade3_consts(alpha: float, block: int, np_dtype: str):
             v12.astype(dt))
 
 
+def full_float32(t: torch.Tensor):
+    """The plain versions run with full float32 matrix products on the
+    card: the blocked IIR's integer exactness needs them."""
+    if t.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 

@@ -6,11 +6,15 @@ The reference's `LowpassFilter` (ffmpeg_to_composite.cpp:99-131):
     highpass(x)[t] = x[t] - lowpass(x)[t]
 
 Every filter runs on the blocked-matmul form of ops/blocked_iir.py. The
-JAX package's CVSIM_PALLAS branch (its standalone fused-IIR TPU kernel)
-has no counterpart here yet.
+three cascade shapes below are the plain versions; the JAX package's
+CVSIM_PALLAS branch (its standalone fused-IIR TPU kernel) has its
+counterpart in ops/fused_iir.py, and the stage functions of
+models/yuv422.py take either set as a `Cascades` argument.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -61,6 +65,19 @@ def cascade_unsharp(x, alpha, y0, passes: int, gain: float):
 def cascade_plain(x, alpha, y0, passes: int):
     """Plain pole cascade."""
     return iir_lowpass_cascade(x, alpha, y0, passes)
+
+
+class Cascades(NamedTuple):
+    """The pole-cascade shapes a stage path runs, each called as
+    (x, alpha, y0, passes[, gain])."""
+    emph: Callable
+    unsharp: Callable
+    plain: Callable
+
+
+# the blocked T^3 cascades above: what chain_reference and every plain
+# version run
+PLAIN = Cascades(cascade_emph, cascade_unsharp, cascade_plain)
 
 
 def delay_writeback(orig: torch.Tensor, filtered: torch.Tensor,

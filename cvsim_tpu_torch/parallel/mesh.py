@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from cvsim_tpu.config import CompositeConfig
+from cvsim_tpu_torch.config import CompositeConfig
 
 
 def _factor_2d(n: int) -> tuple[int, int]:

@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from cvsim_tpu.config import CompositeConfig, VHSSpeed
+from cvsim_tpu_torch.config import CompositeConfig, VHSSpeed
+from cvsim_tpu_torch.interop import convert_config
 
 # the configurations of the JAX package's fused-vs-stage chain tests
 # (tests/test_fused_chain.py CONFIGS), shared by the port's tests and
@@ -75,6 +76,14 @@ BENCH_GEN1_EP = CompositeConfig(
     video_chroma_loss=8)
 
 
+def reference_config(cfg: CompositeConfig, config_module):
+    """The JAX package's twin of a port config: `config_module` is
+    cvsim_tpu.config, handed in by the test (the port itself imports
+    nothing of the JAX package)."""
+    return convert_config(cfg, config_module.CompositeConfig,
+                          config_module.VHSSpeed)
+
+
 def chain_diff(a, b) -> tuple[int, float]:
     """(max abs difference, fraction of samples that differ) of two
     integer arrays."""
@@ -113,6 +122,51 @@ def assert_plane_close(a, b, err_msg: str = "") -> None:
     if not (dmax <= PLANE_MAX_DIFF and frac <= PLANE_MAX_FRAC):
         raise AssertionError(f"{err_msg}: plane max diff {dmax}, "
                              f"frac {frac:.2e}")
+
+
+def iir_bound(x_absmax: float, gain: float) -> float:
+    """Kernel #9's tolerance (ops/fused_iir) against its plain version or
+    the JAX kernel: |diff| <= 8 * eps_f32 * (1 + |gain|) * max|x|. Both
+    run the same per-pole blocked products, but summed in another order;
+    the mode's gain scales the rounding."""
+    return 8 * float(np.finfo(np.float32).eps) * (1 + abs(gain)) * x_absmax
+
+
+def check_gen1_split_kernels(cfg: CompositeConfig, y, u, v, prep,
+                             err_msg: str = "") -> dict:
+    """Kernels #6-#8 (models/fused_yuv.stage_a/_b1/_b2) each against its
+    plain version on the same inputs (uint8 planes y [B, L, W], u, v
+    [B, L, W//2] and their prepare()): #6 on the planes, #7 on #6's
+    head-switched output, #8 on #7's blended output; every output held to
+    assert_chain_equal. Then the split route against kernel #5 on the
+    planes, to assert_chain_equal. Returns {name: (max diff, frac)} for
+    yuv_a, yuv_b1, yuv_b2 and "split_vs_chain"."""
+    from cvsim_tpu_torch.models import fused_yuv as fy
+    from cvsim_tpu_torch.models import yuv422
+
+    def np_(ts):
+        return [t.cpu().numpy() for t in ts]
+
+    y_a = fy.stage_a(y, u, v, prep, cfg=cfg)
+    y_h = fy.head_switch_rows(y_a, prep.shifts) if cfg.vhs_head_switching else y_a
+    p1 = fy.stage_b1(y_h, prep, cfg=cfg)
+    p1b = (p1[0], *fy.vblend_rows(*p1[1:])) if yuv422.does_vblend(cfg) else p1
+    checks = (
+        ("yuv_a", [y_a], [fy.stage_a_reference(y, u, v, prep, cfg=cfg)]),
+        ("yuv_b1", p1, fy.stage_b1_reference(y_h, prep, cfg=cfg)),
+        ("yuv_b2", fy.stage_b2(*p1b, prep, cfg=cfg),
+         fy.stage_b2_reference(*p1b, prep, cfg=cfg)),
+        ("split_vs_chain", fy.composite_video_process_split(y, u, v, prep,
+                                                            cfg=cfg),
+         fy.composite_video_process_merged(y, u, v, prep, cfg=cfg)))
+    out = {}
+    for name, got, want in checks:
+        diffs = []
+        for k, (g, w) in enumerate(zip(np_(got), np_(want))):
+            assert_chain_equal(g, w, err_msg=f"{err_msg} {name} plane {k}")
+            diffs.append(chain_diff(g, w))
+        out[name] = (max(d for d, _ in diffs), max(f for _, f in diffs))
+    return out
 
 
 def check_split_kernels(cfg: CompositeConfig, rgb, prep,

@@ -22,11 +22,13 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from cvsim_tpu import config as jconfig
 from cvsim_tpu.models import yiq as jyiq
 from cvsim_tpu.models.fused_yiq import composite_layer_rgb_fused as jfused
 from cvsim_tpu_torch import interop
 from cvsim_tpu_torch.models import yiq
-from cvsim_tpu_torch.testing import CHAIN_CONFIGS, assert_chain_equal
+from cvsim_tpu_torch.testing import (CHAIN_CONFIGS, assert_chain_equal,
+                                     reference_config)
 
 SHAPES = {"2x32x128": ((2, 32, 128), [0, 1], [0, 1]),
           "1x16x176": ((1, 16, 176), [4], [1])}
@@ -47,10 +49,11 @@ def test_chain_matches_jax(name, shape_name):
     key = jax.random.PRNGKey(5)
     k32 = interop.key32_from_key_data(np.asarray(jax.random.key_data(key)))
     rgb_j = jnp.asarray(rgb, jnp.int32)
+    jcfg = reference_config(cfg, jconfig)
     want_stage = np.asarray(jyiq.composite_layer_rgb(
-        rgb_j, jnp.asarray(fn), jnp.asarray(par), key, cfg=cfg))
+        rgb_j, jnp.asarray(fn), jnp.asarray(par), key, cfg=jcfg))
     want_fused = np.asarray(jfused(rgb_j, jnp.asarray(fn), jnp.asarray(par),
-                                   key, cfg=cfg, interpret=True))
+                                   key, cfg=jcfg, interpret=True))
 
     rgb_t = torch.from_numpy(rgb)
     fn_t, par_t = torch.from_numpy(fn), torch.from_numpy(par)

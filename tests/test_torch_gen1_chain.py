@@ -6,8 +6,9 @@ chain_reference on a CPU tensor) vs the JAX stage path
 yuv422.composite_video_process (jitted) and the JAX fused kernel in
 interpret mode,
 on every configuration of tests/test_fused_chain.py's GEN1_CONFIGS at
-(2,32,128) and (1,16,176), on its L=96 windowed head-switch cases, and a
-debug tap through the stage path. Tolerance: assert_chain_equal (at most
+(2,32,128) and (1,16,176), on its L=96 windowed head-switch cases, and
+the debug taps (the stage path with kernel #9's cascades, against JAX's
+stage path under CVSIM_PALLAS=1). Tolerance: assert_chain_equal (at most
 1 LSB on at most 0.1% of samples per plane): both sides run the same
 float32 math, but the matrix products and the sin/cos of the chroma
 phase round differently in the two frameworks, so a value that lands
@@ -16,6 +17,7 @@ exactly on an integer can truncate one LSB apart.
 The kernel itself is tested in tests/test_torch_kernel.py.
 """
 
+import functools
 import zlib
 
 import numpy as np
@@ -24,12 +26,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from cvsim_tpu.config import CompositeConfig
+from cvsim_tpu import config as jconfig
 from cvsim_tpu.models import yuv422 as jyuv
 from cvsim_tpu.models.fused_yuv import composite_video_process_fused as jfused
+from cvsim_tpu.ops import iir as jiir
+from cvsim_tpu.ops.pallas import fused_iir as jfused_iir
 from cvsim_tpu_torch import interop
+from cvsim_tpu_torch.config import CompositeConfig
 from cvsim_tpu_torch.models import yuv422
-from cvsim_tpu_torch.testing import GEN1_CHAIN_CONFIGS, assert_chain_equal
+from cvsim_tpu_torch.testing import (GEN1_CHAIN_CONFIGS, assert_chain_equal,
+                                     reference_config)
 
 SHAPES = {"2x32x128": ((2, 32, 128), [0, 1], [0, 1]),
           "1x16x176": ((1, 16, 176), [2], [1])}
@@ -44,12 +50,16 @@ def _planes(tag, b, l, w):
 
 
 def _check_against_jax(cfg, planes, fn, par, seed, tag, fused=True):
+    """The port's stage path against JAX's, and (fused) the main path ==
+    the stage path exactly and against JAX's fused kernel. Returns the
+    main path's planes and JAX's stage-path arguments."""
     key = jax.random.PRNGKey(seed)
     k32 = interop.key32_from_key_data(np.asarray(jax.random.key_data(key)))
+    jcfg = reference_config(cfg, jconfig)
     jp = [jnp.asarray(p) for p in planes]
     jfn, jpar = jnp.asarray(fn, jnp.int32), jnp.asarray(par, jnp.int32)
     want_stage = jyuv.composite_video_process_jit(*jp, jfn, jpar, key,
-                                                  cfg=cfg)
+                                                  cfg=jcfg)
     tp = [torch.from_numpy(p) for p in planes]
     tfn = torch.tensor(fn, dtype=torch.int32)
     tpar = torch.tensor(par, dtype=torch.int32)
@@ -59,14 +69,16 @@ def _check_against_jax(cfg, planes, fn, par, seed, tag, fused=True):
     for k, (gs, gm, ws) in enumerate(zip(got_stage, got_main, want_stage)):
         gs, gm = gs.numpy(), gm.numpy()
         assert gm.dtype == np.uint8 and gm.shape == planes[k].shape
-        np.testing.assert_array_equal(gm, gs, err_msg=f"{tag} plane {k}")
+        if fused:
+            np.testing.assert_array_equal(gm, gs, err_msg=f"{tag} plane {k}")
         assert_chain_equal(gs, np.asarray(ws), err_msg=f"{tag} plane {k} "
                                                        "vs jax stage")
     if fused:
-        want_fused = jfused(*jp, jfn, jpar, key, cfg=cfg, interpret=True)
+        want_fused = jfused(*jp, jfn, jpar, key, cfg=jcfg, interpret=True)
         for k, (gs, wf) in enumerate(zip(got_stage, want_fused)):
             assert_chain_equal(gs.numpy(), np.asarray(wf),
                                err_msg=f"{tag} plane {k} vs jax fused")
+    return [p.numpy() for p in got_main], (jp, jfn, jpar, key, jcfg)
 
 
 @pytest.mark.parametrize("name,shape_name", CASES)
@@ -91,9 +103,22 @@ def test_gen1_windowed_head_switch_matches_jax(point):
 
 @pytest.mark.parametrize("tap", ["nocolor_subcarrier",
                                  "nocolor_subcarrier_after_yc_sep"])
-def test_gen1_debug_tap_stage_path(tap):
-    """The debug taps run on the stage path (the kernel does not carry
-    them, as in the JAX package)."""
+def test_gen1_debug_tap_stage_path(tap, monkeypatch):
+    """The debug taps run on the stage path (kernels #5-#8 do not carry
+    them, as in the JAX package): the port's plain stage path against
+    JAX's, and the route, whose pole cascades run on kernel #9 (its plain
+    version on the CPU), against JAX's stage path with its cascades on the
+    fused-IIR kernel (CVSIM_PALLAS=1; interpret mode here)."""
     cfg = CompositeConfig(video_noise=3, emulating_vhs=True, **{tap: True})
     planes = _planes(tap, 2, 32, 128)
-    _check_against_jax(cfg, planes, [0, 1], [0, 1], 5, tap, fused=False)
+    got_main, (jp, jfn, jpar, key, jcfg) = _check_against_jax(
+        cfg, planes, [0, 1], [0, 1], 5, tap, fused=False)
+    monkeypatch.setattr(jiir, "_pallas_ok", lambda x: True)
+    monkeypatch.setattr(jfused_iir, "fused_iir", functools.partial(
+        jfused_iir.fused_iir, interpret=True))
+    # not jitted, so the cascades dispatch now, under the patch
+    want = jyuv.composite_video_process(*jp, cfg=jcfg, fieldno=jfn,
+                                        field_parity=jpar, key=key)
+    for k, (gm, w) in enumerate(zip(got_main, want)):
+        assert_chain_equal(gm, np.asarray(w),
+                           err_msg=f"{tap} plane {k} vs jax CVSIM_PALLAS=1")

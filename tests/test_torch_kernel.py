@@ -1,7 +1,9 @@
 """The CUDA kernels of the gen-2 chain (csrc/yiq_chain.cu: #1 the whole
-chain, #2-#4 its split stage groups for row shards) and of the gen-1 chain
-(csrc/yuv_chain.cu, #5) against their plain PyTorch versions, and the
-wrappers' contracts.
+chain, #2-#4 its split stage groups for row shards), of the gen-1 chain
+(csrc/yuv_chain.cu: #5 the whole chain, #6-#8 its split stage groups for
+rasters above the reference's single-tile budget) and the standalone pole
+cascade (csrc/fused_iir.cu, #9) against their plain PyTorch versions, and
+the wrappers' contracts.
 
 Imports torch and the port only (no jax), so that on a GPU host the
 `cuda`-marked tests run without jax's CPU setup in tests/conftest.py:
@@ -13,7 +15,8 @@ samples): the kernel and the plain chain run the same float32 math, but
 the plain chain's products go through cuBLAS with another summation order.
 The split kernels' float planes are held by testing.check_split_kernels
 (assert_plane_close on the plane, assert_chain_equal once carried to 8-bit
-output).
+output). #9 is held to testing.iir_bound (8 float32 ULPs of max|x|, times
+1 + |gain|).
 """
 
 import zlib
@@ -22,11 +25,15 @@ import numpy as np
 import pytest
 import torch
 
-from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
+from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yuv422
+from cvsim_tpu_torch.ops import fused_iir
 from cvsim_tpu_torch.parallel import run_fused_lines_local
 from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, BENCH_VHS_EP,
                                      CHAIN_CONFIGS, GEN1_CHAIN_CONFIGS,
-                                     assert_chain_equal, check_split_kernels)
+                                     assert_chain_equal,
+                                     check_gen1_split_kernels,
+                                     check_split_kernels, iir_bound)
 
 SHAPES = [(2, 32, 128), (1, 16, 176)]
 CASES = [(n, s) for n in sorted(CHAIN_CONFIGS) for s in SHAPES]
@@ -272,3 +279,135 @@ def test_gen1_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="on cpu"):
         fused_yuv.composite_video_process_fused(
             y, u, v, prep._replace(keep=prep.keep.cpu()), cfg=cfg)
+
+
+# ------------------------------------------------------- gen-1 split kernels
+
+def _gen1_launches():
+    return (fused_yuv.A_LAUNCHES, fused_yuv.B1_LAUNCHES,
+            fused_yuv.B2_LAUNCHES)
+
+
+def test_gen1_split_check_on_cpu_is_exact():
+    """On CPU tensors check_gen1_split_kernels compares each plain version
+    with itself (and the split route with the whole plain chain): all
+    exact, no launch counted."""
+    cfg = GEN1_CHAIN_CONFIGS["full-ep-stochastic"]
+    y, u, v, fn, par = _planes("split-cpu", (2, 32, 128), "cpu")
+    prep = fused_yuv.prepare(cfg, y, fn, par, 7)
+    before = _gen1_launches()
+    diffs = check_gen1_split_kernels(cfg, y, u, v, prep)
+    assert all(d == (0, 0.0) for d in diffs.values())
+    assert _gen1_launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", GEN1_CASES)
+def test_gen1_split_kernels_match_plain(cuda_device, name, shape):
+    cfg = GEN1_CHAIN_CONFIGS[name]
+    y, u, v, fn, par = _planes(f"split/{name}", shape, cuda_device)
+    prep = fused_yuv.prepare(cfg, y, fn, par, 5)
+    before = _gen1_launches()
+    check_gen1_split_kernels(cfg, y, u, v, prep, err_msg=name)
+    assert all(a > b for a, b in zip(_gen1_launches(), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ntsc", [((8, 288, 720), False),
+                                        ((2, 540, 1888), True)])
+def test_gen1_split_kernels_match_plain_full_width(cuda_device, shape, ntsc):
+    cfg = BENCH_GEN1_EP.with_(ntsc=ntsc)
+    y, u, v, fn, par = _planes("split-bench", shape, cuda_device)
+    prep = fused_yuv.prepare(cfg, y, fn, par, 7)
+    check_gen1_split_kernels(cfg, y, u, v, prep, err_msg=str(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,split", [((2, 240, 720), False),
+                                         ((2, 288, 720), True)])
+def test_gen1_route_on_card(cuda_device, shape, split):
+    """composite_video_process_fused launches #6-#8 above the reference's
+    single-tile budget (576i PAL) and #5 below it (480i)."""
+    cfg = BENCH_GEN1_EP.with_(ntsc=not split)
+    y, u, v, fn, par = _planes("route", shape, cuda_device)
+    prep = fused_yuv.prepare(cfg, y, fn, par, 7)
+    merged, splits = fused_yuv.KERNEL_LAUNCHES, _gen1_launches()
+    fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fused_yuv.KERNEL_LAUNCHES == merged + (0 if split else 1)
+    assert _gen1_launches() == tuple(n + int(split) for n in splits)
+
+
+@pytest.mark.cuda
+def test_gen1_split_wrappers_reject_bad_inputs(cuda_device):
+    cfg = GEN1_CHAIN_CONFIGS["vhs-sp"]
+    y, u, v, fn, par = _planes("bad-split", (2, 32, 128), cuda_device)
+    prep = fused_yuv.prepare(cfg, y, fn, par, 7)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_yuv.stage_a(y.to(torch.int32), u, v, prep, cfg=cfg)
+    y_a = fused_yuv.stage_a(y, u, v, prep, cfg=cfg)
+    with pytest.raises(ValueError, match="shape"):
+        fused_yuv.stage_b1(y_a[:, :16].contiguous(), prep, cfg=cfg)
+    p1 = fused_yuv.stage_b1(y_a, prep, cfg=cfg)
+    with pytest.raises(ValueError, match="shape"):
+        fused_yuv.stage_b2(p1[0], p1[1][..., :-1].contiguous(), p1[2], prep,
+                           cfg=cfg)
+    with pytest.raises(ValueError, match="on cpu"):
+        fused_yuv.stage_b2(*p1, prep._replace(keep=prep.keep.cpu()), cfg=cfg)
+    with pytest.raises(ValueError, match="debug taps"):
+        fused_yuv.stage_a(y, u, v, prep,
+                          cfg=cfg.with_(nocolor_subcarrier=True))
+
+
+# ------------------------------------------------------ the pole cascade #9
+
+IIR_GAINS = {"none": 0.0, "emph": 7.0, "unsharp": 1.5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(IIR_GAINS))
+@pytest.mark.parametrize("w", [128, 176, 720, 1888])
+def test_fused_iir_matches_plain(cuda_device, mode, w):
+    rng = np.random.default_rng(w + len(mode))
+    x = torch.from_numpy(rng.integers(0, 256, (3, 100, w)).astype(
+        np.float32)).to(cuda_device)
+    for k in (1, 2, 3, 4):
+        kw = dict(alphas=tuple(float(iir_alpha(NTSC_RATE, c))
+                               for c in (1.4e6, 2.4e6, 6e5, 2.8e6)[:k]),
+                  y0s=(16.0, 128.0, 0.0, 16.0)[:k], mode=mode,
+                  gain=IIR_GAINS[mode])
+        before = fused_iir.KERNEL_LAUNCHES
+        got = fused_iir.fused_iir(x, **kw)
+        torch.cuda.synchronize()
+        assert fused_iir.KERNEL_LAUNCHES == before + 1
+        want = fused_iir.fused_iir_reference(x, **kw)
+        d = float((got - want).abs().max())
+        assert d <= iir_bound(255.0, IIR_GAINS[mode]), (k, d)
+
+
+@pytest.mark.cuda
+def test_fused_iir_rejects_bad_inputs(cuda_device):
+    x = torch.zeros(4, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="dtype"):
+        fused_iir.fused_iir(x.double(), alphas=(0.5,), y0s=(0.0,))
+    with pytest.raises(ValueError, match="mode"):
+        fused_iir.fused_iir(x, alphas=(0.5,), y0s=(0.0,), mode="x")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", ["nocolor_subcarrier",
+                                 "nocolor_subcarrier_after_yc_sep"])
+def test_debug_tap_route_runs_fused_iir(cuda_device, tap):
+    """The gen-1 debug taps take the stage path with its pole cascades on
+    kernel #9; the card's output against the CPU run's (plain versions)."""
+    cfg = CompositeConfig(video_noise=3, emulating_vhs=True, **{tap: True})
+    y, u, v, fn, par = _planes(tap, (2, 48, 720), cuda_device)
+    before = fused_iir.KERNEL_LAUNCHES
+    got = yuv422.composite_video_process_auto(y, u, v, fn, par, 7, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fused_iir.KERNEL_LAUNCHES > before
+    want = yuv422.composite_video_process_auto(
+        y.cpu(), u.cpu(), v.cpu(), fn, par, 7, cfg=cfg)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.uint8
+        assert_chain_equal(g.cpu().numpy(), w.numpy(), err_msg=f"plane {k}")

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from cvsim_tpu.config import CompositeConfig, NTSC_RATE, iir_alpha
+from cvsim_tpu import config as jconfig
 from cvsim_tpu.models import fused_yiq as jfused
 from cvsim_tpu.models import yiq as jyiq
 from cvsim_tpu.ops import blocked_iir as jbiir
@@ -22,10 +22,11 @@ from cvsim_tpu.ops import iir as jiir
 from cvsim_tpu.ops import noise as jnoise
 from cvsim_tpu.ops.phase import scanline_phase_xi as j_xi
 from cvsim_tpu_torch import interop
+from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.models import fused_yiq, yiq
 from cvsim_tpu_torch.ops import blocked_iir, cmath, iir, noise
 from cvsim_tpu_torch.ops.phase import scanline_phase_xi
-from cvsim_tpu_torch.testing import CHAIN_CONFIGS
+from cvsim_tpu_torch.testing import CHAIN_CONFIGS, reference_config
 
 
 def test_cmath_exact():
@@ -141,7 +142,8 @@ def test_blocked_iir_f32(w, three):
 def test_alpha_consts_bitwise():
     for cfg in list(CHAIN_CONFIGS.values()) + [
             CompositeConfig(composite_preemphasis_cut=0.0)]:
-        for a, b in zip(interop.alpha_consts(cfg), jfused._alpha_consts(cfg)):
+        for a, b in zip(interop.alpha_consts(cfg),
+                        jfused._alpha_consts(reference_config(cfg, jconfig))):
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a.view(np.uint32),
                                           b.view(np.uint32))
@@ -201,7 +203,7 @@ def test_keep_mask_exact(loss):
                              torch.from_numpy(fn & 1),
                              interop.key32_from_seed(9))
     ctx = jfused._fused_prepare(
-        cfg, jnp.zeros((5, l, w, 3), jnp.int32), jnp.asarray(fn),
+        reference_config(cfg, jconfig), jnp.zeros((5, l, w, 3), jnp.int32), jnp.asarray(fn),
         jnp.asarray(fn & 1), jax.random.PRNGKey(9), row0=0, noise_l=l,
         interpret=True, sharded=False)
     np.testing.assert_array_equal(prep.keep.numpy(),

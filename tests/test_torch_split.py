@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from cvsim_tpu import config as jconfig
 from cvsim_tpu.models import fused_yiq as jfused
 from cvsim_tpu.models import yiq as jyiq
 from cvsim_tpu.parallel.mesh import run_fused_lines_local as jlines_local
@@ -37,7 +38,7 @@ from cvsim_tpu_torch.models import fused_yiq
 from cvsim_tpu_torch.ops import noise
 from cvsim_tpu_torch.parallel import run_fused_lines_local
 from cvsim_tpu_torch.testing import (CHAIN_CONFIGS, assert_chain_equal,
-                                     assert_plane_close)
+                                     assert_plane_close, reference_config)
 
 B, L, W, LS = 2, 64, 128, 16
 SPLIT_CONFIGS = ["defaults-noise-off", "preemph", "svideo",
@@ -75,7 +76,8 @@ def test_split_stages_match_jax(name, row0):
     rgb, fn, par = _inputs(name)
     rows = rgb[:, row0:row0 + LS]
     ctx = jfused._fused_prepare(
-        cfg, jnp.asarray(rows, jnp.int32), jnp.asarray(fn), jnp.asarray(par),
+        reference_config(cfg, jconfig), jnp.asarray(rows, jnp.int32),
+        jnp.asarray(fn), jnp.asarray(par),
         KEY, row0=row0, noise_l=L, interpret=True, sharded=True)
     ja = jfused._fused_stage_a(ctx)
     jb1 = jfused._fused_stage_b1(ctx, ja)
@@ -119,7 +121,8 @@ def test_sharded_prepare_is_global_rows(name):
                                getattr(whole, field)[:, sl]), field
         assert torch.equal(shard.keys_ab, whole.keys_ab)
         ctx = jfused._fused_prepare(
-            cfg, jnp.asarray(rows, jnp.int32), jnp.asarray(fn),
+            reference_config(cfg, jconfig), jnp.asarray(rows, jnp.int32),
+            jnp.asarray(fn),
             jnp.asarray(par), KEY, row0=row0, noise_l=L, interpret=True,
             sharded=True)
         assert np.array_equal(np.asarray(ctx.xi_col)[..., 0],
@@ -177,11 +180,12 @@ def test_fused_lines_local_matches_jax():
     across shard boundaries, the blend's halo)."""
     cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
     rgb, fn, par = _inputs("lines")
-    want_lines = np.asarray(jlines_local(cfg, jnp.asarray(rgb, jnp.int32),
+    jcfg = reference_config(cfg, jconfig)
+    want_lines = np.asarray(jlines_local(jcfg, jnp.asarray(rgb, jnp.int32),
                                          fn, par, KEY, sp=4, interpret=True))
     want_stage = np.asarray(jyiq.composite_layer_rgb(
         jnp.asarray(rgb, jnp.int32), jnp.asarray(fn), jnp.asarray(par), KEY,
-        cfg=cfg))
+        cfg=jcfg))
     got = run_fused_lines_local(cfg, _t(rgb), _t(fn), _t(par), K32,
                                 sp=4).numpy()
     assert got.dtype == np.uint8 and got.shape == rgb.shape

@@ -1,0 +1,299 @@
+"""The port stands alone: no module of cvsim_tpu_torch (and not
+chip_smoke.py) imports jax or the JAX package, and the port's copies of
+the JAX package's device-free modules (config, presets, host I/O, the
+native frame scaler) behave byte for byte as the originals.
+
+- An AST scan of every source file for `jax` / `cvsim_tpu` imports.
+- A subprocess with sys.modules["cvsim_tpu"] = sys.modules["jax"] = None
+  imports every module of the port and runs both CLIs with --device cpu.
+- The copies against the originals on the same inputs: flag parsing,
+  config reprs and checkpoint hashes, Y4M bytes, the frame scaler, the
+  render and hscale tables, the field-row math and the colour matrices.
+  All exact.
+"""
+
+import ast
+import io
+import subprocess
+import sys
+from fractions import Fraction
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from cvsim_tpu import config as jconfig
+from cvsim_tpu import presets as jpresets
+from cvsim_tpu.host import batching as jbatching
+from cvsim_tpu.host import checkpoint as jcheckpoint
+from cvsim_tpu.host import colorconv as jcolorconv
+from cvsim_tpu.host import fieldops as jfieldops
+from cvsim_tpu.host import timing as jtiming
+from cvsim_tpu.host import y4m as jy4m
+from cvsim_tpu.native import hostpix as jhostpix
+from cvsim_tpu_torch import config, interop, presets
+from cvsim_tpu_torch.host import (batching, checkpoint, colorconv, fieldops,
+                                  timing, y4m)
+from cvsim_tpu_torch.native import hostpix
+from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
+                                     reference_config)
+from tests.test_cli import W, make_clip, read_all
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted(str(p.relative_to(ROOT))
+                 for p in (ROOT / "cvsim_tpu_torch").rglob("*.py")) + [
+    "chip_smoke.py"]
+FORBIDDEN = ("jax", "cvsim_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse((ROOT / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_runs_with_jax_package_unimportable(tmp_path):
+    """Every module imports, and both CLIs run (gen-1 through the split-
+    route raster check and the debug-tap route), with jax and cvsim_tpu
+    made unimportable."""
+    src = make_clip(str(tmp_path / "in.y4m"))
+    outs = [str(tmp_path / f"out{k}.y4m") for k in range(3)]
+    code = f"""
+import importlib, pkgutil, sys
+for name in [m for m in sys.modules
+             if m.split(".")[0] in ("jax", "cvsim_tpu")]:
+    del sys.modules[name]
+sys.modules["jax"] = None
+sys.modules["cvsim_tpu"] = None
+import cvsim_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(cvsim_tpu_torch.__path__,
+                                                "cvsim_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from cvsim_tpu_torch.cli.main import main
+common = ["-i", {src!r}, "-width", "{W}"]
+rcs = [main(["--device", "cpu", "ntsc", *common, "-o", {outs[0]!r}]),
+       main(["--device", "cpu", "to-composite", *common, "-o", {outs[1]!r},
+             "-tvstd", "pal", "-vhs"]),
+       main(["--device", "cpu", "to-composite", *common, "-o", {outs[2]!r},
+             "-nocolor-subcarrier"])]
+assert sys.modules["jax"] is None and sys.modules["cvsim_tpu"] is None
+print("MODULES", len(names), "RCS", rcs)
+sys.exit(max(rcs))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RCS [0, 0, 0]" in proc.stdout
+    n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
+    assert n_modules >= len([s for s in SOURCES if s.endswith(".py")]) - 2
+    for out in outs:
+        assert len(read_all(out)[1]) > 0
+
+
+ARGVS = [
+    [],
+    ["-tvstd", "pal"],
+    ["-vhs", "-vhs-speed", "ep"],
+    ["-tvstd", "pal", "-vhs", "-vhs-speed", "lp", "-width", "640"],
+    ["-vhs", "-vhs-speed", "ep", "-vhs-head-switching", "1",
+     "-chroma-noise", "16", "-chroma-phase-noise", "4",
+     "-chroma-dropout", "4", "-seed", "7"],
+    ["-comp-catv2", "-yc-recomb", "2", "-out-composite-lowpass", "1", "-vi"],
+    ["-vhs", "-vhs-svideo", "1", "-vhs-chroma-vblend", "0",
+     "-bkey-feedback", "20", "-nocolor-subcarrier-after-yc-sep"],
+    ["-vhs-speed", "sp", "-vhs", "-vhs-hifi", "0", "-tvstd", "ntsc"],
+]
+
+
+@pytest.mark.parametrize("gen2", [False, True], ids=["gen1", "gen2"])
+@pytest.mark.parametrize("argv", ARGVS, ids=[" ".join(a) or "defaults"
+                                             for a in ARGVS])
+def test_flags_configs_and_hashes_equal_originals(argv, gen2):
+    st = presets.parse_composite_flags(argv, gen2=gen2)
+    st_j = jpresets.parse_composite_flags(argv, gen2=gen2)
+    assert repr(st) == repr(st_j)
+    run = st.to_run_config(gen1=not gen2)
+    run_j = st_j.to_run_config(gen1=not gen2)
+    assert repr(run) == repr(run_j)
+    assert checkpoint.config_hash(run, "x") == jcheckpoint.config_hash(
+        run_j, "x")
+    # the state carried across: either package's config maps onto the
+    # other's by field and member name
+    assert interop.config_from_reference(run_j.composite) == run.composite
+    assert reference_config(run.composite, jconfig) == run_j.composite
+
+
+def test_config_module_constants_equal_originals():
+    for name in ("NTSC_RATE", "NTSC_RATE_422"):
+        assert getattr(config, name) == getattr(jconfig, name)
+    assert [(m.name, m.value) for m in config.VHSSpeed] == [
+        (m.name, m.value) for m in jconfig.VHSSpeed]
+    for rate, cut in ((config.NTSC_RATE, 1.4e6), (config.NTSC_RATE_422, 6e5)):
+        assert float(config.iir_alpha(rate, cut)) == float(
+            jconfig.iir_alpha(rate, cut))
+    for cfg in list(GEN1_CHAIN_CONFIGS.values()) + [BENCH_GEN1_EP]:
+        assert repr(reference_config(cfg, jconfig)) == repr(cfg)
+
+
+@pytest.mark.parametrize("colorspace", ["420jpeg", "422", "444"])
+def test_y4m_bytes_equal_originals(colorspace):
+    rng = np.random.default_rng(len(colorspace))
+    w, h = 48, 20
+    hdr, hdr_j = (mod.Y4MHeader(width=w, height=h,
+                                fps=Fraction(30000, 1001),
+                                colorspace=colorspace)
+                  for mod in (y4m, jy4m))
+    ch, cw = hdr.chroma_shape
+    frames = [(rng.integers(0, 256, (h, w), dtype=np.uint8),
+               rng.integers(0, 256, (ch, cw), dtype=np.uint8),
+               rng.integers(0, 256, (ch, cw), dtype=np.uint8))
+              for _ in range(3)]
+    bufs = []
+    for mod, hd in ((y4m, hdr), (jy4m, hdr_j)):
+        buf = io.BytesIO()
+        wr = mod.Y4MWriter(buf, hd)
+        for f in frames:
+            wr.write(*f)
+        bufs.append(buf.getvalue())
+    assert bufs[0] == bufs[1]
+    for mod in (y4m, jy4m):
+        r = mod.Y4MReader(io.BytesIO(bufs[0]))
+        got = list(r)
+        assert repr(r.header) == repr(hdr)
+        for g, f in zip(got, frames):
+            for a, b in zip(g, f):
+                np.testing.assert_array_equal(a, b)
+
+
+def _unclamped(n_src: int, n_dst: int, src_ok=None):
+    """Mask of the n_dst samples of a bilinear resize from n_src whose
+    lerps all have weights >= 0 (the port clamps only the others), given
+    the source samples that are themselves unclamped."""
+    src_ok = np.ones(n_src, bool) if src_ok is None else src_ok
+    c = batching.hscale_consts(n_src, n_dst)
+    if c is None:
+        return src_ok
+    x0, x1, f = c
+    return (f >= 0) & src_ok[x0] & src_ok[x1]
+
+
+@pytest.mark.parametrize("src,dst,chroma", [
+    ((96, 128, "420"), (480, 704), "repeat"),
+    ((480, 720, "420"), (480, 704), "repeat"),
+    ((64, 90, "422"), (40, 200), "bilinear"),
+    ((50, 50, "444"), (50, 50), "repeat"),
+])
+def test_frame_scaler_equals_original(src, dst, chroma):
+    """The native scaler equals its numpy twin, stays in 0..255, and
+    equals the original wherever no lerp weight is negative (an upscale's
+    first rows and columns extrapolate: there the port clamps)."""
+    h, w, cs = src
+    ch, cw = {"420": (h // 2, w // 2), "422": (h, w // 2), "444": (h, w)}[cs]
+    rng = np.random.default_rng(h * w)
+    y = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    u = rng.integers(0, 256, (ch, cw), dtype=np.uint8)
+    v = rng.integers(0, 256, (ch, cw), dtype=np.uint8)
+    got = hostpix.scale_frame_to(y, u, v, dst[1], dst[0], chroma)
+    want = jhostpix.scale_frame_to(y, u, v, dst[1], dst[0], chroma)
+    np.testing.assert_array_equal(
+        colorconv.scale_frame_to_np(y, u, v, dst[1], dst[0], chroma), got)
+    assert got.min() >= 0 and got.max() <= 255
+    up = chroma == "bilinear" and cs != "444"
+    rows = _unclamped(h, dst[0], _unclamped(ch, h) if up else None)
+    cols = _unclamped(w, dst[1], _unclamped(cw, w) if up else None)
+    assert rows.mean() > 0.9 and cols.mean() > 0.9
+    np.testing.assert_array_equal(got[rows][:, cols], want[rows][:, cols])
+
+
+def test_frame_scaler_upscale_stays_in_range():
+    """A hard edge at the first column (white, then black), upscaled: the
+    original's lerp extrapolates past 255 (which wraps, or indexes past a
+    256-entry table, downstream); the port's clamps. Every column is
+    constant, so the vertical pass keeps each value and the port equals
+    the original clipped to 0..255."""
+    h, w = 48, 64
+    y = np.full((h, w), 16, np.uint8)
+    y[:, 0] = 235
+    u = np.full((h // 2, w // 2), 128, np.uint8)
+    got = hostpix.scale_frame_to(y, u, u, 2 * w, 2 * h)
+    want = jhostpix.scale_frame_to(y, u, u, 2 * w, 2 * h)
+    assert want.max() > 255
+    assert got.min() >= 0 and got.max() <= 255
+    np.testing.assert_array_equal(got, np.clip(want, 0, 255))
+    np.testing.assert_array_equal(
+        colorconv.scale_frame_to_np(y, u, u, 2 * w, 2 * h), got)
+
+
+@pytest.mark.parametrize("dst,src_h,chroma_h,interlaced,tff,tpf", [
+    (240, 480, 240, False, True, 2),
+    (288, 576, 576, True, True, 2),
+    (240, 96, 48, True, False, 2),
+    (540, 1080, 540, True, True, 4),
+])
+def test_render_tables_equal_originals(dst, src_h, chroma_h, interlaced,
+                                       tff, tpf):
+    got = batching.render_index_tables(dst, src_h, chroma_h, interlaced, tff,
+                                       tpf)
+    want = jbatching.render_index_tables(dst, src_h, chroma_h, interlaced,
+                                         tff, tpf)
+    for g, wnt in zip(got, want):
+        assert g.dtype == wnt.dtype
+        np.testing.assert_array_equal(g, wnt)
+    for parity in (0, 1):
+        for a, b in zip(fieldops.render_field_indices(dst, src_h, chroma_h,
+                                                      parity),
+                        jfieldops.render_field_indices(dst, src_h, chroma_h,
+                                                       parity)):
+            np.testing.assert_array_equal(a, b)
+        for io_ in (False, True):
+            np.testing.assert_array_equal(
+                fieldops.bob_rows(2 * dst, parity, io_),
+                jfieldops.bob_rows(2 * dst, parity, io_))
+
+
+@pytest.mark.parametrize("src_w,dst_w", [(720, 704), (704, 720), (128, 128),
+                                         (1920, 1888), (96, 640)])
+def test_hscale_and_colour_equal_originals(src_w, dst_w):
+    got = batching.hscale_consts(src_w, dst_w)
+    want = jbatching.hscale_consts(src_w, dst_w)
+    if want is None:
+        assert got is None
+    else:
+        for g, wnt in zip(got, want):
+            assert g.dtype == wnt.dtype
+            np.testing.assert_array_equal(g, wnt)
+    rng = np.random.default_rng(src_w)
+    planes = [rng.integers(0, 256, (6, src_w)).astype(np.int32)
+              for _ in range(3)]
+    # equal wherever the lerp does not extrapolate; the port clamps there
+    got_p = colorconv.hscale_bilinear_np(planes[0], dst_w)
+    want_p = jcolorconv.hscale_bilinear_np(planes[0], dst_w)
+    cols = _unclamped(src_w, dst_w)
+    np.testing.assert_array_equal(got_p[:, cols], want_p[:, cols])
+    np.testing.assert_array_equal(got_p, np.clip(want_p, 0, 255))
+    for fn in ("rgb_to_yuv601_np", "yuv_to_rgb601_np"):
+        for a, b in zip(getattr(colorconv, fn)(*planes),
+                        getattr(jcolorconv, fn)(*planes)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_field_clock_equals_original():
+    fps, rate = Fraction(24000, 1001), Fraction(60000, 1001)
+    clocks = [mod.FrameClock(fps, rate) for mod in (timing, jtiming)]
+    for idx in range(0, 40, 3):
+        assert clocks[0].seconds(idx) == clocks[1].seconds(idx)
+        assert clocks[0].fields(idx, 0) == clocks[1].fields(idx, 0)
+        assert (timing.frame_pts_to_field(idx, fps, rate)
+                == jtiming.frame_pts_to_field(idx, fps, rate))

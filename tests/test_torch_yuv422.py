@@ -16,15 +16,17 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from cvsim_tpu.config import CompositeConfig
+from cvsim_tpu import config as jconfig
 from cvsim_tpu.models import fused_yuv as jfused_yuv
 from cvsim_tpu.models import yiq as jyiq
 from cvsim_tpu.models import yuv422 as jyuv
 from cvsim_tpu.ops import noise as jnoise
 from cvsim_tpu.ops.phase import scanline_phase_xi as j_xi
 from cvsim_tpu_torch import interop
+from cvsim_tpu_torch.config import CompositeConfig
 from cvsim_tpu_torch.models import fused_yuv, yiq, yuv422
-from cvsim_tpu_torch.testing import GEN1_CHAIN_CONFIGS, assert_chain_equal
+from cvsim_tpu_torch.testing import (GEN1_CHAIN_CONFIGS, assert_chain_equal,
+                                     reference_config)
 
 B, L, W = 3, 12, 176
 
@@ -174,7 +176,8 @@ def test_alpha_consts_gen1_bitwise():
     for cfg in list(GEN1_CHAIN_CONFIGS.values()) + [
             CompositeConfig(composite_preemphasis_cut=0.0, ntsc=False)]:
         for a, b in zip(fused_yuv._alpha_consts_gen1(cfg),
-                        jfused_yuv._alpha_consts_gen1(cfg)):
+                        jfused_yuv._alpha_consts_gen1(
+                            reference_config(cfg, jconfig))):
             assert a.dtype == b.dtype and a.shape == b.shape
             assert a.shape[0] == fused_yuv.N_TABLES
             np.testing.assert_array_equal(a.view(np.uint32),
