@@ -20,7 +20,9 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      configuration at 288x720 PAL B=64 and 540x1888 B=16, and the split
      route against yuv_chain on the same inputs; the pole cascade
      (fused_iir) in each of the stage path's shapes at [64*240, 720] and
-     [16*540, 1888]; prepare() on the card == on the CPU for all;
+     [16*540, 1888]; prepare() on the card == on the CPU for all; the
+     outputs of yiq_chain and yuv_chain on their bench cases byte-identical
+     to b8c5917's kernels (CRC32s in testing.PINNED_CHAIN_CRC32);
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -38,19 +40,22 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      over every card) at 240x704 B=64 and 540x1888 B=16 against kernel #1;
      with more than one card, both tools with `-devices <count>`;
   5. times, each taken in turns in this run: each kernel vs its plain
-     version at B=64 (240x704 gen-2, 240x720 gen-1; the split kernels also
-     at 540x1888 B=16, the gen-1 split kernels at 288x720 PAL B=64 and
-     540x1888 B=16, the pole cascade at [64*240, 720] and [16*540, 1888];
-     CUDA events, median of 5), the gen-2 split program vs kernel #1's
-     path, the gen-1 split route vs yuv_chain at 576i and 1080i, the gen-1
-     black-key scan's host cost per GOP, and each CLI's end-to-end
-     fields/s.
+     version on the cases of testing.timed_cases, which kernel_ab.py times
+     too (#1-#4 at 240x704 B=64 and 540x1888 B=16; #5 at 240x720 B=64,
+     288x720 PAL B=64 and 540x1888 B=16, #6-#8 at the last two; the pole
+     cascade at [64*240, 720] and [16*540, 1888]; CUDA events, median of
+     5), the gen-2 split program vs kernel #1's path, the gen-1 split route
+     vs yuv_chain at 576i and 1080i, the gen-1 black-key scan's host cost
+     per GOP, and each CLI's end-to-end fields/s.
 Each kernel's bound is the larger of two times at the H100 SXM data
 sheet's rates: the float32 operations its one-pole recurrences need (3
 per sample per pole, plus #9's combine) over 67 TFLOP/s, and its bytes
 (each input read once, each output written once) over 3.35 TB/s. The
 count leaves out the element-wise stages and the noise hashing, so it is
-a lower count and the bound a lower bound on time.
+a lower count and the bound a lower bound on time. Beside it [5] prints
+the blocked form's floor: the multiply-adds of the block products the
+kernel runs (8,256 per 128-sample block and product) at 33.5e12 a
+second, the time the pole products alone would take at the float32 peak.
 The line before the last is the card's name and power limit; the one
 before it lists each kernel as JSON. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,6 +71,7 @@ import tempfile
 import time
 import zlib
 from fractions import Fraction
+from functools import partial
 
 # the port imports neither jax nor the JAX package
 sys.modules["jax"] = None
@@ -88,6 +94,11 @@ HBM_BYTES_PER_S = 3.35e12
 # lower-triangular product per block, 129 operations per sample for one
 # pole or for a group of three.
 POLE_FLOPS = 3
+# the blocked form's floor: its products' multiply-adds (8,256 per block:
+# the triangle with its diagonal; pole3's two block-end dots left out) at
+# the float32 peak's multiply-add rate
+BLOCK_FMAS = 128 * 129 // 2
+FMA_PER_S = F32_FLOPS / 2
 
 
 def card_line() -> str:
@@ -202,24 +213,6 @@ def compare_cli(frames_gpu, frames_cpu, n_fields: int | None,
     return err
 
 
-def time_ms(fn, reps: int = 5):
-    """Median of `reps` CUDA-event timings of fn() (after two warm-ups)."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
-
-
 def check_prepare(prep, prepare_cpu, what: str):
     import torch
 
@@ -229,89 +222,99 @@ def check_prepare(prep, prepare_cpu, what: str):
             raise AssertionError(f"prepare {field}: cuda != cpu ({what})")
 
 
-def kernel_cases_gen2(dev, key) -> int:
+def chain_cases(kernel: str, configs: dict) -> list:
+    """(name, config, shape) of kernel #1's or #5's [3] cases: every
+    configuration at the two small shapes, then the pinned bench cases."""
+    from cvsim_tpu_torch.testing import BENCH_CONFIGS, PINNED_CHAIN_CRC32
+
+    cases = [(n, c, s) for n, c in sorted(configs.items())
+             for s in ((2, 32, 128), (1, 16, 176))]
+    return cases + [(n, BENCH_CONFIGS[n], s)
+                    for k, n, s in PINNED_CHAIN_CRC32 if k == kernel]
+
+
+def kernel_cases_gen2(dev) -> int:
     """[3] yiq_chain vs fused_yiq.chain_reference; returns the largest
     difference."""
-    import numpy as np
     import torch
 
     from cvsim_tpu_torch.models import fused_yiq
-    from cvsim_tpu_torch.testing import (
-        BENCH_VHS_EP, CHAIN_CONFIGS, assert_chain_equal, chain_diff)
+    from cvsim_tpu_torch.testing import (CHAIN_CONFIGS, assert_chain_equal,
+                                         chain_diff, chain_inputs)
 
-    cases = [(n, c, s) for n, c in sorted(CHAIN_CONFIGS.items())
-             for s in ((2, 32, 128), (1, 16, 176))]
-    cases += [("bench-vhs-ep", BENCH_VHS_EP, s)
-              for s in ((8, 240, 704), (2, 540, 1888))]
-    max_err = 0
-    for name, cfg, (b, l, w) in cases:
-        rng = np.random.default_rng(zlib.crc32(f"{name}{b}{l}{w}".encode()))
-        rgb_np = rng.integers(0, 256, (b, l, w, 3)).astype(np.uint8)
-        rgb = torch.from_numpy(rgb_np).to(dev)
-        fn = torch.arange(b, dtype=torch.int32) + 3
-        par = fn % 2
-        prep = fused_yiq.prepare(cfg, rgb, fn, par, key)
+    cases = chain_cases("yiq_chain", CHAIN_CONFIGS)
+    max_err, exact = 0, 0
+    for name, cfg, shape in cases:
+        (rgb,), prep = chain_inputs("yiq_chain", name, cfg, shape, dev)
         got = fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)
         torch.cuda.synchronize()
         want = fused_yiq.chain_reference(rgb, prep, cfg=cfg)
         got, want = got.cpu().numpy(), want.cpu().numpy()
         dmax, frac = chain_diff(got, want)
         max_err = max(max_err, dmax)
-        print(f"[3] yiq_chain {name} {(b, l, w)}: kernel vs plain max {dmax}, "
+        exact += dmax == 0
+        print(f"[3] yiq_chain {name} {shape}: kernel vs plain max {dmax}, "
               f"frac {frac:.2e}")
-        assert_chain_equal(got, want, err_msg=f"{name} {(b, l, w)}")
-        check_prepare(prep, lambda: fused_yiq.prepare(
-            cfg, torch.from_numpy(rgb_np), fn, par, key), name)
-    print(f"[3] yiq_chain: prepare() on the card == on the CPU for xi, "
-          f"keys_ab, keep, shifts in all {len(cases)} cases; tolerance: "
-          f"{TOLERANCE}")
+        assert_chain_equal(got, want, err_msg=f"{name} {shape}")
+        check_prepare(prep, lambda: chain_inputs(
+            "yiq_chain", name, cfg, shape, "cpu")[1], name)
+    print(f"[3] yiq_chain: exact in {exact} of {len(cases)} cases; prepare() "
+          f"on the card == on the CPU for xi, keys_ab, keep, shifts in all; "
+          f"tolerance: {TOLERANCE}")
     return max_err
 
 
-def kernel_cases_gen1(dev, key) -> int:
+def kernel_cases_gen1(dev) -> int:
     """[3] yuv_chain vs fused_yuv.chain_reference; returns the largest
     difference over the three planes."""
-    import numpy as np
     import torch
 
     from cvsim_tpu_torch.models import fused_yuv
-    from cvsim_tpu_torch.testing import (
-        BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS, assert_chain_equal, chain_diff)
+    from cvsim_tpu_torch.testing import (GEN1_CHAIN_CONFIGS,
+                                         assert_chain_equal, chain_diff,
+                                         chain_inputs)
 
-    cases = [(n, c, s) for n, c in sorted(GEN1_CHAIN_CONFIGS.items())
-             for s in ((2, 32, 128), (1, 16, 176))]
-    cases += [("bench-gen1-ep", BENCH_GEN1_EP, (8, 240, 720)),
-              ("bench-gen1-ep-pal", BENCH_GEN1_EP.with_(ntsc=False),
-               (8, 288, 720)),
-              ("bench-gen1-ep", BENCH_GEN1_EP, (2, 540, 1888))]
+    cases = chain_cases("yuv_chain", GEN1_CHAIN_CONFIGS)
     max_err, exact = 0, 0
-    for name, cfg, (b, l, w) in cases:
-        rng = np.random.default_rng(zlib.crc32(f"g1{name}{b}{l}{w}".encode()))
-        planes_np = [rng.integers(0, 256, s).astype(np.uint8)
-                     for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2))]
-        y, u, v = (torch.from_numpy(p).to(dev) for p in planes_np)
-        fn = torch.arange(b, dtype=torch.int32) + 3
-        par = fn % 2
-        prep = fused_yuv.prepare(cfg, y, fn, par, key)
-        got = fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
+    for name, cfg, shape in cases:
+        planes, prep = chain_inputs("yuv_chain", name, cfg, shape, dev)
+        got = fused_yuv.composite_video_process_fused(*planes, prep, cfg=cfg)
         torch.cuda.synchronize()
-        want = fused_yuv.chain_reference(y, u, v, prep, cfg=cfg)
+        want = fused_yuv.chain_reference(*planes, prep, cfg=cfg)
         diffs = []
         for k, (g, wnt) in enumerate(zip(got, want)):
             g, wnt = g.cpu().numpy(), wnt.cpu().numpy()
             diffs.append(chain_diff(g, wnt))
-            assert_chain_equal(g, wnt, err_msg=f"{name} {(b, l, w)} plane {k}")
+            assert_chain_equal(g, wnt, err_msg=f"{name} {shape} plane {k}")
         dmax = max(d for d, _ in diffs)
         max_err = max(max_err, dmax)
         exact += dmax == 0
-        print(f"[3] yuv_chain {name} {(b, l, w)}: kernel vs plain max {dmax}, "
+        print(f"[3] yuv_chain {name} {shape}: kernel vs plain max {dmax}, "
               f"frac y/u/v {' '.join(f'{f:.2e}' for _, f in diffs)}")
-        check_prepare(prep, lambda: fused_yuv.prepare(
-            cfg, torch.from_numpy(planes_np[0]), fn, par, key), name)
+        check_prepare(prep, lambda: chain_inputs(
+            "yuv_chain", name, cfg, shape, "cpu")[1], name)
     print(f"[3] yuv_chain: exact in {exact} of {len(cases)} cases; prepare() "
           f"on the card == on the CPU for xi, keys_ab, keep, shifts in all; "
           f"tolerance: {TOLERANCE}")
     return max_err
+
+
+def check_pinned(dev) -> None:
+    """[3] kernels #1 and #5 on their bench cases (#5 launched directly)
+    against the CRC32s of b8c5917's kernels."""
+    from cvsim_tpu_torch.testing import (BENCH_CONFIGS, PINNED_CHAIN_CRC32,
+                                         chain_crc32, chain_inputs)
+
+    for (kernel, name, shape), pinned in PINNED_CHAIN_CRC32.items():
+        cfg = BENCH_CONFIGS[name]
+        crc = chain_crc32(kernel, cfg, *chain_inputs(kernel, name, cfg,
+                                                     shape, dev))
+        if crc != pinned:
+            raise AssertionError(f"{kernel} {name} {shape}: CRC32 {crc:#010x}"
+                                 f" != pinned {pinned:#010x}")
+    print(f"[3] yiq_chain, yuv_chain: outputs byte-identical to b8c5917's "
+          f"kernels in all {len(PINNED_CHAIN_CRC32)} bench cases (CRC32 == "
+          f"testing.PINNED_CHAIN_CRC32)")
 
 
 SPLIT_KERNELS = ("yiq_a", "yiq_b1", "yiq_b2")
@@ -365,27 +368,12 @@ def kernel_cases_split(dev, key) -> dict:
 GEN1_SPLIT_KERNELS = ("yuv_a", "yuv_b1", "yuv_b2")
 
 
-def gen1_inputs(dev, key, cfg, shape, tag: str):
-    """Random uint8 gen-1 planes y [B, L, W], u, v [B, L, W//2] on dev and
-    their prepare()."""
-    import numpy as np
-    import torch
-
-    from cvsim_tpu_torch.models import fused_yuv
-
-    b, l, w = shape
-    rng = np.random.default_rng(zlib.crc32(f"{tag}{b}{l}{w}".encode()))
-    y, u, v = (torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
-               .to(dev) for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2)))
-    fn = torch.arange(b, dtype=torch.int32) + 3
-    return y, u, v, fused_yuv.prepare(cfg, y, fn, fn % 2, key)
-
-
-def kernel_cases_gen1_split(dev, key) -> dict:
+def kernel_cases_gen1_split(dev) -> dict:
     """[3] yuv_a, yuv_b1, yuv_b2 each vs its plain version, and the split
     route vs yuv_chain (testing.check_gen1_split_kernels); returns each
     one's largest difference."""
     from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
+                                         chain_inputs,
                                          check_gen1_split_kernels)
 
     cases = [(n, c, s) for n, c in sorted(GEN1_CHAIN_CONFIGS.items())
@@ -395,7 +383,8 @@ def kernel_cases_gen1_split(dev, key) -> dict:
               ("bench-gen1-ep", BENCH_GEN1_EP, (16, 540, 1888))]
     errs, exact = {}, 0
     for name, cfg, shape in cases:
-        y, u, v, prep = gen1_inputs(dev, key, cfg, shape, f"g1split{name}")
+        (y, u, v), prep = chain_inputs("yuv_chain", f"split{name}", cfg,
+                                       shape, dev)
         diffs = check_gen1_split_kernels(cfg, y, u, v, prep,
                                          err_msg=f"{name} {shape}")
         for k, (dmax, _) in diffs.items():
@@ -408,34 +397,6 @@ def kernel_cases_gen1_split(dev, key) -> dict:
     return errs
 
 
-def iir_shapes():
-    """The pole cascade's calls on the gen-1 stage path at the VHS-EP cuts:
-    (label, alphas, y0s, mode, gain)."""
-    from cvsim_tpu_torch.config import (NTSC_RATE, NTSC_RATE_422, VHSSpeed,
-                                        iir_alpha)
-
-    ep = VHSSpeed.EP
-    luma = float(iir_alpha(NTSC_RATE, ep.luma_cut))
-    chroma = float(iir_alpha(NTSC_RATE_422, ep.chroma_cut))
-    sharp = float(iir_alpha(NTSC_RATE, ep.luma_cut * 2))
-    pre = float(iir_alpha(NTSC_RATE, 315000000 / 88))
-    return [("VHS luma, emph 4 poles", (luma,) * 4, (16.0,) * 4, "emph", 1.6),
-            ("VHS chroma, none 3 poles", (chroma,) * 3, (128.0,) * 3, "none",
-             0.0),
-            ("sharpen, unsharp 3 poles", (sharp,) * 3, (16.0,) * 3,
-             "unsharp", 1.5),
-            ("preemphasis, emph 1 pole", (pre,), (16.0,), "emph", 7.0)]
-
-
-def iir_input(dev, rows: int, w: int):
-    import numpy as np
-    import torch
-
-    rng = np.random.default_rng(rows + w)
-    return torch.from_numpy(rng.integers(0, 256, (rows, w)).astype(
-        np.float32)).to(dev)
-
-
 def kernel_cases_iir(dev) -> float:
     """[3] fused_iir vs fused_iir_reference in each of the stage path's
     shapes at [64*240, 720] and [16*540, 1888]; returns the largest
@@ -443,7 +404,7 @@ def kernel_cases_iir(dev) -> float:
     import torch
 
     from cvsim_tpu_torch.ops import fused_iir
-    from cvsim_tpu_torch.testing import iir_bound
+    from cvsim_tpu_torch.testing import iir_bound, iir_input, iir_shapes
 
     max_err = 0.0
     for rows, w in ((64 * 240, 720), (16 * 540, 1888)):
@@ -499,6 +460,29 @@ def gen2_flops(cfg, name: str, b: int, l: int, w: int) -> float:
     return b * l * w * gen2_poles(cfg)[name] * POLE_FLOPS
 
 
+def gen2_products(cfg) -> dict:
+    """Block products per row of kernels #1-#4 for cfg, counted like
+    gen2_poles: a lowpass writeback is one (T^3), the VHS luma emphasis
+    two (T^3 and T), a noise walk or the preemphasis one."""
+    from cvsim_tpu_torch.models import fused_yiq
+
+    p = fused_yiq._chain_params(cfg, 1, 1, 8, 128)
+    a = 2 * p.in_lowpass + p.preemph + int(p.video_noise != 0)
+    b1 = 2 * int(p.chroma_noise != 0) + 4 * p.vhs
+    b2 = p.vhs + 2 * int(p.out_lowpass != 0)
+    return {"yiq_a": a, "yiq_b1": b1, "yiq_b2": b2, "yiq_chain": a + b1 + b2}
+
+
+def blocks(w: int) -> int:
+    return -(-w // 128)
+
+
+def gen2_floor(cfg, name: str, b: int, l: int, w: int) -> float:
+    """Kernel `name`'s blocked-form floor in ms."""
+    fmas = b * l * gen2_products(cfg)[name] * blocks(w) * BLOCK_FMAS
+    return fmas / FMA_PER_S * 1e3
+
+
 def gen1_poles(cfg) -> dict:
     """(luma poles at w, chroma poles at w/2) per row of kernels #5-#8 for
     cfg, counted from yuv_chain.cu's row functions: a full chroma lowpass
@@ -520,10 +504,53 @@ def gen1_flops(cfg, name: str, b: int, l: int, w: int) -> float:
     return b * l * (luma * w + chroma * (w // 2)) * POLE_FLOPS
 
 
+def gen1_products(cfg) -> dict:
+    """(luma products at w, chroma products at w/2) per row of kernels
+    #5-#8 for cfg, counted like gen1_poles: a full chroma lowpass is two
+    (the half-cut pole and a T^3), a lite one or a VHS bandlimit one, the
+    VHS luma emphasis two, a noise walk one."""
+    from cvsim_tpu_torch.models import fused_yuv
+
+    p = fused_yuv._yuv_params(cfg, 1, 1, 8, 128, 4, 128)
+    out_lp = {0: 0, 1: 2, 2: 4}[p.out_lowpass]
+    a = (p.preemph + int(p.video_noise != 0), 4 * p.in_lowpass)
+    b1 = (2 * p.vhs, 2 * int(p.chroma_noise != 0) + 2 * p.vhs)
+    b2 = (p.vhs, 2 * p.vhs + out_lp)
+    return {"yuv_a": a, "yuv_b1": b1, "yuv_b2": b2,
+            "yuv_chain": tuple(map(sum, zip(a, b1, b2)))}
+
+
+def gen1_floor(cfg, name: str, b: int, l: int, w: int) -> float:
+    luma, chroma = gen1_products(cfg)[name]
+    fmas = b * l * (luma * blocks(w) + chroma * blocks(w // 2)) * BLOCK_FMAS
+    return fmas / FMA_PER_S * 1e3
+
+
 def iir_flops(rows: int, w: int, k: int, mode: str) -> float:
     """k poles over rows rows of w samples, plus the emph/unsharp combine
     (a subtract and a multiply-add per sample)."""
     return rows * w * (k * POLE_FLOPS + (0 if mode == "none" else 3))
+
+
+def case_bound(case) -> tuple[float, str, float]:
+    """(bound ms, "operations" or "bytes", blocked-form floor ms) of a
+    testing.timed_cases case: its operations from its pole counts, its
+    bytes from its inputs (a prepare()'s lines and tables among them)
+    read once and its outputs written once."""
+    out = case.kern()
+    n_bytes = nbytes(*(out if isinstance(out, tuple) else (out,))) + sum(
+        prep_bytes(t) if hasattr(t, "tables") else nbytes(t)
+        for t in case.inputs)
+    if case.kernel == "fused_iir":
+        (rows, w), k = case.shape, len(case.cfg["alphas"])
+        n_bytes += k * (128 * 128 + 128) * 4   # its tables
+        # one product per pole (#9 does not group three)
+        return (*bound_ms(iir_flops(rows, w, k, case.cfg["mode"]), n_bytes),
+                rows * k * blocks(w) * BLOCK_FMAS / FMA_PER_S * 1e3)
+    flops, floor = ((gen2_flops, gen2_floor) if case.kernel.startswith("yiq")
+                    else (gen1_flops, gen1_floor))
+    return (*bound_ms(flops(case.cfg, case.kernel, *case.shape), n_bytes),
+            floor(case.cfg, case.kernel, *case.shape))
 
 
 def run_cli(cli_main, counters, args):
@@ -638,10 +665,10 @@ def main() -> int:
     from cvsim_tpu_torch import interop, kernels
     from cvsim_tpu_torch.cli.main import main as cli_main
     from cvsim_tpu_torch.host.pipeline import _bkey_scan
-    from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yiq, yuv422
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yiq
     from cvsim_tpu_torch.ops import fused_iir
     from cvsim_tpu_torch.parallel import run_fused_lines_local
-    from cvsim_tpu_torch.testing import BENCH_GEN1_EP, BENCH_VHS_EP
+    from cvsim_tpu_torch.testing import BENCH_VHS_EP, time_ms, timed_cases
 
     # ---- 1. the card
     card = card_line()
@@ -671,10 +698,11 @@ def main() -> int:
 
     # ---- 3. each kernel vs its plain version on the card
     key = interop.key32_from_seed(5)
-    err_yiq = kernel_cases_gen2(dev, key)
-    err_yuv = kernel_cases_gen1(dev, key)
+    err_yiq = kernel_cases_gen2(dev)
+    err_yuv = kernel_cases_gen1(dev)
+    check_pinned(dev)
     err_split = kernel_cases_split(dev, key)
-    err_g1split = kernel_cases_gen1_split(dev, key)
+    err_g1split = kernel_cases_gen1_split(dev)
     err_iir = kernel_cases_iir(dev)
 
     # ---- 4. the main paths through the CLI
@@ -825,71 +853,28 @@ def main() -> int:
     split_launches = line_sharded_paths(shapes, key)
 
     # ---- 5. times
-    times = {}
-    rng = np.random.default_rng(0)
-    b, l, w = 64, 240, 704
-    rgb = torch.from_numpy(
-        rng.integers(0, 256, (b, l, w, 3)).astype(np.uint8)).to(dev)
-    fn = torch.arange(b, dtype=torch.int32)
-    prep = fused_yiq.prepare(BENCH_VHS_EP, rgb, fn, fn % 2, key)
-    kern = lambda: fused_yiq.composite_layer_rgb_fused(rgb, prep,
-                                                       cfg=BENCH_VHS_EP)
-    plain = lambda: fused_yiq.chain_reference(rgb, prep, cfg=BENCH_VHS_EP)
-    times["yiq_chain"] = (time_ms(kern), time_ms(plain), time_ms(kern))
-    bounds = {"yiq_chain": bound_ms(
-        gen2_flops(BENCH_VHS_EP, "yiq_chain", b, l, w),
-        2 * nbytes(rgb) + prep_bytes(prep))}
+    # every kernel vs its plain version on the cases of testing.timed_cases
+    # (kernel_ab.py times the same); the first case of each kernel is its
+    # row of the kernels line
+    cases = timed_cases(dev)
+    times, bounds, floors = {}, {}, {}
+    for case in cases:
+        ms, plain_ms, ms2 = (time_ms(case.kern), time_ms(case.plain),
+                             time_ms(case.kern))
+        rate = ("" if case.kernel == "fused_iir" else
+                f" = {case.shape[0] / ms * 1e3:.1f} fields/s")
+        print(f"[5] {case.kernel} {case.label} on {card}: kernel {ms:.3f} ms "
+              f"(again {ms2:.3f} ms){rate}; plain {plain_ms:.3f} ms")
+        if case.kernel not in times:
+            times[case.kernel] = (ms, plain_ms)
+            bound, by, floor = case_bound(case)
+            bounds[case.kernel], floors[case.kernel] = (bound, by), floor
 
-    w = 720
-    y, u, v = (torch.from_numpy(rng.integers(16, 236, s).astype(np.uint8))
-               .to(dev) for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2)))
-    prep1 = fused_yuv.prepare(BENCH_GEN1_EP, y, fn, fn % 2, key)
-    kern = lambda: fused_yuv.composite_video_process_fused(
-        y, u, v, prep1, cfg=BENCH_GEN1_EP)
-    plain = lambda: fused_yuv.chain_reference(y, u, v, prep1,
-                                              cfg=BENCH_GEN1_EP)
-    times["yuv_chain"] = (time_ms(kern), time_ms(plain), time_ms(kern))
-    bounds["yuv_chain"] = bound_ms(
-        gen1_flops(BENCH_GEN1_EP, "yuv_chain", b, l, w),
-        2 * nbytes(y, u, v) + prep_bytes(prep1))
-    for name, shape, (ms, plain_ms, ms2) in (
-            ("yiq_chain", "240x704 bench VHS-EP", times["yiq_chain"]),
-            ("yuv_chain", "240x720 gen-1 bench VHS-EP", times["yuv_chain"])):
-        print(f"[5] {name} B=64 {shape} on {card}: kernel {ms:.3f} ms "
-              f"(again {ms2:.3f} ms) = {b / ms * 1e3:.1f} fields/s; plain "
-              f"{plain_ms:.3f} ms = {b / plain_ms * 1e3:.1f} fields/s")
-
-    # the split kernels on whole fields vs their plain versions, and the
-    # line-sharded program vs kernel #1's path (prepare + kernel); both
+    # the line-sharded program vs kernel #1's path (prepare + kernel); both
     # paths include prepare()'s host work, so their events span it
     cfg = BENCH_VHS_EP
     for label, rgb2, fn2, par2, prep2 in shapes:
-        w2 = rgb2.shape[2]
-        ya = fused_yiq.stage_a(rgb2, prep2, cfg=cfg)
-        yh = fused_yiq.head_switch_rows(ya, prep2.shifts, w2)
-        p1 = fused_yiq.stage_b1(yh, prep2, cfg=cfg, w=w2)
-        t = {"yiq_a": (lambda: fused_yiq.stage_a(rgb2, prep2, cfg=cfg),
-                       lambda: fused_yiq.stage_a_reference(rgb2, prep2,
-                                                           cfg=cfg)),
-             "yiq_b1": (lambda: fused_yiq.stage_b1(yh, prep2, cfg=cfg, w=w2),
-                        lambda: fused_yiq.stage_b1_reference(
-                            yh, prep2, cfg=cfg, w=w2)),
-             "yiq_b2": (lambda: fused_yiq.stage_b2(*p1, prep2, cfg=cfg, w=w2),
-                        lambda: fused_yiq.stage_b2_reference(
-                            *p1, prep2, cfg=cfg, w=w2))}
         nb = rgb2.shape[0]
-        io_bytes = {"yiq_a": nbytes(rgb2, ya), "yiq_b1": nbytes(yh, *p1),
-                    "yiq_b2": nbytes(*p1, rgb2)}
-        for name, (kern, plain) in t.items():
-            ms, plain_ms = time_ms(kern), time_ms(plain)
-            if label.startswith("240x704"):
-                times[name] = (ms, plain_ms)
-                bounds[name] = bound_ms(
-                    gen2_flops(cfg, name, nb, rgb2.shape[1], w2),
-                    io_bytes[name] + prep_bytes(prep2))
-            print(f"[5] {name} {label} bench VHS-EP on {card}: kernel "
-                  f"{ms:.3f} ms = {nb / ms * 1e3:.1f} fields/s; plain "
-                  f"{plain_ms:.3f} ms = {nb / plain_ms * 1e3:.1f} fields/s")
         k1 = time_ms(lambda: fused_yiq.composite_layer_rgb_fused(
             rgb2, prep2, cfg=cfg))
         prog = time_ms(lambda: run_fused_lines_local(cfg, rgb2, fn2, par2,
@@ -902,73 +887,24 @@ def main() -> int:
               f"path (prepare + yiq_chain) {main1:.3f} ms = "
               f"{nb / main1 * 1e3:.1f} fields/s")
 
-    # the gen-1 split kernels vs their plain versions, and the split route
-    # vs yuv_chain, at 576i PAL B=64 and 1080i B=16
-    for label, cfg1, shape in (
-            ("288x720 PAL B=64", BENCH_GEN1_EP.with_(ntsc=False),
-             (64, 288, 720)),
-            ("540x1888 B=16", BENCH_GEN1_EP, (16, 540, 1888))):
-        ys, us, vs, prep_s = gen1_inputs(dev, key, cfg1, shape, "time")
-        ya = fused_yuv.stage_a(ys, us, vs, prep_s, cfg=cfg1)
-        yh = fused_yuv.head_switch_rows(ya, prep_s.shifts)
-        p1 = fused_yuv.stage_b1(yh, prep_s, cfg=cfg1)
-        if yuv422.does_vblend(cfg1):
-            p1 = (p1[0], *fused_yuv.vblend_rows(*p1[1:]))
-        t = {"yuv_a": (
-                 lambda: fused_yuv.stage_a(ys, us, vs, prep_s, cfg=cfg1),
-                 lambda: fused_yuv.stage_a_reference(ys, us, vs, prep_s,
-                                                     cfg=cfg1)),
-             "yuv_b1": (
-                 lambda: fused_yuv.stage_b1(yh, prep_s, cfg=cfg1),
-                 lambda: fused_yuv.stage_b1_reference(yh, prep_s, cfg=cfg1)),
-             "yuv_b2": (
-                 lambda: fused_yuv.stage_b2(*p1, prep_s, cfg=cfg1),
-                 lambda: fused_yuv.stage_b2_reference(*p1, prep_s,
-                                                      cfg=cfg1))}
-        planes_b, luma_b = nbytes(ys, us, vs), nbytes(ys)
-        io_bytes = {"yuv_a": planes_b + luma_b, "yuv_b1": luma_b + planes_b,
-                    "yuv_b2": 2 * planes_b}
-        nb = shape[0]
-        for name, (kern, plain) in t.items():
-            ms, plain_ms, ms2 = time_ms(kern), time_ms(plain), time_ms(kern)
-            if label.startswith("288x720"):
-                times[name] = (ms, plain_ms)
-                bounds[name] = bound_ms(gen1_flops(cfg1, name, *shape),
-                                        io_bytes[name] + prep_bytes(prep_s))
-            print(f"[5] {name} {label} gen-1 bench VHS-EP on {card}: kernel "
-                  f"{ms:.3f} ms (again {ms2:.3f} ms) = "
-                  f"{nb / ms * 1e3:.1f} fields/s; plain {plain_ms:.3f} ms = "
-                  f"{nb / plain_ms * 1e3:.1f} fields/s")
-        split = lambda: fused_yuv.composite_video_process_split(
-            ys, us, vs, prep_s, cfg=cfg1)
-        merged = lambda: fused_yuv.composite_video_process_merged(
-            ys, us, vs, prep_s, cfg=cfg1)
-        s1, m1, s2, m2 = (time_ms(split), time_ms(merged), time_ms(split),
-                          time_ms(merged))
-        print(f"[5] {label} on {card}: split route (yuv_a, head switch, "
+    # the gen-1 split route vs yuv_chain on #5's 576i PAL and 1080i cases
+    for case in cases:
+        if case.kernel != "yuv_chain" or case.shape[1] == 240:
+            continue
+        split = partial(fused_yuv.composite_video_process_split,
+                        *case.inputs, cfg=case.cfg)
+        s1, m1, s2, m2 = (time_ms(split), time_ms(case.kern),
+                          time_ms(split), time_ms(case.kern))
+        print(f"[5] {case.label} on {card}: split route (yuv_a, head switch, "
               f"yuv_b1, blend, yuv_b2) {s1:.3f} / {s2:.3f} ms against "
               f"yuv_chain {m1:.3f} / {m2:.3f} ms (in turns: split, chain, "
               f"split, chain)")
 
-    # the pole cascade in each of the stage path's shapes
-    for n_rows, width in ((64 * 240, 720), (16 * 540, 1888)):
-        x = iir_input(dev, n_rows, width)
-        for label, alphas, y0s, mode, gain in iir_shapes():
-            kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
-            kern = lambda: fused_iir.fused_iir(x, **kw)
-            plain = lambda: fused_iir.fused_iir_reference(x, **kw)
-            ms, plain_ms, ms2 = time_ms(kern), time_ms(plain), time_ms(kern)
-            if (n_rows, mode, len(alphas)) == (64 * 240, "emph", 4):
-                times["fused_iir"] = (ms, plain_ms)
-                bounds["fused_iir"] = bound_ms(
-                    iir_flops(n_rows, width, len(alphas), mode),
-                    2 * nbytes(x) + len(alphas) * (128 * 128 + 128) * 4)
-            print(f"[5] fused_iir [{n_rows}, {width}] {label} on {card}: kernel "
-                  f"{ms:.3f} ms (again {ms2:.3f} ms); plain {plain_ms:.3f} "
-                  f"ms")
-
-    # the gen-1 black-key scan: 64 sequential steps of small eager ops
-    planes = [p.to(torch.int32) for p in (y, u, v)]
+    # the gen-1 black-key scan: 64 sequential steps of small eager ops, on
+    # #5's 240x720 B=64 case
+    gen1 = next(c for c in cases if c.kernel == "yuv_chain")
+    b, l, w = gen1.shape
+    planes = [p.to(torch.int32) for p in gen1.inputs[:3]]
     filt = (torch.full((l, w), 16, dtype=torch.int32, device=dev),
             torch.full((l, w // 2), 128, dtype=torch.int32, device=dev),
             torch.full((l, w // 2), 128, dtype=torch.int32, device=dev))
@@ -1008,8 +944,11 @@ def main() -> int:
                       route_launches["fused_iir"], err_iir),
     }
     for name, (ms, by) in bounds.items():
-        print(f"[5] {name} bound {ms:.4f} ms ({by}); kernel "
-              f"{times[name][0]:.3f} ms = {ms / times[name][0]:.1%} of it")
+        k_ms, fl = times[name][0], floors[name]
+        print(f"[5] {name} bound {ms:.4f} ms ({by}); blocked-form floor "
+              f"{fl:.4f} ms (block products' multiply-adds at "
+              f"{FMA_PER_S:.3g}/s); kernel {k_ms:.3f} ms = {ms / k_ms:.1%} "
+              f"of the bound, {k_ms / fl:.2f}x the floor")
     # library_ms: no single PyTorch call computes these IIR chains
     print(json.dumps({"kernels": [{
         "name": name,

@@ -16,7 +16,8 @@
 // Design. Rows are independent and each row is a serial chain of blocks,
 // so one CTA of 128 threads takes one row, held in shared memory (the
 // input, the cascade and the emphasis pole's output: 3 * Wp floats, Wp =
-// W padded to whole blocks; 23 KB at W = 1888). The TPU's 256-row tiles
+// W padded to whole blocks, 23 KB at W = 1888, and the poles' carry
+// scratch). The TPU's 256-row tiles
 // exist to fill its VMEM and have no counterpart. The tables (T^T and d,
 // one per pole) stay in global memory, shared by every CTA and resident
 // in L2.
@@ -25,10 +26,12 @@
 // recurrence's subtract and multiply-add) against 8 bytes of device
 // memory per sample (one read, one write), so it is bound by bytes. This
 // blocked form costs far more: a 128 x 128 lower-triangular product per
-// block and pole (8,256 multiply-adds, 129 flops per sample), and each
-// multiply-add also loads its table entry from L1 and its sample from
-// shared memory, so the load units set the pace (PERF.md). A scan over
-// the row would need only the recurrence's own work.
+// block and pole (8,256 multiply-adds, 129 flops per sample). pole.cuh
+// runs every block's product before the carries, and a thread reuses
+// each table entry it loads for all of its blocks, so the load units and
+// the barriers of a 128-thread row set the pace (PERF.md). A scan over the
+// row would need only the recurrence's own work, but would round
+// otherwise.
 
 #include <cuda_runtime.h>
 
@@ -49,7 +52,7 @@ struct Params {
 
 }  // namespace iir
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 fused_iir_rows(const float* __restrict__ x, const float* __restrict__ tt,
                const float* __restrict__ d, iir::Params P,
                float* __restrict__ out) {
@@ -57,6 +60,7 @@ fused_iir_rows(const float* __restrict__ x, const float* __restrict__ tt,
   float* xs = sm;
   float* s = sm + P.wp;
   float* lp = sm + 2 * P.wp;
+  float* red = sm + 3 * P.wp;
   const int nb = P.wp / BLOCK;
   const size_t off = (size_t)blockIdx.x * P.w;
   for (int i = threadIdx.x; i < P.wp; i += BLOCK) xs[i] = i < P.w ? x[off + i] : 0.f;
@@ -67,7 +71,7 @@ fused_iir_rows(const float* __restrict__ x, const float* __restrict__ tt,
   for (int i = 0; i < n_lp; ++i) {
     const PoleTables t{tt + i * BLOCK * BLOCK, d + i * BLOCK, nullptr,
                        nullptr, nullptr};
-    pole(c, s, t, P.y0[i], nb);
+    pole(c, s, t, P.y0[i], nb, red);
     c = s;
   }
   float* o = out + off;
@@ -75,7 +79,7 @@ fused_iir_rows(const float* __restrict__ x, const float* __restrict__ tt,
     const int i = P.k - 1;
     const PoleTables t{tt + i * BLOCK * BLOCK, d + i * BLOCK, nullptr,
                        nullptr, nullptr};
-    pole(c, lp, t, P.y0[i], nb);
+    pole(c, lp, t, P.y0[i], nb, red);
     for (int j = threadIdx.x; j < P.w; j += BLOCK)
       o[j] = c[j] + (c[j] - lp[j]) * P.gain;
   } else if (P.mode == iir::MODE_UNSHARP) {
@@ -101,7 +105,7 @@ extern "C" int cvsim_fused_iir(const void* x, const void* tt, const void* d,
       P.mode > iir::MODE_UNSHARP)
     return (int)cudaErrorInvalidValue;
   if (P.rows == 0) return 0;
-  const size_t smem = (size_t)3 * P.wp * sizeof(float);
+  const size_t smem = (size_t)(3 * P.wp + RED_FLOATS) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_iir_rows, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -33,12 +33,12 @@ __device__ inline float u8f(float v) {
 // Per-row smoothed noise walk added to plane p (w active samples of wp):
 // increments from stream index plane_off + row*w + x, an alpha-0.5 pole,
 // the pre-update value (shifted right by one, column 0 zero), truncated.
-// tmp: wp floats of scratch. With u8_masked (gen-1) the sum is clamped to
-// u8 and the samples past w are zeroed; without it (gen-2) every sample
-// of wp takes the sum.
-__device__ inline void add_walk(float* p, float* tmp, const PoleTables& tab,
-                                uint32_t key, int row, int mag,
-                                uint32_t plane_off, int w, int wp,
+// tmp: wp floats of scratch; red: the pole's RED_FLOATS (pole.cuh). With
+// u8_masked (gen-1) the sum is clamped to u8 and the samples past w are
+// zeroed; without it (gen-2) every sample of wp takes the sum.
+__device__ inline void add_walk(float* p, float* tmp, float* red,
+                                const PoleTables& tab, uint32_t key, int row,
+                                int mag, uint32_t plane_off, int w, int wp,
                                 bool u8_masked) {
   const uint32_t span = 2u * (uint32_t)mag + 1u;
   for (int x = threadIdx.x; x < wp; x += BLOCK) {
@@ -51,7 +51,7 @@ __device__ inline void add_walk(float* p, float* tmp, const PoleTables& tab,
     tmp[x] = u;
   }
   __syncthreads();
-  pole(tmp, tmp, tab, 0.f, wp / BLOCK);
+  pole(tmp, tmp, tab, 0.f, wp / BLOCK, red);
   for (int x = threadIdx.x; x < wp; x += BLOCK) {
     const float v = p[x] + (x == 0 ? 0.f : truncf(tmp[x - 1]));
     p[x] = !u8_masked ? v : (x < w ? u8f(v) : 0.f);

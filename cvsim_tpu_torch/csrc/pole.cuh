@@ -4,23 +4,41 @@
 // response is a product with the lower-triangular T[i][j] = a*(1-a)^(i-j),
 // and the carry-in adds d[i] = (1-a)^(i+1) times the previous block's last
 // value (cvsim_tpu/ops/blocked_iir.py). Three identical poles compose into
-// one product with T^3 plus three carries. Thread t of a 128-thread CTA
-// computes output t of each block; the carry chains over the blocks.
+// one product with T^3 plus three carries.
 //
 // The tables are the stacks built by models/fused_yiq._stack_alpha_consts
-// (float64 math, one cast), stored transposed so that thread t reads
-// column t of row j at [j*128 + t]: consecutive threads, consecutive
-// addresses. They stay in global memory, shared by every CTA and resident
-// in L2.
+// (float64 math, one cast), stored transposed so that column t of row j
+// sits at [j*128 + t]: consecutive columns, consecutive addresses. They
+// stay in global memory, shared by every CTA and resident in L2.
 //
 // Op order follows the TPU kernel's _pole/_pole3
-// (cvsim_tpu/models/fused_yiq.py:92-132): the products accumulate with
-// fused multiply-adds, and the carry terms are added left to right. Build
+// (cvsim_tpu/models/fused_yiq.py:92-132): output t of a block's product
+// is acc = 0, then acc = fmaf(x[j], T[j][t], acc) for j = 0..t in
+// ascending order, and the carry terms are added left to right. Build
 // with -fmad=false so that the compiler contracts nothing else.
+//
+// Schedule. The products do not depend on the carries, so a call runs in
+// three phases with one barrier after each:
+//   1. products: every block's zero-carry product at once. Thread k owns
+//      the column pair (k mod 64, 127 - k mod 64), 129 multiply-adds a
+//      block, in half k / 64 of the blocks (every other block), and keeps
+//      each block's two sums in registers. Each table entry it loads
+//      serves all of its blocks, and the samples arrive as float4
+//      broadcasts from shared memory. pole3's block-end responses of its
+//      first two poles (dots with vt's columns 0 and 1) run meanwhile on
+//      one warp, a lane for each block and column (block_end_dots);
+//   2. carries: thread 0 runs the short scalar chain over the blocks with
+//      the expressions of the TPU kernel, into `red`;
+//   3. outputs: each thread adds its blocks' carry terms to the sums it
+//      holds and writes them.
+// A round holds up to 16 blocks (2048 samples, every raster of the repo);
+// a longer row takes more rounds, the carries running on from one to the
+// next.
 //
 // Every function here is entered and left by all 128 threads of the CTA
 // (each contains __syncthreads) and ends synchronised, so that the caller
 // may read any sample and overwrite any buffer right after it returns.
+// `in` may equal `out`.
 
 #pragma once
 
@@ -29,6 +47,17 @@
 namespace cvsim {
 
 constexpr int BLOCK = 128;
+constexpr int HALF = BLOCK / 2;
+constexpr int MAX_KB = 8;          // blocks a thread holds per round
+constexpr int ROUND = 2 * MAX_KB;  // blocks per round
+// shared scratch of a pole call: the block carries, then pole3's two vt
+// columns
+constexpr int RED_FLOATS = 3 * ROUND + 2 * BLOCK;
+// CTAs per SM that every kernel on these primitives is built for
+// (__launch_bounds__): four rows share an SM, and a thread may hold 128
+// registers, under which nothing spills (ptxas -v). Five or six rows an SM
+// ran 10-25% faster on an H100 but spill around the calls (PERF.md).
+constexpr int MIN_CTAS = 4;
 
 struct PoleTables {
   const float* tt;   // [128][128] T^T
@@ -54,64 +83,205 @@ struct Tables {
   }
 };
 
-// Output t of a lower-triangular block product: sum_{j<=t} xb[j]*m[j][t]
-// (the entries above the diagonal are exact zeros and add nothing).
-__device__ inline float tri_dot(const float* xb, const float* m, int t) {
-  float acc = 0.f;
-  for (int j = 0; j <= t; ++j) acc = fmaf(xb[j], __ldg(m + j * BLOCK + t), acc);
-  return acc;
+// The carries into a block: of the single pole (c1), or of the three
+// poles of a cascade (c1, c2, c3).
+struct Carries {
+  float c1, c2, c3;
+};
+
+// Steps j..j+3 of the products of KB blocks (samples at xb + qs[i]).
+// BOTH: j is below the end of the low columns of the warp's range, where
+// every high column is still active; else only the high column is left.
+template <int KB, bool BOTH>
+__device__ __forceinline__ void product_steps(
+    const float4* xb, const int (&qs)[KB], int j, int lo, int hi,
+    const float* tab, float (&ahi)[KB], float (&alo)[KB]) {
+  float th[4], tl[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    th[k] = __ldg(tab + (j + k) * BLOCK + hi);
+    tl[k] = BOTH ? __ldg(tab + (j + k) * BLOCK + lo) : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    const float4 v = xb[qs[i] + j / 4];
+    const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (BOTH || j + k <= hi) ahi[i] = fmaf(xv[k], th[k], ahi[i]);
+      if (BOTH && j + k <= lo) alo[i] = fmaf(xv[k], tl[k], alo[i]);
+    }
+  }
 }
 
-// One pole over nb blocks, register reset to y0. in may equal out.
-__device__ inline void pole(const float* in, float* out, const PoleTables& p,
-                            float y0, int nb) {
+// pole3's block-end responses of its first two poles with zero carry-in,
+// u1 = T[127][:] . x_q and u2 = T^2[127][:] . x_q, into red[3q] and
+// red[3q+1], on one warp: lane L takes block q = L % 16 and vt column
+// L / 16, each one sequential j = 0..127 chain, four samples a step. Lane
+// q starts q steps late, so that the eight lanes of each quarter-warp read
+// eight different bank groups of the samples and of vt's columns (staged
+// in shared memory at vts).
+__device__ inline void block_end_dots(const float* in, const float* vt,
+                                      float* vts, float* red, int b0, int n) {
+  const int lane = threadIdx.x % 32, q = lane % 16, col = lane / 16;
+  for (int k = lane; k < 2 * BLOCK; k += 32)
+    vts[k] = __ldg(vt + (k % BLOCK) * 8 + k / BLOCK);
+  __syncwarp();
+  if (q >= n) return;
+  const float4* x4 = reinterpret_cast<const float4*>(in + (b0 + q) * BLOCK);
+  const float4* v4 = reinterpret_cast<const float4*>(vts + col * BLOCK);
+  float u = 0.f;
+  for (int s = 0; s < BLOCK / 4 + n - 1; ++s) {
+    const int jq = s - q;  // this lane's step
+    if (jq >= 0 && jq < BLOCK / 4) {
+      const float4 x = x4[jq], v = v4[jq];
+      u = fmaf(x.x, v.x, u);
+      u = fmaf(x.y, v.y, u);
+      u = fmaf(x.z, v.z, u);
+      u = fmaf(x.w, v.w, u);
+    }
+  }
+  red[3 * q + col] = u;
+}
+
+// One round: blocks b0 .. b0+n-1 (n <= 2*KB) of a single pole (THREE
+// false) or of a three-pole cascade, entered with the carries into block
+// b0; returns the carries out of its last block (in thread 0).
+template <bool THREE, int KB>
+__device__ __noinline__ Carries pole_round(const float* in, float* out,
+                                           PoleTables p, float* red, int b0,
+                                           int n, Carries c) {
   const int t = threadIdx.x;
-  const float dt = __ldg(p.d + t);
-  float carry = y0;
-  for (int b = 0; b < nb; ++b) {
-    const float yb = tri_dot(in + b * BLOCK, p.tt, t) + dt * carry;
-    __syncthreads();
-    out[b * BLOCK + t] = yb;
-    __syncthreads();
-    carry = out[b * BLOCK + BLOCK - 1];
+  const int h = t / HALF, lo = t % HALF, hi = BLOCK - 1 - lo;
+  // a warp holds 32 consecutive low columns: 32*m .. 32*m+31
+  const int m = (t / 32) % 2;
+  const int j_both = 32 * m + 32, j_end = BLOCK - 32 * m;
+  const float* tab = THREE ? p.tt3 : p.tt;
+
+  // 1. products (a thread of half 1 holds a copy of the last block when n
+  // is odd, and discards it); pole3's block-end dots on the last warp
+  if (THREE && t / 32 == 3)
+    block_end_dots(in, p.vt, red + 3 * ROUND, red, b0, n);
+  const float4* xb = reinterpret_cast<const float4*>(in + b0 * BLOCK);
+  int qs[KB];
+  float ahi[KB], alo[KB];
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    qs[i] = min(2 * i + h, n - 1) * (BLOCK / 4);
+    ahi[i] = alo[i] = 0.f;
+  }
+  for (int j = 0; j < j_both; j += 4)
+    product_steps<KB, true>(xb, qs, j, lo, hi, tab, ahi, alo);
+  for (int j = j_both; j < j_end; j += 4)
+    product_steps<KB, false>(xb, qs, j, lo, hi, tab, ahi, alo);
+  // column 127 (the high column of lo 0) ends every block
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    const int q = 2 * i + h;
+    if (lo == 0 && q < n) red[THREE ? 3 * q + 2 : q] = ahi[i];
   }
   __syncthreads();
+
+  // 2. carries: red[q] (red[3q..3q+2]) becomes the carries into block q.
+  // Each step's inputs are read one step ahead, so that only the
+  // arithmetic is serial.
+  if (t == 0) {
+    const float dl = __ldg(p.d + BLOCK - 1);
+    if (!THREE) {
+      float e = red[0];
+      for (int q = 0; q < n; ++q) {
+        const float next = q + 1 < n ? red[q + 1] : 0.f;
+        red[q] = c.c1;
+        c.c1 = e + dl * c.c1;
+        e = next;
+      }
+    } else {
+      const float s1 = __ldg(p.d3 + BLOCK - 1);
+      const float s2 = __ldg(p.d3 + 2 * BLOCK - 1);
+      float u1 = red[0], u2 = red[1], e = red[2];
+      for (int q = 0; q < n; ++q) {
+        float* r = red + 3 * q;
+        float n1 = 0.f, n2 = 0.f, ne = 0.f;
+        if (q + 1 < n) {
+          n1 = r[3];
+          n2 = r[4];
+          ne = r[5];
+        }
+        r[0] = c.c1;
+        r[1] = c.c2;
+        r[2] = c.c3;
+        c = {u1 + dl * c.c1, u2 + s2 * c.c1 + dl * c.c2,
+             e + s1 * c.c1 + s2 * c.c2 + dl * c.c3};
+        u1 = n1;
+        u2 = n2;
+        e = ne;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. outputs
+  const float dh = __ldg(p.d + hi), dlo = __ldg(p.d + lo);
+  float e1h = 0.f, e1l = 0.f, e2h = 0.f, e2l = 0.f;
+  if (THREE) {
+    e1h = __ldg(p.d3 + hi);
+    e1l = __ldg(p.d3 + lo);
+    e2h = __ldg(p.d3 + BLOCK + hi);
+    e2l = __ldg(p.d3 + BLOCK + lo);
+  }
+#pragma unroll
+  for (int i = 0; i < KB; ++i) {
+    const int q = 2 * i + h;
+    if (q < n) {
+      float* ob = out + (b0 + q) * BLOCK;
+      if (!THREE) {
+        const float cb = red[q];
+        ob[hi] = ahi[i] + dh * cb;
+        ob[lo] = alo[i] + dlo * cb;
+      } else {
+        const float c1 = red[3 * q], c2 = red[3 * q + 1];
+        const float c3 = red[3 * q + 2];
+        ob[hi] = ahi[i] + e1h * c1 + e2h * c2 + dh * c3;
+        ob[lo] = alo[i] + e1l * c1 + e2l * c2 + dlo * c3;
+      }
+    }
+  }
+  __syncthreads();
+  return c;
+}
+
+template <bool THREE>
+__device__ inline void pole_rounds(const float* in, float* out,
+                                   const PoleTables& p, float y0, int nb,
+                                   float* red) {
+  Carries c{y0, y0, y0};
+  for (int b0 = 0; b0 < nb; b0 += ROUND) {
+    const int n = min(nb - b0, ROUND);
+    switch ((n + 1) / 2) {
+      case 1: c = pole_round<THREE, 1>(in, out, p, red, b0, n, c); break;
+      case 2: c = pole_round<THREE, 2>(in, out, p, red, b0, n, c); break;
+      case 3: c = pole_round<THREE, 3>(in, out, p, red, b0, n, c); break;
+      case 4: c = pole_round<THREE, 4>(in, out, p, red, b0, n, c); break;
+      case 5: c = pole_round<THREE, 5>(in, out, p, red, b0, n, c); break;
+      case 6: c = pole_round<THREE, 6>(in, out, p, red, b0, n, c); break;
+      case 7: c = pole_round<THREE, 7>(in, out, p, red, b0, n, c); break;
+      default: c = pole_round<THREE, MAX_KB>(in, out, p, red, b0, n, c);
+    }
+  }
+}
+
+// One pole over nb blocks, register reset to y0. red: RED_FLOATS floats of
+// shared memory.
+__device__ inline void pole(const float* in, float* out, const PoleTables& p,
+                            float y0, int nb, float* red) {
+  pole_rounds<false>(in, out, p, y0, nb, red);
 }
 
 // Three identical poles in series (all registers reset to y0) as one T^3
-// product per block. red: 4 floats of shared memory for the two
-// block-end responses, double-buffered over blocks. in may equal out.
+// product per block. red: RED_FLOATS floats of shared memory.
 __device__ inline void pole3(const float* in, float* out, const PoleTables& p,
                              float y0, int nb, float* red) {
-  const int t = threadIdx.x;
-  const float dc1 = __ldg(p.d3 + t);
-  const float dc2 = __ldg(p.d3 + BLOCK + t);
-  const float dt = __ldg(p.d + t);
-  const float dl = __ldg(p.d + BLOCK - 1);
-  const float s2 = __ldg(p.d3 + BLOCK + BLOCK - 1);
-  float c1 = y0, c2 = y0, c3 = y0;
-  for (int b = 0; b < nb; ++b) {
-    const float* xb = in + b * BLOCK;
-    float* slot = red + 2 * (b & 1);
-    const float yb = tri_dot(xb, p.tt3, t) + dc1 * c1 + dc2 * c2 + dt * c3;
-    if (t == 0 || t == 32) {
-      // block-end responses of the first two poles with zero carry-in,
-      // on two warps so that neither delays the other
-      const int col = t ? 1 : 0;
-      float u = 0.f;
-      for (int j = 0; j < BLOCK; ++j) u = fmaf(xb[j], __ldg(p.vt + j * 8 + col), u);
-      slot[col] = u;
-    }
-    __syncthreads();
-    out[b * BLOCK + t] = yb;
-    __syncthreads();
-    const float nc1 = slot[0] + dl * c1;
-    const float nc2 = slot[1] + s2 * c1 + dl * c2;
-    c3 = out[b * BLOCK + BLOCK - 1];
-    c1 = nc1;
-    c2 = nc2;
-  }
-  __syncthreads();
+  pole_rounds<true>(in, out, p, y0, nb, red);
 }
 
 }  // namespace cvsim

@@ -40,17 +40,25 @@
 // from the same splitmix32 words as the TPU kernel (_walk_rows_kernel).
 //
 // What bounds it. Each pole is a 128x128 lower-triangular product per
-// 128-sample block: about 64 x 128 FMAs per block and, with up to 15 poles
-// on the path, some 15 x nb x 8K FMAs per row, each reading its table
-// entry from L1/L2. In this plain form the kernels are bound by those FMAs
-// and table reads, not by device memory (about 30 bytes per sample move in
-// #1; the split program adds an f32 plane out of #2 and into #3, 8 bytes
-// per sample, plus what its seams move).
-// What the design does about it: the triangular loops skip the exact-zero
-// upper half of every table, three-pole cascades run as one T^3 product,
-// and all intermediates of a group stay on chip. Moving the products onto
-// tensor cores (wgmma with 3xTF32 splitting, to keep float32 exactness) and
-// fusing the launches with a recomputed halo row are later work.
+// 128-sample block (8,256 multiply-adds), and a row of the bench
+// configuration runs twelve of them: at 480i B=64 some 9.1e9 multiply-adds,
+// 0.27 ms at the float32 peak, against about 0.02 ms for the bytes #1 must
+// move (about 30 bytes a sample; the split program adds an f32 plane out of
+// #2 and into #3, 8 bytes a sample, plus what its seams move). The kernel
+// takes about ten times that floor on an H100 (PERF.md): the load units,
+// which bring each table entry from L1 and each sample from shared memory,
+// the calls into the pole primitives, and the barriers of a 128-thread row
+// set the pace, with four rows an SM to hide them.
+// What the design does about it: pole.cuh computes every block's product
+// before any carry (three barriers a pole, none waiting on a serial carry
+// per block), a thread reuses each table entry it loads for all of its
+// blocks and reads the samples as float4 broadcasts, the triangular loops
+// skip the exact-zero upper half of every table, three-pole cascades run
+// as one T^3 product, and all intermediates of a group stay on chip. Each
+// output keeps the TPU kernel's operation sequence (the CRC32s of
+// testing.PINNED_CHAIN_CRC32 hold the bits). Several rows a CTA (sharing
+// each table load) and fusing the launches with a recomputed halo row are
+// later work.
 
 #include <cuda_runtime.h>
 
@@ -82,7 +90,7 @@ enum { TAB_I = 0, TAB_Q = 1, TAB_PRE = 2, TAB_VLUMA = 3, TAB_VCHROMA = 4,
 // Shared-memory working set of one row: five planes of wp floats.
 struct Row {
   float *y, *i, *q, *t1, *t2;
-  float* red;  // 4 floats for pole3
+  float* red;  // RED_FLOATS floats: the poles' block carries
   int w, wp, nb;
 };
 
@@ -196,14 +204,14 @@ __device__ void stage_a_row(Row& r, const uint8_t* px, int xi, uint32_t key,
   qam_encode(r, xi, P.amp);
 
   if (P.preemph) {
-    pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb);
+    pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb, r.red);
     for (int x = threadIdx.x; x < wp; x += BLOCK)
       r.y[x] = truncf(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
     __syncthreads();
   }
   if (P.video_noise)
-    add_walk(r.y, r.t1, tab[TAB_WALK], key, grow, P.video_noise, 0u, w, wp,
-             false);
+    add_walk(r.y, r.t1, r.red, tab[TAB_WALK], key, grow, P.video_noise, 0u,
+             w, wp, false);
   for (int x = threadIdx.x; x < wp; x += BLOCK)
     if (x >= w) r.y[x] = 0.f;
   __syncthreads();
@@ -244,9 +252,9 @@ __device__ void stage_b1_row(Row& r, int xi, uint32_t key, int grow,
   }
 
   if (P.chroma_noise) {
-    add_walk(r.i, r.t1, tab[TAB_WALK], key, grow, P.chroma_noise, 0u, w, wp,
-             false);
-    add_walk(r.q, r.t1, tab[TAB_WALK], key, grow, P.chroma_noise,
+    add_walk(r.i, r.t1, r.red, tab[TAB_WALK], key, grow, P.chroma_noise, 0u,
+             w, wp, false);
+    add_walk(r.q, r.t1, r.red, tab[TAB_WALK], key, grow, P.chroma_noise,
              (uint32_t)P.l_glob * (uint32_t)w, w, wp, false);
   }
 
@@ -269,7 +277,7 @@ __device__ void stage_b1_row(Row& r, int xi, uint32_t key, int grow,
 
   if (P.vhs) {
     pole3(r.y, r.t1, tab[TAB_VLUMA], 16.f, r.nb, r.red);
-    pole(r.t1, r.t2, tab[TAB_VLUMA], 16.f, r.nb);
+    pole(r.t1, r.t2, tab[TAB_VLUMA], 16.f, r.nb, r.red);
     for (int x = threadIdx.x; x < wp; x += BLOCK) {
       const float sv = r.t1[x];
       r.y[x] = x < w ? truncf(sv + (sv - r.t2[x]) * 1.6f) : 0.f;
@@ -335,7 +343,7 @@ __device__ void store_rgb(const Row& r, uint8_t* px) {
 
 // ---- kernel #1: the whole chain in two launches
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
           const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
           const int* __restrict__ shifts, Tables tab, ChainParams P,
@@ -361,7 +369,7 @@ yiq_front(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
   }
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_back(const float* __restrict__ y_in, const float* __restrict__ i_in,
          const float* __restrict__ q_in, const int* __restrict__ xi_tab,
          const float* __restrict__ keep, Tables tab, ChainParams P,
@@ -400,7 +408,7 @@ yiq_back(const float* __restrict__ y_in, const float* __restrict__ i_in,
 // TPU program runs them between its kernels.
 
 // #2: uint8 RGB -> encoded luma plane (zero past w).
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_a(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
       const uint32_t* __restrict__ keys, Tables tab, ChainParams P,
       float* __restrict__ y_out) {
@@ -415,7 +423,7 @@ yiq_a(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
 }
 
 // #3: head-switched luma plane -> y, i, q planes (zero past w).
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_b1(const float* __restrict__ y_in, const int* __restrict__ xi_tab,
        const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
        Tables tab, ChainParams P, float* __restrict__ y_out,
@@ -439,7 +447,7 @@ yiq_b1(const float* __restrict__ y_in, const int* __restrict__ xi_tab,
 }
 
 // #4: blended y, i, q planes -> uint8 RGB.
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_b2(const float* __restrict__ y_in, const float* __restrict__ i_in,
        const float* __restrict__ q_in, const int* __restrict__ xi_tab,
        const float* __restrict__ keep, Tables tab, ChainParams P,
@@ -472,7 +480,7 @@ template <typename K>
 int prepare_launch(K kernel, const ChainParams& P, size_t* smem) {
   if (P.wp % BLOCK != 0 || P.w > P.wp || P.w < 3) return (int)cudaErrorInvalidValue;
   if (P.row0 < 0 || P.row0 + P.l > P.l_glob) return (int)cudaErrorInvalidValue;
-  *smem = (size_t)(5 * P.wp + 4) * sizeof(float);
+  *smem = (size_t)(5 * P.wp + RED_FLOATS) * sizeof(float);
   if (*smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);

@@ -28,11 +28,15 @@
 // The TPU kernel's stride-2 pick matrices (_down/_up) are direct indexing
 // here, and nothing is tiled or windowed.
 //
-// What bounds it: the pole products, as in yiq_chain.cu (each a 128x128
-// lower-triangular product per 128-sample block, table entries read from
-// L1/L2). The chroma poles run at half width, so a row costs about 60%
-// of the gen-2 chain's products (PERF.md). Device memory carries about
-// 8 bytes per luma sample.
+// What bounds it: the pole products, as in yiq_chain.cu (a 128x128
+// lower-triangular product per block, pole.cuh). The chroma poles run at
+// half width (three blocks at 720 samples), so a row holds many short
+// products, each with its three barriers and its serial carry chain over
+// the blocks; the load units and those barriers, not the multiply-adds,
+// set the pace (PERF.md). Device memory carries about 8 bytes per luma
+// sample. The design answers it as yiq_chain.cu does: every block's
+// product before any carry, table entries reused over a thread's blocks,
+// the row on chip, four rows an SM.
 
 #include <cuda_runtime.h>
 
@@ -67,7 +71,7 @@ enum { TAB_U = 0, TAB_U_HP = 1, TAB_V = 2, TAB_V_HP = 3, TAB_PRE = 4,
 struct Row {
   float *y, *t1, *t2;  // luma and two luma temporaries: wp each
   float *u, *v, *tc;   // chroma and one chroma temporary: wp2 each
-  float* red;          // 4 floats for pole3
+  float* red;          // RED_FLOATS floats: the poles' block carries
   int w, wp, nb, w2, wp2, nb2;
 };
 
@@ -104,7 +108,7 @@ __device__ void chroma_writeback(Row& r, float* p, int delay) {
 // then three poles at the cut, clampu8 delayed writeback.
 __device__ void chroma_lowpass_full(Row& r, float* p, const PoleTables& hp,
                                     const PoleTables& lp, int delay) {
-  pole(p, r.tc, hp, 128.f, r.nb2);
+  pole(p, r.tc, hp, 128.f, r.nb2, r.red);
   for (int x = threadIdx.x; x < r.wp2; x += BLOCK) r.tc[x] = 2.f * p[x] - r.tc[x];
   __syncthreads();
   pole3(r.tc, r.tc, lp, 128.f, r.nb2, r.red);
@@ -237,14 +241,14 @@ __device__ void a_row(Row& r, const Tables& tab, const Params& P, int xi,
   }
   qam_encode_u8(r, xi, P.amp);
   if (P.preemph) {
-    pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb);
+    pole(r.y, r.t1, tab[TAB_PRE], 16.f, r.nb, r.red);
     for (int x = threadIdx.x; x < r.wp; x += BLOCK)
       r.y[x] = u8f(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
     __syncthreads();
   }
   if (P.video_noise)
-    add_walk(r.y, r.t1, tab[TAB_WALK], key, line, P.video_noise, 0u, r.w,
-             r.wp, true);
+    add_walk(r.y, r.t1, r.red, tab[TAB_WALK], key, line, P.video_noise, 0u,
+             r.w, r.wp, true);
   mask_luma(r);
 }
 
@@ -277,9 +281,9 @@ __device__ void b1_row(Row& r, const Tables& tab, const Params& P, int xi,
   const int w = r.w, wp = r.wp, w2 = r.w2, wp2 = r.wp2;
   qam_decode_u8(r, xi, P.amp_back);
   if (P.chroma_noise) {
-    add_walk(r.u, r.tc, tab[TAB_WALK], key, line, P.chroma_noise, 0u, w2,
-             wp2, true);
-    add_walk(r.v, r.tc, tab[TAB_WALK], key, line, P.chroma_noise,
+    add_walk(r.u, r.tc, r.red, tab[TAB_WALK], key, line, P.chroma_noise, 0u,
+             w2, wp2, true);
+    add_walk(r.v, r.tc, r.red, tab[TAB_WALK], key, line, P.chroma_noise,
              (uint32_t)P.l * (uint32_t)w2, w2, wp2, true);
   }
   if (P.phase_noise) {
@@ -294,7 +298,7 @@ __device__ void b1_row(Row& r, const Tables& tab, const Params& P, int xi,
   if (P.vhs) {
     // luma: 3 lowpasses, then emphasis against a 4th same-cut pole
     pole3(r.y, r.t1, tab[TAB_VLUMA], 16.f, r.nb, r.red);
-    pole(r.t1, r.t2, tab[TAB_VLUMA], 16.f, r.nb);
+    pole(r.t1, r.t2, tab[TAB_VLUMA], 16.f, r.nb, r.red);
     for (int x = threadIdx.x; x < wp; x += BLOCK) {
       const float t = r.t1[x];
       r.y[x] = x < w ? u8f(t + (t - r.t2[x]) * 1.6f) : 0.f;
@@ -358,7 +362,7 @@ using gen1::Row;
 
 // ---- kernel #5: the whole chain in two launches (split at the blend)
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
           const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
           const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
@@ -380,7 +384,7 @@ yuv_front(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
   store_planes(r, y_out + o1, u_out + o2, v_out + o2);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
          const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
          const float* __restrict__ keep, Tables tab, Params P,
@@ -403,7 +407,7 @@ yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
 // launches are uint8 at the active widths: every value at those seams is
 // clamped to [0, 255] or is the floor of a mean of such values.
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_a(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
       const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
       const uint32_t* __restrict__ keys, Tables tab, Params P,
@@ -419,7 +423,7 @@ yuv_a(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
   store_planes(r, y_out + o1, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_b1(const uint8_t* __restrict__ y_in, const int* __restrict__ xi_tab,
        const uint32_t* __restrict__ keys, const float* __restrict__ sincos,
        Tables tab, Params P, uint8_t* __restrict__ y_out,
@@ -436,7 +440,7 @@ yuv_b1(const uint8_t* __restrict__ y_in, const int* __restrict__ xi_tab,
   store_planes(r, y_out + o1, u_out + o2, v_out + o2);
 }
 
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_b2(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
        const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
        const float* __restrict__ keep, Tables tab, Params P,
@@ -464,7 +468,7 @@ int prepare_launch(const Params& P, K kernel, size_t* smem) {
   if (P.wp % BLOCK != 0 || P.wp2 % BLOCK != 0 || P.w > P.wp || P.w < 3 ||
       P.w2 > P.wp2 || P.w2 < 1 || 2 * P.w2 > P.w || P.b < 0 || P.l < 1)
     return (int)cudaErrorInvalidValue;
-  *smem = (size_t)(3 * P.wp + 3 * P.wp2 + 4) * sizeof(float);
+  *smem = (size_t)(3 * P.wp + 3 * P.wp2 + RED_FLOATS) * sizeof(float);
   if (*smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);

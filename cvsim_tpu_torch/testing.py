@@ -1,6 +1,10 @@
-"""Comparison helpers shared by the tests and chip_smoke.py."""
+"""Comparison and timing helpers shared by the tests, chip_smoke.py and
+kernel_ab.py."""
 
 from __future__ import annotations
+
+from functools import partial
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -74,6 +78,204 @@ BENCH_GEN1_EP = CompositeConfig(
     emulating_vhs=True, vhs_tape_speed=VHSSpeed.EP, vhs_head_switching=True,
     video_noise=6, video_chroma_noise=22, video_chroma_phase_noise=6,
     video_chroma_loss=8)
+
+
+BENCH_CONFIGS = {"bench-vhs-ep": BENCH_VHS_EP, "bench-gen1-ep": BENCH_GEN1_EP,
+                 "bench-gen1-ep-pal": BENCH_GEN1_EP.with_(ntsc=False)}
+
+# Kernels #1 (yiq_chain) and #5 (yuv_chain, launched directly, whatever
+# route the dispatcher would take) on chip_smoke.py [3]'s bench inputs
+# (chain_inputs), and the CRC32 of each output (chain_crc32) as the
+# kernels of commit b8c5917 computed it on an H100 (kernel_ab.py). The
+# pole primitives were rewritten after that commit to keep every output
+# bit; the `cuda` tests and chip_smoke.py [3] hold them to these values.
+PINNED_CHAIN_CRC32 = {
+    ("yiq_chain", "bench-vhs-ep", (8, 240, 704)): 0x678929D5,
+    ("yiq_chain", "bench-vhs-ep", (2, 540, 1888)): 0x5C6E4A9B,
+    ("yuv_chain", "bench-gen1-ep", (8, 240, 720)): 0xDA2B5F7F,
+    ("yuv_chain", "bench-gen1-ep-pal", (8, 288, 720)): 0xDE9909AC,
+    ("yuv_chain", "bench-gen1-ep", (2, 540, 1888)): 0x73C0E6BA,
+}
+
+
+def chain_inputs(kernel: str, name: str, cfg: CompositeConfig,
+                 shape: tuple, device):
+    """chip_smoke.py [3]'s inputs of kernel #1 ("yiq_chain": uint8 RGB
+    [B, L, W, 3]) or #5 ("yuv_chain": uint8 y [B, L, W], u, v
+    [B, L, W//2]) for the case (name, shape), drawn from a seed of both, on
+    `device`, with their prepare() for fields 3.. under
+    key32_from_seed(5): (planes, prepare())."""
+    import zlib
+
+    import torch
+
+    from cvsim_tpu_torch.interop import key32_from_seed
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+
+    b, l, w = shape
+    fn = torch.arange(b, dtype=torch.int32) + 3
+    key = key32_from_seed(5)
+    if kernel == "yiq_chain":
+        rng = np.random.default_rng(zlib.crc32(f"{name}{b}{l}{w}".encode()))
+        rgb = torch.from_numpy(rng.integers(0, 256, (b, l, w, 3))
+                               .astype(np.uint8)).to(device)
+        return (rgb,), fused_yiq.prepare(cfg, rgb, fn, fn % 2, key)
+    rng = np.random.default_rng(zlib.crc32(f"g1{name}{b}{l}{w}".encode()))
+    planes = tuple(torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+                   .to(device) for s in ((b, l, w), (b, l, w // 2),
+                                         (b, l, w // 2)))
+    return planes, fused_yuv.prepare(cfg, planes[0], fn, fn % 2, key)
+
+
+def chain_crc32(kernel: str, cfg: CompositeConfig, planes, prep) -> int:
+    """CRC32 of kernel #1's RGB bytes, or of #5's y, u and v bytes in
+    turn, on `planes` (chain_inputs)."""
+    import zlib
+
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+
+    if kernel == "yiq_chain":
+        outs = (fused_yiq.composite_layer_rgb_fused(*planes, prep, cfg=cfg),)
+    else:
+        outs = fused_yuv.composite_video_process_merged(*planes, prep,
+                                                        cfg=cfg)
+    crc = 0
+    for t in outs:
+        crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
+    return crc
+
+
+TIMING_REPS = 5
+
+
+def time_ms(fn) -> float:
+    """Median of TIMING_REPS CUDA-event timings of fn(), after two
+    warm-ups."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(TIMING_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[TIMING_REPS // 2]
+
+
+def iir_shapes() -> list:
+    """The pole cascade's (#9) calls on the gen-1 stage path at the VHS-EP
+    cuts: (label, alphas, y0s, mode, gain)."""
+    from cvsim_tpu_torch.config import (NTSC_RATE, NTSC_RATE_422,
+                                        iir_alpha)
+
+    ep = VHSSpeed.EP
+    luma = float(iir_alpha(NTSC_RATE, ep.luma_cut))
+    chroma = float(iir_alpha(NTSC_RATE_422, ep.chroma_cut))
+    sharp = float(iir_alpha(NTSC_RATE, ep.luma_cut * 2))
+    pre = float(iir_alpha(NTSC_RATE, 315000000 / 88))
+    return [("VHS luma, emph 4 poles", (luma,) * 4, (16.0,) * 4, "emph", 1.6),
+            ("VHS chroma, none 3 poles", (chroma,) * 3, (128.0,) * 3, "none",
+             0.0),
+            ("sharpen, unsharp 3 poles", (sharp,) * 3, (16.0,) * 3,
+             "unsharp", 1.5),
+            ("preemphasis, emph 1 pole", (pre,), (16.0,), "emph", 7.0)]
+
+
+def iir_input(device, rows: int, w: int):
+    """Rows of random 0..255 float32 samples, [rows, w], on `device`."""
+    import torch
+
+    rng = np.random.default_rng(rows + w)
+    return torch.from_numpy(rng.integers(0, 256, (rows, w)).astype(
+        np.float32)).to(device)
+
+
+class TimedCase(NamedTuple):
+    kernel: str        # "yiq_chain", "yiq_a", ..., "fused_iir"
+    label: str         # its shape and configuration
+    kern: Callable     # the kernel's wrapper on `inputs`
+    plain: Callable    # its plain version on the same inputs
+    cfg: object        # the CompositeConfig, or fused_iir's keywords
+    shape: tuple       # (B, L, W), or fused_iir's (rows, W)
+    inputs: tuple      # what kern reads: tensors, and a prepare()
+
+
+def timed_cases(device) -> list[TimedCase]:
+    """Every kernel's timed launches on `device`, for chip_smoke.py [5]
+    and kernel_ab.py: #1-#4 on the bench VHS-EP configuration at 240x704
+    B=64 and 540x1888 B=16; #5 on the gen-1 bench configuration at 240x720
+    B=64, 288x720 PAL B=64 and 540x1888 B=16, #6-#8 at the last two; #9
+    in each of iir_shapes() at [64*240, 720] and [16*540, 1888]. Inputs
+    from chain_inputs(kernel, "time", ...) and iir_input; #3's and #4's
+    are the outputs of the kernels before them. The first case of each
+    kernel is the one its row of the kernel table reports."""
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yuv422
+    from cvsim_tpu_torch.ops import fused_iir
+
+    out = []
+    cfg = BENCH_VHS_EP
+    for shape in ((64, 240, 704), (16, 540, 1888)):
+        (rgb,), prep = chain_inputs("yiq_chain", "time", cfg, shape, device)
+        w = shape[2]
+        label = f"{shape[1]}x{w} B={shape[0]} bench VHS-EP"
+        y_a = fused_yiq.stage_a(rgb, prep, cfg=cfg)
+        y_h = fused_yiq.head_switch_rows(y_a, prep.shifts, w)
+        p1 = fused_yiq.stage_b1(y_h, prep, cfg=cfg, w=w)
+        cases = (
+            ("yiq_chain", fused_yiq.composite_layer_rgb_fused,
+             fused_yiq.chain_reference, (rgb, prep), {}),
+            ("yiq_a", fused_yiq.stage_a, fused_yiq.stage_a_reference,
+             (rgb, prep), {}),
+            ("yiq_b1", fused_yiq.stage_b1, fused_yiq.stage_b1_reference,
+             (y_h, prep), {"w": w}),
+            ("yiq_b2", fused_yiq.stage_b2, fused_yiq.stage_b2_reference,
+             (*p1, prep), {"w": w}))
+        out += [TimedCase(kernel, label,
+                          partial(kern, *inputs, cfg=cfg, **kw),
+                          partial(plain, *inputs, cfg=cfg, **kw), cfg, shape,
+                          inputs)
+                for kernel, kern, plain, inputs, kw in cases]
+    for name, shape in (("bench-gen1-ep", (64, 240, 720)),
+                        ("bench-gen1-ep-pal", (64, 288, 720)),
+                        ("bench-gen1-ep", (16, 540, 1888))):
+        cfg1 = BENCH_CONFIGS[name]
+        planes, prep = chain_inputs("yuv_chain", "time", cfg1, shape, device)
+        label = (f"{shape[1]}x{shape[2]} B={shape[0]} gen-1 bench VHS-EP"
+                 + (" PAL" if not cfg1.ntsc else ""))
+        cases = [("yuv_chain", fused_yuv.composite_video_process_merged,
+                  fused_yuv.chain_reference, (*planes, prep))]
+        if shape[1] != 240:
+            y_a = fused_yuv.stage_a(*planes, prep, cfg=cfg1)
+            y_h = fused_yuv.head_switch_rows(y_a, prep.shifts)
+            p1 = fused_yuv.stage_b1(y_h, prep, cfg=cfg1)
+            if yuv422.does_vblend(cfg1):
+                p1 = (p1[0], *fused_yuv.vblend_rows(*p1[1:]))
+            cases += [
+                ("yuv_a", fused_yuv.stage_a, fused_yuv.stage_a_reference,
+                 (*planes, prep)),
+                ("yuv_b1", fused_yuv.stage_b1, fused_yuv.stage_b1_reference,
+                 (y_h, prep)),
+                ("yuv_b2", fused_yuv.stage_b2, fused_yuv.stage_b2_reference,
+                 (*p1, prep))]
+        out += [TimedCase(kernel, label, partial(kern, *inputs, cfg=cfg1),
+                          partial(plain, *inputs, cfg=cfg1), cfg1, shape,
+                          inputs)
+                for kernel, kern, plain, inputs in cases]
+    for rows, w in ((64 * 240, 720), (16 * 540, 1888)):
+        x = iir_input(device, rows, w)
+        for label, alphas, y0s, mode, gain in iir_shapes():
+            kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
+            out.append(TimedCase(
+                "fused_iir", f"[{rows}, {w}] {label}",
+                partial(fused_iir.fused_iir, x, **kw),
+                partial(fused_iir.fused_iir_reference, x, **kw), kw,
+                (rows, w), (x,)))
+    return out
 
 
 def reference_config(cfg: CompositeConfig, config_module):

@@ -1,0 +1,85 @@
+"""Bits and times of one tree's CUDA kernels, for comparing two trees on
+one card.
+
+    python3 kernel_ab.py [--root DIR]
+
+Builds the kernels of the tree at DIR (default: this checkout), prints the
+CRC32 of kernels #1 and #5 on every case of testing.PINNED_CHAIN_CRC32 and
+whether it equals the pinned value, then times every kernel on the cases
+of testing.timed_cases, the ones chip_smoke.py [5] times (testing.time_ms:
+CUDA events, median of 5 after two warm-ups). The inputs, the pinned
+values and the timing come from this checkout's testing.py, so two trees
+(say a parent unpacked with `git archive` into an ignored directory, and
+this one) get the same inputs; run them in turns within one call, parent,
+change, change, parent. The last line is one JSON object {"root", "card",
+"crc32", "pinned_equal", "ms"}. Needs one card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _testing():
+    """This checkout's testing.py, run against the package at --root (it
+    uses only modules that every tree of the port has)."""
+    spec = importlib.util.spec_from_file_location(
+        "cvsim_ab_testing",
+        os.path.join(HERE, "cvsim_tpu_torch", "testing.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    args = ap.parse_args()
+    sys.modules["jax"] = None
+    sys.modules["cvsim_tpu"] = None
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from cvsim_tpu_torch import kernels
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kernels.load()
+    print(f"kernel_ab: {root} on {card}")
+    T = _testing()
+    crcs, equal = {}, True
+    for (kernel, name, shape), pinned in T.PINNED_CHAIN_CRC32.items():
+        cfg = T.BENCH_CONFIGS[name]
+        planes, prep = T.chain_inputs(kernel, name, cfg, shape, dev)
+        crc = T.chain_crc32(kernel, cfg, planes, prep)
+        crcs[f"{kernel} {name} {shape}"] = crc
+        equal &= crc == pinned
+        print(f"{kernel} {name} {shape}: crc32 {crc:#010x} (pinned "
+              f"{pinned:#010x})")
+    ms = {}
+    for case in T.timed_cases(dev):
+        label = f"{case.kernel} {case.label}"
+        ms[label] = T.time_ms(case.kern)
+        print(f"{label}: {ms[label]:.3f} ms")
+    print(json.dumps({"root": root, "card": card, "crc32": crcs,
+                      "pinned_equal": equal, "ms": ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -3,7 +3,8 @@ chain, #2-#4 its split stage groups for row shards), of the gen-1 chain
 (csrc/yuv_chain.cu: #5 the whole chain, #6-#8 its split stage groups for
 rasters above the reference's single-tile budget) and the standalone pole
 cascade (csrc/fused_iir.cu, #9) against their plain PyTorch versions, and
-the wrappers' contracts.
+the wrappers' contracts; #1 and #5 also against the CRC32s of their
+outputs pinned in testing.PINNED_CHAIN_CRC32.
 
 Imports torch and the port only (no jax), so that on a GPU host the
 `cuda`-marked tests run without jax's CPU setup in tests/conftest.py:
@@ -29,10 +30,11 @@ from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yuv422
 from cvsim_tpu_torch.ops import fused_iir
 from cvsim_tpu_torch.parallel import run_fused_lines_local
-from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, BENCH_VHS_EP,
-                                     CHAIN_CONFIGS, GEN1_CHAIN_CONFIGS,
-                                     assert_chain_equal,
-                                     check_gen1_split_kernels,
+from cvsim_tpu_torch.testing import (BENCH_CONFIGS, BENCH_GEN1_EP,
+                                     BENCH_VHS_EP, CHAIN_CONFIGS,
+                                     GEN1_CHAIN_CONFIGS, PINNED_CHAIN_CRC32,
+                                     assert_chain_equal, chain_crc32,
+                                     chain_inputs, check_gen1_split_kernels,
                                      check_split_kernels, iir_bound)
 
 SHAPES = [(2, 32, 128), (1, 16, 176)]
@@ -92,6 +94,17 @@ def test_kernel_matches_plain_full_width(cuda_device, shape):
     want = fused_yiq.chain_reference(rgb, prep, cfg=BENCH_VHS_EP)
     assert_chain_equal(got.cpu().numpy(), want.cpu().numpy(),
                        err_msg=str(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,name,shape", list(PINNED_CHAIN_CRC32))
+def test_chain_kernels_keep_pinned_bits(cuda_device, kernel, name, shape):
+    """#1 and #5 on chip_smoke.py's bench inputs: the same bytes as the
+    kernels of commit b8c5917, before the pole primitives were rewritten."""
+    cfg = BENCH_CONFIGS[name]
+    planes, prep = chain_inputs(kernel, name, cfg, shape, cuda_device)
+    assert (chain_crc32(kernel, cfg, planes, prep)
+            == PINNED_CHAIN_CRC32[(kernel, name, shape)])
 
 
 @pytest.mark.cuda
