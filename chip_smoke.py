@@ -20,9 +20,13 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      configuration at 288x720 PAL B=64 and 540x1888 B=16, and the split
      route against yuv_chain on the same inputs; the pole cascade
      (fused_iir) in each of the stage path's shapes at [64*240, 720] and
-     [16*540, 1888]; prepare() on the card == on the CPU for all; the
+     [16*540, 1888], and in the half-width chroma shapes at [64*240, 360]
+     (testing.iir_cases); prepare() on the card == on the CPU for all; the
      outputs of yiq_chain and yuv_chain on their bench cases byte-identical
-     to b8c5917's kernels (CRC32s in testing.PINNED_CHAIN_CRC32);
+     to b8c5917's kernels (CRC32s in testing.PINNED_CHAIN_CRC32), and of
+     yiq_b1 and fused_iir (several rows a CTA) on every one of their timed
+     cases byte-identical to 6f83bf8's (one row a CTA;
+     testing.PINNED_CASE_CRC32);
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -43,8 +47,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      version on the cases of testing.timed_cases, which kernel_ab.py times
      too (#1-#4 at 240x704 B=64 and 540x1888 B=16; #5 at 240x720 B=64,
      288x720 PAL B=64 and 540x1888 B=16, #6-#8 at the last two; the pole
-     cascade at [64*240, 720] and [16*540, 1888]; CUDA events, median of
-     5), the gen-2 split program vs kernel #1's path, the gen-1 split route
+     cascade on testing.iir_cases; CUDA events, median of 5), the gen-2
+     split program vs kernel #1's path, the gen-1 split route
      vs yuv_chain at 576i and 1080i, the gen-1 black-key scan's host cost
      per GOP, and each CLI's end-to-end fields/s.
 Each kernel's bound is the larger of two times at the H100 SXM data
@@ -397,33 +401,59 @@ def kernel_cases_gen1_split(dev) -> dict:
     return errs
 
 
-def kernel_cases_iir(dev) -> float:
-    """[3] fused_iir vs fused_iir_reference in each of the stage path's
-    shapes at [64*240, 720] and [16*540, 1888]; returns the largest
-    difference."""
+def kernel_cases_iir(cases) -> float:
+    """[3] fused_iir vs fused_iir_reference on its timed cases
+    (testing.iir_cases); returns the largest difference."""
     import torch
 
-    from cvsim_tpu_torch.ops import fused_iir
-    from cvsim_tpu_torch.testing import iir_bound, iir_input, iir_shapes
+    from cvsim_tpu_torch.testing import iir_bound
 
     max_err = 0.0
-    for rows, w in ((64 * 240, 720), (16 * 540, 1888)):
-        x = iir_input(dev, rows, w)
-        for label, alphas, y0s, mode, gain in iir_shapes():
-            kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
-            got = fused_iir.fused_iir(x, **kw)
-            torch.cuda.synchronize()
-            want = fused_iir.fused_iir_reference(x, **kw)
-            err = float((got - want).abs().max())
-            bound = iir_bound(float(x.abs().max()), gain)
-            max_err = max(max_err, err)
-            print(f"[3] fused_iir [{rows}, {w}] {label}: kernel vs plain max "
-                  f"{err} (bound {bound:.3e})")
-            if not err <= bound:
-                raise AssertionError(f"fused_iir {label} [{rows}, {w}]: "
-                                     f"max diff {err} > {bound}")
+    for case in cases:
+        if case.kernel != "fused_iir":
+            continue
+        got = case.kern()
+        torch.cuda.synchronize()
+        want = case.plain()
+        err = float((got - want).abs().max())
+        bound = iir_bound(float(case.inputs[0].abs().max()), case.cfg["gain"])
+        max_err = max(max_err, err)
+        print(f"[3] fused_iir {case.label}: kernel vs plain max {err} (bound "
+              f"{bound:.3e})")
+        if not err <= bound:
+            raise AssertionError(f"fused_iir {case.label}: max diff {err} > "
+                                 f"{bound}")
     print(f"[3] fused_iir: tolerance {IIR_TOLERANCE}")
     return max_err
+
+
+def check_case_pins(cases) -> None:
+    """[3] yiq_b1 and fused_iir on each of their timed cases against the
+    CRC32s of 6f83bf8's kernels (one row a CTA)."""
+    from cvsim_tpu_torch import kernels
+    from cvsim_tpu_torch.testing import (PINNED_CASE_CRC32, PINNED_KERNELS,
+                                         case_crc32)
+
+    n = 0
+    for case in cases:
+        if case.kernel not in PINNED_KERNELS:
+            continue
+        label = f"{case.kernel} {case.label}"
+        crc, pinned = case_crc32(case), PINNED_CASE_CRC32[label]
+        if crc != pinned:
+            raise AssertionError(f"{label}: CRC32 {crc:#010x} != pinned "
+                                 f"{pinned:#010x}")
+        n += 1
+    rows = {}
+    for c in cases:
+        if c.kernel in PINNED_KERNELS:
+            w = c.shape[-1]
+            choose = getattr(kernels.load(), f"cvsim_{c.kernel}_rows_per_cta")
+            rows[f"{c.kernel} at {w} samples"] = choose(-(-w // 128) * 128)
+    print(f"[3] yiq_b1, fused_iir: outputs byte-identical to 6f83bf8's "
+          f"kernels (one row a CTA) in all {n} timed cases (CRC32 == "
+          f"testing.PINNED_CASE_CRC32); rows a CTA: "
+          + ", ".join(f"{k} {v}" for k, v in rows.items()))
 
 
 def nbytes(*tensors) -> int:
@@ -703,7 +733,9 @@ def main() -> int:
     check_pinned(dev)
     err_split = kernel_cases_split(dev, key)
     err_g1split = kernel_cases_gen1_split(dev)
-    err_iir = kernel_cases_iir(dev)
+    cases = timed_cases(dev)
+    err_iir = kernel_cases_iir(cases)
+    check_case_pins(cases)
 
     # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
@@ -856,7 +888,6 @@ def main() -> int:
     # every kernel vs its plain version on the cases of testing.timed_cases
     # (kernel_ab.py times the same); the first case of each kernel is its
     # row of the kernels line
-    cases = timed_cases(dev)
     times, bounds, floors = {}, {}, {}
     for case in cases:
         ms, plain_ms, ms2 = (time_ms(case.kern), time_ms(case.plain),

@@ -36,25 +36,59 @@ __device__ inline float u8f(float v) {
 // tmp: wp floats of scratch; red: the pole's RED_FLOATS (pole.cuh). With
 // u8_masked (gen-1) the sum is clamped to u8 and the samples past w are
 // zeroed; without it (gen-2) every sample of wp takes the sum.
+// The walk's increment at sample x of a row: word plane_off + row*w + x of
+// stream key, uniform on -mag..mag; 0 past w.
+__device__ inline float walk_step(uint32_t key, int row, int x, int mag,
+                                  uint32_t plane_off, int w) {
+  if (x >= w) return 0.f;
+  const uint32_t span = 2u * (uint32_t)mag + 1u;
+  const uint32_t idx = plane_off + (uint32_t)row * (uint32_t)w + (uint32_t)x;
+  const uint32_t bits = mix32(key + idx * GOLD);
+  return (float)((int)(bits % span) - mag);
+}
+
 __device__ inline void add_walk(float* p, float* tmp, float* red,
                                 const PoleTables& tab, uint32_t key, int row,
                                 int mag, uint32_t plane_off, int w, int wp,
                                 bool u8_masked) {
-  const uint32_t span = 2u * (uint32_t)mag + 1u;
-  for (int x = threadIdx.x; x < wp; x += BLOCK) {
-    float u = 0.f;
-    if (x < w) {
-      const uint32_t idx = plane_off + (uint32_t)row * (uint32_t)w + (uint32_t)x;
-      const uint32_t bits = mix32(key + idx * GOLD);
-      u = (float)((int)(bits % span) - mag);
-    }
-    tmp[x] = u;
-  }
+  for (int x = threadIdx.x; x < wp; x += BLOCK)
+    tmp[x] = walk_step(key, row, x, mag, plane_off, w);
   __syncthreads();
   pole(tmp, tmp, tab, 0.f, wp / BLOCK, red);
   for (int x = threadIdx.x; x < wp; x += BLOCK) {
     const float v = p[x] + (x == 0 ? 0.f : truncf(tmp[x - 1]));
     p[x] = !u8_masked ? v : (x < w ? u8f(v) : 0.f);
+  }
+  __syncthreads();
+}
+
+// The stream and row index of one row of a multi-row walk.
+struct WalkRow {
+  uint32_t key;
+  int row;
+};
+
+// add_walk without the u8 mask (gen-2) over nrows rows held one after
+// another (row k at p + k*wp and tmp + k*wp), row k drawing the stream and
+// row index stream_of(k) returns (a WalkRow), with one pole_rows call for
+// all of them. Each row's sums equal add_walk's on that row alone.
+template <class StreamOf>
+__device__ inline void add_walk_rows(float* p, float* tmp, float* red,
+                                     const PoleTables& tab, StreamOf stream_of,
+                                     int nrows, int mag, uint32_t plane_off,
+                                     int w, int wp) {
+  for (int k = 0; k < nrows; ++k) {
+    const WalkRow s = stream_of(k);
+    for (int x = threadIdx.x; x < wp; x += BLOCK)
+      tmp[k * wp + x] = walk_step(s.key, s.row, x, mag, plane_off, w);
+  }
+  __syncthreads();
+  pole_rows(tmp, tmp, tab, 0.f, nrows, wp / BLOCK, red);
+  for (int k = 0; k < nrows; ++k) {
+    float* pk = p + k * wp;
+    const float* tk = tmp + k * wp;
+    for (int x = threadIdx.x; x < wp; x += BLOCK)
+      pk[x] = pk[x] + (x == 0 ? 0.f : truncf(tk[x - 1]));
   }
   __syncthreads();
 }

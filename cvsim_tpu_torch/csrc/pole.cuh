@@ -35,6 +35,15 @@
 // a longer row takes more rounds, the carries running on from one to the
 // next.
 //
+// Several rows (pole_rows, pole3_rows). A row of 720 samples fills 6 of a
+// round's 16 blocks, one of 360 samples 3, so a thread's table entries
+// serve only 3 or 2 blocks and the barriers serve one short row. The
+// multi-row forms take R rows held one after another as one list of
+// blocks: phases 1 and 3 are unchanged, and phase 2 runs one thread per
+// row, each chain starting from its row's reset value. Each output is the
+// same operations on the same values as in the one-row form, so the bits
+// are the same; only which thread computes it, and in which round, moves.
+//
 // Every function here is entered and left by all 128 threads of the CTA
 // (each contains __syncthreads) and ends synchronised, so that the caller
 // may read any sample and overwrite any buffer right after it returns.
@@ -58,6 +67,54 @@ constexpr int RED_FLOATS = 3 * ROUND + 2 * BLOCK;
 // registers, under which nothing spills (ptxas -v). Five or six rows an SM
 // ran 10-25% faster on an H100 but spill around the calls (PERF.md).
 constexpr int MIN_CTAS = 4;
+
+// Rows one CTA of a multi-row kernel (#3 yiq_b1, #9 fused_iir) takes at
+// padded width wp, each row `planes` planes of wp floats in shared memory,
+// on an SM of sm_smem bytes that keeps cta_reserved bytes for each CTA: of
+// the counts up to ROUND whose rows fit MIN_CTAS CTAs an SM beside the
+// poles' scratch, the one with the fewest pole rounds a row (the rows'
+// blocks taken ROUND at a time), the smallest on a tie. On an H100 (228 KB
+// an SM, 1 KB a CTA): 3 planes (#9) 5 rows at 360 and 720 samples, 1 at
+// 1888; 5 planes (#3) 2 at 704-720, 1 at 1888.
+inline int rows_per_cta(int wp, int planes, int sm_smem, int cta_reserved) {
+  const int nb = wp / BLOCK;
+  const int room = sm_smem / MIN_CTAS - cta_reserved -
+                   RED_FLOATS * (int)sizeof(float);
+  int fit = room / (planes * wp * (int)sizeof(float));
+  fit = fit < 1 ? 1 : fit > ROUND ? ROUND : fit;
+  int best = 1, best_rounds = (nb + ROUND - 1) / ROUND;
+  for (int r = 2; r <= fit; ++r) {
+    const int rounds = (r * nb + ROUND - 1) / ROUND;
+    if (rounds * best < best_rounds * r) {   // rounds / r < best's
+      best = r;
+      best_rounds = rounds;
+    }
+  }
+  return best;
+}
+
+#ifdef __CUDACC__
+}  // namespace cvsim
+
+// Rows a CTA that the multi-row kernels take in place of rows_per_cta's
+// choice, when above 0 (tests set it to hold the kernels at other counts);
+// defined in fused_iir.cu.
+extern "C" int cvsim_rows_per_cta_override;
+
+namespace cvsim {
+
+// rows_per_cta on the current device, or the override.
+inline int rows_per_cta(int wp, int planes) {
+  if (cvsim_rows_per_cta_override > 0) return cvsim_rows_per_cta_override;
+  int dev = 0, sm_smem = 0, reserved = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sm_smem,
+                         cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
+                         dev);
+  return rows_per_cta(wp, planes, sm_smem, reserved);
+}
+#endif
 
 struct PoleTables {
   const float* tt;   // [128][128] T^T
@@ -144,13 +201,16 @@ __device__ inline void block_end_dots(const float* in, const float* vt,
   red[3 * q + col] = u;
 }
 
-// One round: blocks b0 .. b0+n-1 (n <= 2*KB) of a single pole (THREE
-// false) or of a three-pole cascade, entered with the carries into block
-// b0; returns the carries out of its last block (in thread 0).
+// Phase 1 of a round over blocks b0 .. b0+n-1 (n <= 2*KB): every block's
+// zero-carry product into the thread's sums (a thread of half 1 holds a
+// copy of the last block when n is odd, and discards it), column 127's
+// sums into red; pole3's block-end dots on the last warp.
 template <bool THREE, int KB>
-__device__ __noinline__ Carries pole_round(const float* in, float* out,
-                                           PoleTables p, float* red, int b0,
-                                           int n, Carries c) {
+__device__ __forceinline__ void round_products(const float* in,
+                                               const PoleTables& p,
+                                               float* red, int b0, int n,
+                                               float (&ahi)[KB],
+                                               float (&alo)[KB]) {
   const int t = threadIdx.x;
   const int h = t / HALF, lo = t % HALF, hi = BLOCK - 1 - lo;
   // a warp holds 32 consecutive low columns: 32*m .. 32*m+31
@@ -158,13 +218,10 @@ __device__ __noinline__ Carries pole_round(const float* in, float* out,
   const int j_both = 32 * m + 32, j_end = BLOCK - 32 * m;
   const float* tab = THREE ? p.tt3 : p.tt;
 
-  // 1. products (a thread of half 1 holds a copy of the last block when n
-  // is odd, and discards it); pole3's block-end dots on the last warp
   if (THREE && t / 32 == 3)
     block_end_dots(in, p.vt, red + 3 * ROUND, red, b0, n);
   const float4* xb = reinterpret_cast<const float4*>(in + b0 * BLOCK);
   int qs[KB];
-  float ahi[KB], alo[KB];
 #pragma unroll
   for (int i = 0; i < KB; ++i) {
     qs[i] = min(2 * i + h, n - 1) * (BLOCK / 4);
@@ -180,47 +237,60 @@ __device__ __noinline__ Carries pole_round(const float* in, float* out,
     const int q = 2 * i + h;
     if (lo == 0 && q < n) red[THREE ? 3 * q + 2 : q] = ahi[i];
   }
-  __syncthreads();
+}
 
-  // 2. carries: red[q] (red[3q..3q+2]) becomes the carries into block q.
-  // Each step's inputs are read one step ahead, so that only the
-  // arithmetic is serial.
-  if (t == 0) {
-    const float dl = __ldg(p.d + BLOCK - 1);
-    if (!THREE) {
-      float e = red[0];
-      for (int q = 0; q < n; ++q) {
-        const float next = q + 1 < n ? red[q + 1] : 0.f;
-        red[q] = c.c1;
-        c.c1 = e + dl * c.c1;
-        e = next;
+// Phase 2, on one thread: the carry chain over n consecutive blocks whose
+// phase-1 values sit at red (red[q], or red[3q..3q+2]), entered with the
+// carries into the first; red's entries become the carries into each
+// block, and the carries out of the last are returned. Each step's inputs
+// are read one step ahead, so that only the arithmetic is serial.
+template <bool THREE>
+__device__ __forceinline__ Carries carry_chain(float* red, int n,
+                                               const PoleTables& p,
+                                               Carries c) {
+  const float dl = __ldg(p.d + BLOCK - 1);
+  if (!THREE) {
+    float e = red[0];
+    for (int q = 0; q < n; ++q) {
+      const float next = q + 1 < n ? red[q + 1] : 0.f;
+      red[q] = c.c1;
+      c.c1 = e + dl * c.c1;
+      e = next;
+    }
+  } else {
+    const float s1 = __ldg(p.d3 + BLOCK - 1);
+    const float s2 = __ldg(p.d3 + 2 * BLOCK - 1);
+    float u1 = red[0], u2 = red[1], e = red[2];
+    for (int q = 0; q < n; ++q) {
+      float* r = red + 3 * q;
+      float n1 = 0.f, n2 = 0.f, ne = 0.f;
+      if (q + 1 < n) {
+        n1 = r[3];
+        n2 = r[4];
+        ne = r[5];
       }
-    } else {
-      const float s1 = __ldg(p.d3 + BLOCK - 1);
-      const float s2 = __ldg(p.d3 + 2 * BLOCK - 1);
-      float u1 = red[0], u2 = red[1], e = red[2];
-      for (int q = 0; q < n; ++q) {
-        float* r = red + 3 * q;
-        float n1 = 0.f, n2 = 0.f, ne = 0.f;
-        if (q + 1 < n) {
-          n1 = r[3];
-          n2 = r[4];
-          ne = r[5];
-        }
-        r[0] = c.c1;
-        r[1] = c.c2;
-        r[2] = c.c3;
-        c = {u1 + dl * c.c1, u2 + s2 * c.c1 + dl * c.c2,
-             e + s1 * c.c1 + s2 * c.c2 + dl * c.c3};
-        u1 = n1;
-        u2 = n2;
-        e = ne;
-      }
+      r[0] = c.c1;
+      r[1] = c.c2;
+      r[2] = c.c3;
+      c = {u1 + dl * c.c1, u2 + s2 * c.c1 + dl * c.c2,
+           e + s1 * c.c1 + s2 * c.c2 + dl * c.c3};
+      u1 = n1;
+      u2 = n2;
+      e = ne;
     }
   }
-  __syncthreads();
+  return c;
+}
 
-  // 3. outputs
+// Phase 3: each thread adds its blocks' carry terms (red, from phase 2) to
+// the sums it holds and writes them.
+template <bool THREE, int KB>
+__device__ __forceinline__ void round_outputs(float* out, const PoleTables& p,
+                                              const float* red, int b0, int n,
+                                              const float (&ahi)[KB],
+                                              const float (&alo)[KB]) {
+  const int t = threadIdx.x;
+  const int h = t / HALF, lo = t % HALF, hi = BLOCK - 1 - lo;
   const float dh = __ldg(p.d + hi), dlo = __ldg(p.d + lo);
   float e1h = 0.f, e1l = 0.f, e2h = 0.f, e2l = 0.f;
   if (THREE) {
@@ -246,6 +316,71 @@ __device__ __noinline__ Carries pole_round(const float* in, float* out,
       }
     }
   }
+}
+
+// One round of one row: blocks b0 .. b0+n-1 (n <= 2*KB) of a single pole
+// (THREE false) or of a three-pole cascade, entered with the carries into
+// block b0; returns the carries out of its last block (in thread 0).
+template <bool THREE, int KB>
+__device__ __noinline__ Carries pole_round(const float* in, float* out,
+                                           PoleTables p, float* red, int b0,
+                                           int n, Carries c) {
+  float ahi[KB], alo[KB];
+  round_products<THREE, KB>(in, p, red, b0, n, ahi, alo);
+  __syncthreads();
+  if (threadIdx.x == 0) c = carry_chain<THREE>(red, n, p, c);
+  __syncthreads();
+  round_outputs<THREE, KB>(out, p, red, b0, n, ahi, alo);
+  __syncthreads();
+  return c;
+}
+
+// The rows of a multi-row call: nb blocks each, reset to y0_rows[row] when
+// given, else to y0.
+struct RowSet {
+  int nb;
+  float y0;
+  const float* y0_rows;
+};
+
+// One round of several rows of nb blocks each, held one after another
+// (block q belongs to row q / nb): blocks b0 .. b0+n-1 (n <= 2*KB) of the
+// rows together. Phases 1 and 3 are pole_round's, so each table entry a
+// thread loads serves blocks of every row in the round; phase 2 runs one
+// thread per row in the round, each chain restarting at its row's first
+// block with the row's reset value. A row that began in an earlier round
+// goes on from c, the carries that round returned (in thread 0); the
+// carries out of the round's last block are returned the same way, passed
+// through red[3 * ROUND ..], free after phase 1.
+template <bool THREE, int KB>
+__device__ __noinline__ Carries pole_rows_round(const float* in, float* out,
+                                                PoleTables p, float* red,
+                                                int b0, int n, RowSet rs,
+                                                Carries c) {
+  float ahi[KB], alo[KB];
+  round_products<THREE, KB>(in, p, red, b0, n, ahi, alo);
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int nb = rs.nb;
+  const int r0 = b0 / nb, n_rows = (b0 + n - 1) / nb - r0 + 1;
+  if (t < n_rows) {
+    const int row = r0 + t;
+    const int q0 = max(row * nb, b0), q1 = min(row * nb + nb, b0 + n);
+    if (q0 == row * nb) {
+      const float y = rs.y0_rows ? rs.y0_rows[row] : rs.y0;
+      c = {y, y, y};
+    }
+    c = carry_chain<THREE>(red + (THREE ? 3 : 1) * (q0 - b0), q1 - q0, p, c);
+    if (t == n_rows - 1) {
+      red[3 * ROUND] = c.c1;
+      red[3 * ROUND + 1] = c.c2;
+      red[3 * ROUND + 2] = c.c3;
+    }
+  }
+  __syncthreads();
+  if (t == 0)
+    c = {red[3 * ROUND], red[3 * ROUND + 1], red[3 * ROUND + 2]};
+  round_outputs<THREE, KB>(out, p, red, b0, n, ahi, alo);
   __syncthreads();
   return c;
 }
@@ -282,6 +417,52 @@ __device__ inline void pole(const float* in, float* out, const PoleTables& p,
 __device__ inline void pole3(const float* in, float* out, const PoleTables& p,
                              float y0, int nb, float* red) {
   pole_rounds<true>(in, out, p, y0, nb, red);
+}
+
+// The multi-row forms: nrows rows of nb blocks each, held one after
+// another in shared memory (row r at in + r * nb * BLOCK), taken in rounds
+// of ROUND blocks of the rows together, so that the barriers of a round
+// and each table entry a thread loads serve every row in it. Row r resets
+// to y0_rows[r] when given, else to y0.
+// Every output equals that of `pole` or `pole3` on the row alone, bit for
+// bit.
+template <bool THREE>
+__device__ inline void pole_rows_rounds(const float* in, float* out,
+                                        const PoleTables& p, float y0,
+                                        int nrows, int nb, float* red,
+                                        const float* y0_rows) {
+  const RowSet rs{nb, y0, y0_rows};
+  Carries c{y0, y0, y0};
+  const int total = nrows * nb;
+  for (int b0 = 0; b0 < total; b0 += ROUND) {
+    const int n = min(total - b0, ROUND);
+    switch ((n + 1) / 2) {
+      case 1: c = pole_rows_round<THREE, 1>(in, out, p, red, b0, n, rs, c); break;
+      case 2: c = pole_rows_round<THREE, 2>(in, out, p, red, b0, n, rs, c); break;
+      case 3: c = pole_rows_round<THREE, 3>(in, out, p, red, b0, n, rs, c); break;
+      case 4: c = pole_rows_round<THREE, 4>(in, out, p, red, b0, n, rs, c); break;
+      case 5: c = pole_rows_round<THREE, 5>(in, out, p, red, b0, n, rs, c); break;
+      case 6: c = pole_rows_round<THREE, 6>(in, out, p, red, b0, n, rs, c); break;
+      case 7: c = pole_rows_round<THREE, 7>(in, out, p, red, b0, n, rs, c); break;
+      default: c = pole_rows_round<THREE, MAX_KB>(in, out, p, red, b0, n, rs, c);
+    }
+  }
+}
+
+// `pole` over nrows rows (see pole_rows_rounds).
+__device__ inline void pole_rows(const float* in, float* out,
+                                 const PoleTables& p, float y0, int nrows,
+                                 int nb, float* red,
+                                 const float* y0_rows = nullptr) {
+  pole_rows_rounds<false>(in, out, p, y0, nrows, nb, red, y0_rows);
+}
+
+// `pole3` over nrows rows (see pole_rows_rounds).
+__device__ inline void pole3_rows(const float* in, float* out,
+                                  const PoleTables& p, float y0, int nrows,
+                                  int nb, float* red,
+                                  const float* y0_rows = nullptr) {
+  pole_rows_rounds<true>(in, out, p, y0, nrows, nb, red, y0_rows);
 }
 
 }  // namespace cvsim

@@ -113,6 +113,13 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = [ptr] * n_args
                 fn.restype = ctypes.c_int
+            # rows a CTA of the multi-row kernels (#9, #3) at a padded
+            # width, on the current device
+            for name in ("cvsim_fused_iir_rows_per_cta",
+                         "cvsim_yiq_b1_rows_per_cta"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_int]
+                fn.restype = ctypes.c_int
             lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p
             _lib = lib

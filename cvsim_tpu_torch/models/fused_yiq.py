@@ -402,7 +402,8 @@ def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig,
              w: int):
     """Kernel #3 (yiq_b1) on the head-switched luma f32 [B, L, Wp] of w
     active samples: y, i, q f32 [B, L, Wp]. CPU tensor:
-    stage_b1_reference; CUDA tensor: the kernel or raise."""
+    stage_b1_reference; CUDA tensor: the kernel (several rows a CTA at
+    480i and 576i widths) or raise."""
     global B1_LAUNCHES
     dev = _cuda_device(y, "yiq_b1")
     if dev is None:

@@ -775,6 +775,7 @@ struct VDecoder {
   AVPacket *pkt = nullptr;
   int vidx = -1;
   bool keep_chroma = false, flushing = false;
+  bool neutral_chroma = false;  // cu/cv2 hold a GRAY8 frame's neutral fill
   AVRational fps = {30000, 1001};
   long w = 0, h = 0;
   std::vector<uint8_t> cy, cu, cv2;
@@ -854,12 +855,15 @@ struct VDecoder {
       memcpy(&cy[r * fw], f->data[0] + (size_t)r * f->linesize[0], fw);
     if (gray) {
       // mono input: the Python loops fill full-res neutral chroma
-      // (cli/tools.py `uf = np.full_like(yf, 128)`)
-      if ((long)cu.size() != fh * fw) {
+      // (cli/tools.py `uf = np.full_like(yf, 128)`); refilled whenever the
+      // buffers last held another frame's chroma, whatever its size
+      if (!neutral_chroma || (long)cu.size() != fh * fw) {
         cu.assign((size_t)fh * fw, 128);
         cv2.assign((size_t)fh * fw, 128);
+        neutral_chroma = true;
       }
     } else {
+      neutral_chroma = false;
       cu.resize((size_t)ch * cw);
       cv2.resize((size_t)ch * cw);
       for (long r = 0; r < ch; r++) {

@@ -88,8 +88,9 @@ def fused_iir(x: torch.Tensor, *, alphas: tuple, y0s: tuple,
     """The pole cascade over the last axis of x [..., W] (float32), the
     API of the JAX package's fused_iir. A CPU tensor runs
     fused_iir_reference. A CUDA tensor launches the kernel of
-    csrc/fused_iir.cu (built at first use), one CTA per row, or raises;
-    there is no fallback."""
+    csrc/fused_iir.cu (built at first use), several rows a CTA at the
+    narrower widths (the kernel chooses how many), or raises; there is no
+    fallback."""
     global KERNEL_LAUNCHES
     if x.device.type == "cpu":
         return fused_iir_reference(x, alphas=alphas, y0s=y0s, mode=mode,

@@ -130,8 +130,6 @@ def chain_inputs(kernel: str, name: str, cfg: CompositeConfig,
 def chain_crc32(kernel: str, cfg: CompositeConfig, planes, prep) -> int:
     """CRC32 of kernel #1's RGB bytes, or of #5's y, u and v bytes in
     turn, on `planes` (chain_inputs)."""
-    import zlib
-
     from cvsim_tpu_torch.models import fused_yiq, fused_yuv
 
     if kernel == "yiq_chain":
@@ -139,8 +137,15 @@ def chain_crc32(kernel: str, cfg: CompositeConfig, planes, prep) -> int:
     else:
         outs = fused_yuv.composite_video_process_merged(*planes, prep,
                                                         cfg=cfg)
+    return tensors_crc32(outs)
+
+
+def tensors_crc32(tensors) -> int:
+    """CRC32 of the bytes of each tensor in turn."""
+    import zlib
+
     crc = 0
-    for t in outs:
+    for t in tensors:
         crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
     return crc
 
@@ -148,9 +153,11 @@ def chain_crc32(kernel: str, cfg: CompositeConfig, planes, prep) -> int:
 TIMING_REPS = 5
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, calls: int = 1) -> float:
     """Median of TIMING_REPS CUDA-event timings of fn(), after two
-    warm-ups."""
+    warm-ups. calls > 1 times that many calls back to back and divides by
+    it, so that the host enqueues each call while the card runs the one
+    before: a kernel's device time, without its wrapper's host work."""
     import torch
 
     for _ in range(2):
@@ -160,10 +167,11 @@ def time_ms(fn) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return sorted(times)[TIMING_REPS // 2]
 
 
@@ -184,6 +192,35 @@ def iir_shapes() -> list:
             ("sharpen, unsharp 3 poles", (sharp,) * 3, (16.0,) * 3,
              "unsharp", 1.5),
             ("preemphasis, emph 1 pole", (pre,), (16.0,), "emph", 7.0)]
+
+
+def iir_half_shapes() -> list:
+    """The pole cascade's calls on the half-width chroma planes of the
+    debug-tap route at the VHS-EP cuts (the VHS chroma lowpass and the
+    chroma sharpen; the input and output chroma lowpasses are 3-pole
+    'none' cascades too): (label, alphas, y0s, mode, gain)."""
+    from cvsim_tpu_torch.config import NTSC_RATE_422, iir_alpha
+
+    ep = VHSSpeed.EP
+    chroma = float(iir_alpha(NTSC_RATE_422, ep.chroma_cut))
+    sharp = float(iir_alpha(NTSC_RATE_422, ep.chroma_cut * 2))
+    gain = CompositeConfig().vhs_out_sharpen_chroma
+    return [("VHS chroma, none 3 poles", (chroma,) * 3, (128.0,) * 3, "none",
+             0.0),
+            ("chroma sharpen, unsharp 3 poles", (sharp,) * 3, (128.0,) * 3,
+             "unsharp", gain)]
+
+
+def iir_cases() -> list:
+    """#9's checked, timed and pinned calls: (rows, w, label, alphas, y0s,
+    mode, gain) for each of iir_shapes() at [64*240, 720], of
+    iir_half_shapes() at [64*240, 360] (480i's half-width chroma) and of
+    iir_shapes() at [16*540, 1888]."""
+    return [(rows, w, *shape)
+            for rows, w, shapes in ((64 * 240, 720, iir_shapes()),
+                                    (64 * 240, 360, iir_half_shapes()),
+                                    (16 * 540, 1888, iir_shapes()))
+            for shape in shapes]
 
 
 def iir_input(device, rows: int, w: int):
@@ -210,10 +247,10 @@ def timed_cases(device) -> list[TimedCase]:
     and kernel_ab.py: #1-#4 on the bench VHS-EP configuration at 240x704
     B=64 and 540x1888 B=16; #5 on the gen-1 bench configuration at 240x720
     B=64, 288x720 PAL B=64 and 540x1888 B=16, #6-#8 at the last two; #9
-    in each of iir_shapes() at [64*240, 720] and [16*540, 1888]. Inputs
-    from chain_inputs(kernel, "time", ...) and iir_input; #3's and #4's
-    are the outputs of the kernels before them. The first case of each
-    kernel is the one its row of the kernel table reports."""
+    on iir_cases(). Inputs from chain_inputs(kernel, "time", ...) and
+    iir_input; #3's and #4's are the outputs of the kernels before them.
+    The first case of each kernel is the one its row of the kernel table
+    reports."""
     from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yuv422
     from cvsim_tpu_torch.ops import fused_iir
 
@@ -266,16 +303,60 @@ def timed_cases(device) -> list[TimedCase]:
                           partial(plain, *inputs, cfg=cfg1), cfg1, shape,
                           inputs)
                 for kernel, kern, plain, inputs in cases]
-    for rows, w in ((64 * 240, 720), (16 * 540, 1888)):
-        x = iir_input(device, rows, w)
-        for label, alphas, y0s, mode, gain in iir_shapes():
-            kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
-            out.append(TimedCase(
-                "fused_iir", f"[{rows}, {w}] {label}",
-                partial(fused_iir.fused_iir, x, **kw),
-                partial(fused_iir.fused_iir_reference, x, **kw), kw,
-                (rows, w), (x,)))
+    inputs = {}
+    for rows, w, label, alphas, y0s, mode, gain in iir_cases():
+        if (rows, w) not in inputs:
+            inputs[rows, w] = iir_input(device, rows, w)
+        x = inputs[rows, w]
+        kw = dict(alphas=alphas, y0s=y0s, mode=mode, gain=gain)
+        out.append(TimedCase(
+            "fused_iir", f"[{rows}, {w}] {label}",
+            partial(fused_iir.fused_iir, x, **kw),
+            partial(fused_iir.fused_iir_reference, x, **kw), kw,
+            (rows, w), (x,)))
     return out
+
+
+# Kernels #3 (yiq_b1: its y, i, q planes in turn) and #9 (fused_iir) on
+# every case of timed_cases, and the CRC32 of each output (case_crc32) as
+# the kernels of commit 6f83bf8 (one row a CTA) computed it on an H100
+# (kernel_ab.py). Both kernels were then rebuilt to take several rows a
+# CTA, keeping every output bit; the `cuda` tests, chip_smoke.py [3] and
+# kernel_ab.py hold them to these values. Keyed by "kernel label".
+PINNED_KERNELS = ("yiq_b1", "fused_iir")
+PINNED_CASE_CRC32 = {
+    "yiq_b1 240x704 B=64 bench VHS-EP":
+        0xB34C9CB6,
+    "yiq_b1 540x1888 B=16 bench VHS-EP":
+        0x63349F23,
+    "fused_iir [15360, 720] VHS luma, emph 4 poles":
+        0x96BB8C89,
+    "fused_iir [15360, 720] VHS chroma, none 3 poles":
+        0x4C1F22F2,
+    "fused_iir [15360, 720] sharpen, unsharp 3 poles":
+        0x9C93F74E,
+    "fused_iir [15360, 720] preemphasis, emph 1 pole":
+        0x28E43983,
+    "fused_iir [15360, 360] VHS chroma, none 3 poles":
+        0xED4CD28C,
+    "fused_iir [15360, 360] chroma sharpen, unsharp 3 poles":
+        0x4D05AC4E,
+    "fused_iir [8640, 1888] VHS luma, emph 4 poles":
+        0xE5103BC8,
+    "fused_iir [8640, 1888] VHS chroma, none 3 poles":
+        0x6959C32B,
+    "fused_iir [8640, 1888] sharpen, unsharp 3 poles":
+        0x60652EBA,
+    "fused_iir [8640, 1888] preemphasis, emph 1 pole":
+        0x9F9CE573,
+}
+
+
+def case_crc32(case: TimedCase) -> int:
+    """CRC32 of a timed case's kernel output (each tensor of a tuple in
+    turn)."""
+    out = case.kern()
+    return tensors_crc32(out if isinstance(out, tuple) else (out,))
 
 
 def reference_config(cfg: CompositeConfig, config_module):

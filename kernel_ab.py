@@ -5,14 +5,17 @@ one card.
 
 Builds the kernels of the tree at DIR (default: this checkout), prints the
 CRC32 of kernels #1 and #5 on every case of testing.PINNED_CHAIN_CRC32 and
-whether it equals the pinned value, then times every kernel on the cases
-of testing.timed_cases, the ones chip_smoke.py [5] times (testing.time_ms:
-CUDA events, median of 5 after two warm-ups). The inputs, the pinned
-values and the timing come from this checkout's testing.py, so two trees
-(say a parent unpacked with `git archive` into an ignored directory, and
-this one) get the same inputs; run them in turns within one call, parent,
-change, change, parent. The last line is one JSON object {"root", "card",
-"crc32", "pinned_equal", "ms"}. Needs one card; exits 1 without one.
+of #3 and #9 on every case of testing.PINNED_CASE_CRC32, and whether each
+equals the pinned value, then times every kernel on the cases of
+testing.timed_cases, the ones chip_smoke.py [5] times (testing.time_ms:
+CUDA events, median of 5 after two warm-ups), once a call and once over
+10 calls back to back (the device time without the wrapper's host work).
+The inputs, the pinned values and the timing come from this checkout's
+testing.py, so two trees (say a parent unpacked with `git archive` into
+an ignored directory, and this one) get the same inputs; run them in
+turns within one call, parent, change, change, parent. A run that builds prints ptxas's register and spill lines.
+The last line is one JSON object {"root", "card", "crc32", "pinned_equal",
+"ms", "ms_back_to_back"}. Needs one card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -60,6 +63,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kernels.load()
+    if kernels.BUILD_LOG:   # built in this process
+        for line in kernels.BUILD_LOG.splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling",
+                                       "Function properties")):
+                print(f"    ptxas: {line.strip()}")
     print(f"kernel_ab: {root} on {card}")
     T = _testing()
     crcs, equal = {}, True
@@ -71,13 +79,22 @@ def main() -> int:
         equal &= crc == pinned
         print(f"{kernel} {name} {shape}: crc32 {crc:#010x} (pinned "
               f"{pinned:#010x})")
-    ms = {}
+    ms, b2b = {}, {}
     for case in T.timed_cases(dev):
         label = f"{case.kernel} {case.label}"
+        if case.kernel in T.PINNED_KERNELS:
+            crc = crcs[label] = T.case_crc32(case)
+            pinned = T.PINNED_CASE_CRC32.get(label)
+            equal &= crc == pinned
+            print(f"{label}: crc32 {crc:#010x} (pinned "
+                  f"{'none' if pinned is None else f'{pinned:#010x}'})")
         ms[label] = T.time_ms(case.kern)
-        print(f"{label}: {ms[label]:.3f} ms")
+        b2b[label] = T.time_ms(case.kern, calls=10)
+        print(f"{label}: {ms[label]:.3f} ms, back to back "
+              f"{b2b[label]:.3f} ms")
     print(json.dumps({"root": root, "card": card, "crc32": crcs,
-                      "pinned_equal": equal, "ms": ms}))
+                      "pinned_equal": equal, "ms": ms,
+                      "ms_back_to_back": b2b}))
     return 0
 
 

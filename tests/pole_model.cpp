@@ -1,0 +1,261 @@
+// A CPU model of csrc/pole.cuh and csrc/noise.cuh: the CUDA primitives
+// compiled with g++ under a shim (one std::thread per CUDA thread of a
+// 128-thread CTA, __syncthreads/__syncwarp as std::barrier, __ldg a load,
+// float4 a struct), so that the multi-row forms can be held against the
+// one-row forms bit for bit without a GPU.
+//
+//   g++ -std=c++20 -O1 -ffp-contract=off -fno-strict-aliasing -pthread \
+//       -I cvsim_tpu_torch/csrc tests/pole_model.cpp -o pole_model
+//   ./pole_model FORM W R ROWS SEED      FORM: pole, pole3 or walk
+//   ./pole_model rows PLANES WP...
+//
+// ROWS rows of W samples (random values, a random reset value each) go
+// through the one-row form row by row, and through the multi-row form R
+// rows a CTA (the last CTA may hold fewer). For pole and pole3 each row is
+// also computed by a plain sequential loop with the primitives' operation
+// order. Prints "ok" and exits 0 when all are bit-identical; else prints
+// the first mismatch and exits 1. `rows` prints, for each padded width WP,
+// the rows a CTA that pole.cuh's rows_per_cta gives rows of PLANES planes
+// on an H100 SM (228 KB of shared memory, 1 KB kept a CTA).
+// tests/test_torch_pole_model.py runs it.
+
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <random>
+#include <string>
+#include <thread>
+#include <vector>
+
+// ---- the shim
+struct ThreadIndex {
+  unsigned x;
+};
+thread_local ThreadIndex threadIdx;
+struct float4 {
+  float x, y, z, w;
+};
+#define __device__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
+using std::max;
+using std::min;
+static std::barrier<>* g_cta;
+static std::barrier<>* g_warps[4];
+inline void __syncthreads() { g_cta->arrive_and_wait(); }
+inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
+
+#include "noise.cuh"
+
+using namespace cvsim;
+
+// Runs body on the 128 threads of one CTA.
+static void run_cta(const std::function<void()>& body) {
+  std::barrier<> cta(BLOCK);
+  std::barrier<> w0(32), w1(32), w2(32), w3(32);
+  g_cta = &cta;
+  g_warps[0] = &w0;
+  g_warps[1] = &w1;
+  g_warps[2] = &w2;
+  g_warps[3] = &w3;
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < BLOCK; ++t)
+    threads.emplace_back([t, &body] {
+      threadIdx.x = t;
+      body();
+    });
+  for (auto& th : threads) th.join();
+}
+
+// ---- the tables of one pole (the layouts of pole.cuh's PoleTables),
+// computed in double and cast once
+struct Tabs {
+  std::vector<float> tt, d, tt3, d3, vt;
+  PoleTables p() const {
+    return {tt.data(), d.data(), tt3.data(), d3.data(), vt.data()};
+  }
+};
+
+static Tabs make_tables(double a) {
+  const int n = BLOCK;
+  std::vector<double> T(n * n, 0.0), T2(n * n, 0.0), T3(n * n, 0.0), d(n);
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j <= i; ++j) T[i * n + j] = a * std::pow(1 - a, i - j);
+    d[i] = std::pow(1 - a, i + 1);
+  }
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j)
+      for (int k = 0; k < n; ++k) T2[i * n + j] += T[i * n + k] * T[k * n + j];
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < n; ++j)
+      for (int k = 0; k < n; ++k) T3[i * n + j] += T2[i * n + k] * T[k * n + j];
+  Tabs t;
+  t.tt.resize(n * n);
+  t.tt3.resize(n * n);
+  t.d.resize(n);
+  t.d3.assign(8 * n, 0.f);
+  t.vt.assign(n * 8, 0.f);
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j < n; ++j) {
+      t.tt[j * n + i] = (float)T[i * n + j];
+      t.tt3[j * n + i] = (float)T3[i * n + j];
+    }
+    t.d[i] = (float)d[i];
+    double t2d = 0.0, td = 0.0;
+    for (int k = 0; k < n; ++k) {
+      t2d += T2[i * n + k] * d[k];
+      td += T[i * n + k] * d[k];
+    }
+    t.d3[i] = (float)t2d;
+    t.d3[n + i] = (float)td;
+    t.vt[i * 8] = (float)T[(n - 1) * n + i];
+    t.vt[i * 8 + 1] = (float)T2[(n - 1) * n + i];
+  }
+  return t;
+}
+
+// ---- the plain sequential form: each block's product with j ascending,
+// then the carry terms left to right, then the carry chain
+static void plain_pole(const float* x, float* y, const Tabs& t, float y0,
+                       int nb, bool three) {
+  const int n = BLOCK;
+  float c1 = y0, c2 = y0, c3 = y0;
+  const float dl = t.d[n - 1], s1 = t.d3[n - 1], s2 = t.d3[2 * n - 1];
+  const float* tab = three ? t.tt3.data() : t.tt.data();
+  for (int q = 0; q < nb; ++q) {
+    const float* xb = x + q * n;
+    float acc[BLOCK];
+    for (int i = 0; i < n; ++i) {
+      float a = 0.f;
+      for (int j = 0; j <= i; ++j) a = fmaf(xb[j], tab[j * n + i], a);
+      acc[i] = a;
+    }
+    if (!three) {
+      for (int i = 0; i < n; ++i) y[q * n + i] = acc[i] + t.d[i] * c1;
+      c1 = acc[n - 1] + dl * c1;
+      continue;
+    }
+    float u1 = 0.f, u2 = 0.f;
+    for (int j = 0; j < n; ++j) {
+      u1 = fmaf(xb[j], t.vt[j * 8], u1);
+      u2 = fmaf(xb[j], t.vt[j * 8 + 1], u2);
+    }
+    for (int i = 0; i < n; ++i)
+      y[q * n + i] = acc[i] + t.d3[i] * c1 + t.d3[n + i] * c2 + t.d[i] * c3;
+    const float n1 = u1 + dl * c1, n2 = u2 + s2 * c1 + dl * c2;
+    const float n3 = acc[n - 1] + s1 * c1 + s2 * c2 + dl * c3;
+    c1 = n1;
+    c2 = n2;
+    c3 = n3;
+  }
+}
+
+static int first_diff(const std::vector<float>& a, const std::vector<float>& b) {
+  for (size_t i = 0; i < a.size(); ++i)
+    if (std::memcmp(&a[i], &b[i], sizeof(float)) != 0) return (int)i;
+  return -1;
+}
+
+int main(int argc, char** argv) {
+  if (argc >= 3 && std::string(argv[1]) == "rows") {
+    for (int k = 3; k < argc; ++k)
+      std::printf("%d\n", rows_per_cta(std::atoi(argv[k]), std::atoi(argv[2]),
+                                       228 * 1024, 1024));
+    return 0;
+  }
+  if (argc != 6) {
+    std::fprintf(stderr, "usage: pole_model FORM W R ROWS SEED\n");
+    return 2;
+  }
+  const std::string form = argv[1];
+  const int w = std::atoi(argv[2]), R = std::atoi(argv[3]);
+  const int rows = std::atoi(argv[4]);
+  std::mt19937 rng(std::atoi(argv[5]));
+  const int wp = (w + BLOCK - 1) / BLOCK * BLOCK, nb = wp / BLOCK;
+  const bool walk = form == "walk", three = form == "pole3";
+  if (!walk && !three && form != "pole") return 2;
+
+  std::uniform_real_distribution<float> val(0.f, 256.f);
+  std::uniform_real_distribution<double> alpha(0.05, 0.6);
+  const Tabs tabs = make_tables(walk ? 0.5 : alpha(rng));
+  const PoleTables p = tabs.p();
+  // rows of w values, zero past w (as the kernels pad them), a reset
+  // value, stream and row index each
+  std::vector<float> x((size_t)rows * wp, 0.f), y0(rows);
+  std::vector<WalkRow> streams(rows);
+  for (int r = 0; r < rows; ++r) {
+    for (int i = 0; i < w; ++i)
+      x[(size_t)r * wp + i] = walk ? std::floor(val(rng)) : val(rng);
+    y0[r] = std::floor(val(rng));
+    streams[r] = {(uint32_t)rng(), (int)(rng() % 1000)};
+  }
+  const int mag = 22;
+  const uint32_t plane_off = 240u * (uint32_t)w;
+
+  std::vector<float> one(x.size()), multi(x.size()), plain(x.size());
+  std::vector<float> buf((size_t)R * wp), tmp((size_t)R * wp), red(RED_FLOATS);
+  run_cta([&] {
+    const unsigned t = threadIdx.x;
+    // the one-row form, row by row
+    for (int r = 0; r < rows; ++r) {
+      for (int i = t; i < wp; i += BLOCK) buf[i] = x[(size_t)r * wp + i];
+      __syncthreads();
+      if (walk)
+        add_walk(buf.data(), tmp.data(), red.data(), p, streams[r].key,
+                 streams[r].row, mag, plane_off, w, wp, false);
+      else if (three)
+        pole3(buf.data(), buf.data(), p, y0[r], nb, red.data());
+      else
+        pole(buf.data(), buf.data(), p, y0[r], nb, red.data());
+      for (int i = t; i < wp; i += BLOCK) one[(size_t)r * wp + i] = buf[i];
+      __syncthreads();
+    }
+    // the multi-row form, R rows a CTA
+    for (int r0 = 0; r0 < rows; r0 += R) {
+      const int n = min(R, rows - r0);
+      for (int i = t; i < n * wp; i += BLOCK) buf[i] = x[(size_t)r0 * wp + i];
+      __syncthreads();
+      if (walk)
+        add_walk_rows(buf.data(), tmp.data(), red.data(), p,
+                      [&](int k) { return streams[r0 + k]; }, n, mag,
+                      plane_off, w, wp);
+      else if (three)
+        pole3_rows(buf.data(), buf.data(), p, 0.f, n, nb, red.data(),
+                   y0.data() + r0);
+      else
+        pole_rows(buf.data(), buf.data(), p, 0.f, n, nb, red.data(),
+                  y0.data() + r0);
+      for (int i = t; i < n * wp; i += BLOCK) multi[(size_t)r0 * wp + i] = buf[i];
+      __syncthreads();
+    }
+  });
+
+  int bad = first_diff(one, multi);
+  if (bad >= 0) {
+    std::printf("multi-row != one-row at row %d sample %d: %.9g vs %.9g\n",
+                bad / wp, bad % wp, multi[bad], one[bad]);
+    return 1;
+  }
+  if (!walk) {
+    for (int r = 0; r < rows; ++r)
+      plain_pole(x.data() + (size_t)r * wp, plain.data() + (size_t)r * wp,
+                 tabs, y0[r], nb, three);
+    bad = first_diff(one, plain);
+    if (bad >= 0) {
+      std::printf("one-row != plain at row %d sample %d: %.9g vs %.9g\n",
+                  bad / wp, bad % wp, one[bad], plain[bad]);
+      return 1;
+    }
+  }
+  std::printf("ok %s w=%d R=%d rows=%d\n", form.c_str(), w, R, rows);
+  return 0;
+}

@@ -4,7 +4,9 @@ chain, #2-#4 its split stage groups for row shards), of the gen-1 chain
 rasters above the reference's single-tile budget) and the standalone pole
 cascade (csrc/fused_iir.cu, #9) against their plain PyTorch versions, and
 the wrappers' contracts; #1 and #5 also against the CRC32s of their
-outputs pinned in testing.PINNED_CHAIN_CRC32.
+outputs pinned in testing.PINNED_CHAIN_CRC32, and #3 and #9 (several rows
+a CTA) against those in testing.PINNED_CASE_CRC32 and against themselves
+at other rows a CTA.
 
 Imports torch and the port only (no jax), so that on a GPU host the
 `cuda`-marked tests run without jax's CPU setup in tests/conftest.py:
@@ -20,22 +22,26 @@ output). #9 is held to testing.iir_bound (8 float32 ULPs of max|x|, times
 1 + |gain|).
 """
 
+import ctypes
 import zlib
 
 import numpy as np
 import pytest
 import torch
 
+from cvsim_tpu_torch import kernels
 from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yuv422
 from cvsim_tpu_torch.ops import fused_iir
 from cvsim_tpu_torch.parallel import run_fused_lines_local
 from cvsim_tpu_torch.testing import (BENCH_CONFIGS, BENCH_GEN1_EP,
                                      BENCH_VHS_EP, CHAIN_CONFIGS,
-                                     GEN1_CHAIN_CONFIGS, PINNED_CHAIN_CRC32,
-                                     assert_chain_equal, chain_crc32,
-                                     chain_inputs, check_gen1_split_kernels,
-                                     check_split_kernels, iir_bound)
+                                     GEN1_CHAIN_CONFIGS, PINNED_CASE_CRC32,
+                                     PINNED_CHAIN_CRC32, assert_chain_equal,
+                                     case_crc32, chain_crc32, chain_inputs,
+                                     check_gen1_split_kernels,
+                                     check_split_kernels, iir_bound,
+                                     timed_cases)
 
 SHAPES = [(2, 32, 128), (1, 16, 176)]
 CASES = [(n, s) for n in sorted(CHAIN_CONFIGS) for s in SHAPES]
@@ -424,3 +430,59 @@ def test_debug_tap_route_runs_fused_iir(cuda_device, tap):
     for k, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == torch.uint8
         assert_chain_equal(g.cpu().numpy(), w.numpy(), err_msg=f"plane {k}")
+
+
+# ------------------------------------------- several rows a CTA (#3, #9)
+
+@pytest.fixture(scope="module")
+def timed():
+    """testing.timed_cases on the card, by "kernel label"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {f"{c.kernel} {c.label}": c
+            for c in timed_cases(torch.device("cuda", 0))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(PINNED_CASE_CRC32))
+def test_multi_row_kernels_keep_pinned_bits(timed, label):
+    """#3 and #9 on their timed cases: the same bytes as the kernels of
+    commit 6f83bf8, which took one row a CTA."""
+    assert case_crc32(timed[label]) == PINNED_CASE_CRC32[label]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_cta", [1, 3, 7])
+def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
+    """#9 at three widths and #3 on a row shard give the same bytes at any
+    rows a CTA (set through cvsim_rows_per_cta_override) as at the count
+    the kernels choose, rows across rounds of 16 blocks and a short last
+    CTA included."""
+    cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
+    rgb, prep = _shard("vhs-ep-stochastic", (3, 64, 720), 16, cuda_device,
+                       rows=37)
+    y = fused_yiq.head_switch_rows(fused_yiq.stage_a(rgb, prep, cfg=cfg),
+                                   prep.shifts, 720)
+    rng = np.random.default_rng(rows_per_cta)
+    xs = [torch.from_numpy(rng.integers(0, 256, (37, w)).astype(np.float32))
+          .to(cuda_device) for w in (360, 720, 1888)]
+    kw = dict(alphas=(0.3, 0.2, 0.25), y0s=(16.0, 128.0, 0.0), mode="emph",
+              gain=1.6)
+
+    def run():
+        return ([fused_iir.fused_iir(x, **kw) for x in xs]
+                + list(fused_yiq.stage_b1(y, prep, cfg=cfg, w=720)))
+
+    want = run()
+    lib = kernels.load()
+    override = ctypes.c_int.in_dll(lib, "cvsim_rows_per_cta_override")
+    override.value = rows_per_cta
+    try:
+        assert lib.cvsim_fused_iir_rows_per_cta(768) == rows_per_cta
+        assert lib.cvsim_yiq_b1_rows_per_cta(768) == rows_per_cta
+        got = run()
+    finally:
+        override.value = 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
