@@ -24,9 +24,10 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      (testing.iir_cases); prepare() on the card == on the CPU for all; the
      outputs of yiq_chain and yuv_chain on their bench cases byte-identical
      to b8c5917's kernels (CRC32s in testing.PINNED_CHAIN_CRC32), and of
-     yiq_b1 and fused_iir (several rows a CTA) on every one of their timed
-     cases byte-identical to 6f83bf8's (one row a CTA;
-     testing.PINNED_CASE_CRC32);
+     the kernels that take several rows a CTA on every one of their timed
+     cases byte-identical to the one-row kernels before them
+     (testing.PINNED_CASE_CRC32): yiq_b1 and fused_iir to 6f83bf8's,
+     yuv_b1 and yuv_b2 to 3552a33's;
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -428,13 +429,17 @@ def kernel_cases_iir(cases) -> float:
 
 
 def check_case_pins(cases) -> None:
-    """[3] yiq_b1 and fused_iir on each of their timed cases against the
-    CRC32s of 6f83bf8's kernels (one row a CTA)."""
+    """[3] the kernels that take several rows a CTA (yiq_b1, fused_iir,
+    yuv_b1, yuv_b2) on each of their timed cases against the CRC32s of the
+    one-row kernels before them, and the rows a CTA each chose."""
     from cvsim_tpu_torch import kernels
     from cvsim_tpu_torch.testing import (PINNED_CASE_CRC32, PINNED_KERNELS,
                                          case_crc32)
 
-    n = 0
+    def padded(w):
+        return -(-w // 128) * 128
+
+    n, rows = 0, {}
     for case in cases:
         if case.kernel not in PINNED_KERNELS:
             continue
@@ -444,14 +449,14 @@ def check_case_pins(cases) -> None:
             raise AssertionError(f"{label}: CRC32 {crc:#010x} != pinned "
                                  f"{pinned:#010x}")
         n += 1
-    rows = {}
-    for c in cases:
-        if c.kernel in PINNED_KERNELS:
-            w = c.shape[-1]
-            choose = getattr(kernels.load(), f"cvsim_{c.kernel}_rows_per_cta")
-            rows[f"{c.kernel} at {w} samples"] = choose(-(-w // 128) * 128)
-    print(f"[3] yiq_b1, fused_iir: outputs byte-identical to 6f83bf8's "
-          f"kernels (one row a CTA) in all {n} timed cases (CRC32 == "
+        w = case.shape[-1]
+        choose = getattr(kernels.load(), f"cvsim_{case.kernel}_rows_per_cta")
+        # the gen-1 kernels' rows hold luma and half-width chroma planes
+        widths = ((padded(w), padded(w // 2)) if case.kernel.startswith("yuv")
+                  else (padded(w),))
+        rows[f"{case.kernel} at {w} samples"] = choose(*widths)
+    print(f"[3] {', '.join(PINNED_KERNELS)}: outputs byte-identical to the "
+          f"one-row kernels before them in all {n} timed cases (CRC32 == "
           f"testing.PINNED_CASE_CRC32); rows a CTA: "
           + ", ".join(f"{k} {v}" for k, v in rows.items()))
 

@@ -68,15 +68,16 @@ struct WalkRow {
   int row;
 };
 
-// add_walk without the u8 mask (gen-2) over nrows rows held one after
-// another (row k at p + k*wp and tmp + k*wp), row k drawing the stream and
-// row index stream_of(k) returns (a WalkRow), with one pole_rows call for
-// all of them. Each row's sums equal add_walk's on that row alone.
+// add_walk over nrows rows held one after another (row k at p + k*wp and
+// tmp + k*wp), row k drawing the stream and row index stream_of(k) returns
+// (a WalkRow), with one pole_rows call for all of them; u8_masked as in
+// add_walk (gen-1 yuv_b1: true; gen-2 yiq_b1: false). Each row's sums
+// equal add_walk's on that row alone.
 template <class StreamOf>
 __device__ inline void add_walk_rows(float* p, float* tmp, float* red,
                                      const PoleTables& tab, StreamOf stream_of,
                                      int nrows, int mag, uint32_t plane_off,
-                                     int w, int wp) {
+                                     int w, int wp, bool u8_masked = false) {
   for (int k = 0; k < nrows; ++k) {
     const WalkRow s = stream_of(k);
     for (int x = threadIdx.x; x < wp; x += BLOCK)
@@ -87,8 +88,10 @@ __device__ inline void add_walk_rows(float* p, float* tmp, float* red,
   for (int k = 0; k < nrows; ++k) {
     float* pk = p + k * wp;
     const float* tk = tmp + k * wp;
-    for (int x = threadIdx.x; x < wp; x += BLOCK)
-      pk[x] = pk[x] + (x == 0 ? 0.f : truncf(tk[x - 1]));
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      const float v = pk[x] + (x == 0 ? 0.f : truncf(tk[x - 1]));
+      pk[x] = !u8_masked ? v : (x < w ? u8f(v) : 0.f);
+    }
   }
   __syncthreads();
 }

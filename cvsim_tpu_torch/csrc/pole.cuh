@@ -68,26 +68,27 @@ constexpr int RED_FLOATS = 3 * ROUND + 2 * BLOCK;
 // ran 10-25% faster on an H100 but spill around the calls (PERF.md).
 constexpr int MIN_CTAS = 4;
 
-// Rows one CTA of a multi-row kernel (#3 yiq_b1, #9 fused_iir) takes at
-// padded width wp, each row `planes` planes of wp floats in shared memory,
-// on an SM of sm_smem bytes that keeps cta_reserved bytes for each CTA: of
-// the counts up to ROUND whose rows fit MIN_CTAS CTAs an SM beside the
-// poles' scratch, the one with the fewest pole rounds a row (the rows'
-// blocks taken ROUND at a time), the smallest on a tie. On an H100 (228 KB
-// an SM, 1 KB a CTA): 3 planes (#9) 5 rows at 360 and 720 samples, 1 at
-// 1888; 5 planes (#3) 2 at 704-720, 1 at 1888.
-inline int rows_per_cta(int wp, int planes, int sm_smem, int cta_reserved) {
-  const int nb = wp / BLOCK;
+// Rows one CTA of a multi-row kernel takes, each row `row_floats` floats of
+// shared memory whose pole calls run at nb blocks and, in a kernel with
+// rows of two widths, at nb2 (0: one width), on an SM of sm_smem bytes that
+// keeps cta_reserved bytes for each CTA: of the counts up to ROUND whose
+// rows fit MIN_CTAS CTAs an SM beside the poles' scratch, the one with the
+// fewest pole rounds a row (the rows' blocks taken ROUND at a time, a
+// round of each width counted alike), the smallest on a tie.
+inline int rows_per_cta_of(int row_floats, int nb, int nb2, int sm_smem,
+                           int cta_reserved) {
   const int room = sm_smem / MIN_CTAS - cta_reserved -
                    RED_FLOATS * (int)sizeof(float);
-  int fit = room / (planes * wp * (int)sizeof(float));
+  int fit = room / (row_floats * (int)sizeof(float));
   fit = fit < 1 ? 1 : fit > ROUND ? ROUND : fit;
-  int best = 1, best_rounds = (nb + ROUND - 1) / ROUND;
+  const auto rounds = [=](int r) {
+    return (r * nb + ROUND - 1) / ROUND + (r * nb2 + ROUND - 1) / ROUND;
+  };
+  int best = 1, best_rounds = rounds(1);
   for (int r = 2; r <= fit; ++r) {
-    const int rounds = (r * nb + ROUND - 1) / ROUND;
-    if (rounds * best < best_rounds * r) {   // rounds / r < best's
+    if (rounds(r) * best < best_rounds * r) {   // rounds / r < best's
       best = r;
-      best_rounds = rounds;
+      best_rounds = rounds(r);
     }
   }
   return best;
@@ -96,15 +97,15 @@ inline int rows_per_cta(int wp, int planes, int sm_smem, int cta_reserved) {
 #ifdef __CUDACC__
 }  // namespace cvsim
 
-// Rows a CTA that the multi-row kernels take in place of rows_per_cta's
+// Rows a CTA that the multi-row kernels take in place of rows_per_cta_of's
 // choice, when above 0 (tests set it to hold the kernels at other counts);
 // defined in fused_iir.cu.
 extern "C" int cvsim_rows_per_cta_override;
 
 namespace cvsim {
 
-// rows_per_cta on the current device, or the override.
-inline int rows_per_cta(int wp, int planes) {
+// rows_per_cta_of on the current device, or the override.
+inline int rows_per_cta_of(int row_floats, int nb, int nb2) {
   if (cvsim_rows_per_cta_override > 0) return cvsim_rows_per_cta_override;
   int dev = 0, sm_smem = 0, reserved = 0;
   cudaGetDevice(&dev);
@@ -112,7 +113,15 @@ inline int rows_per_cta(int wp, int planes) {
                          cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock,
                          dev);
-  return rows_per_cta(wp, planes, sm_smem, reserved);
+  return rows_per_cta_of(row_floats, nb, nb2, sm_smem, reserved);
+}
+
+// rows_per_cta_of on the current device for rows of `planes` planes of wp
+// floats (#3 yiq_b1, #9 fused_iir). On an H100 (228 KB an SM, 1 KB a CTA):
+// 3 planes (#9) 5 rows at 360 and 720 samples, 1 at 1888; 5 planes (#3) 2
+// at 704-720, 1 at 1888.
+inline int rows_per_cta(int wp, int planes) {
+  return rows_per_cta_of(planes * wp, wp / BLOCK, 0);
 }
 #endif
 

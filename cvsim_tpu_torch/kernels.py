@@ -113,12 +113,15 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = [ptr] * n_args
                 fn.restype = ctypes.c_int
-            # rows a CTA of the multi-row kernels (#9, #3) at a padded
-            # width, on the current device
-            for name in ("cvsim_fused_iir_rows_per_cta",
-                         "cvsim_yiq_b1_rows_per_cta"):
+            # rows a CTA of the multi-row kernels on the current device:
+            # #9 and #3 at a padded width, #7 and #8 at the padded luma
+            # and chroma widths
+            for name, n_args in (("cvsim_fused_iir_rows_per_cta", 1),
+                                 ("cvsim_yiq_b1_rows_per_cta", 1),
+                                 ("cvsim_yuv_b1_rows_per_cta", 2),
+                                 ("cvsim_yuv_b2_rows_per_cta", 2)):
                 fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_int]
+                fn.argtypes = [ctypes.c_int] * n_args
                 fn.restype = ctypes.c_int
             lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p

@@ -1105,6 +1105,112 @@ void gamma_tables(double g, std::vector<int64_t> &dec,
     enc[i] = (int64_t)(std::pow(i / 8192.0, 1.0 / g) * 255.0);
 }
 
+// The frameblend loop's time of source frame src_idx in output frames at
+// the output rate or_num/or_den over the input rate fps_num/fps_den:
+// float(src_idx * out_rate / fps) with exact Fractions, as
+// cli/tools._run_frameblend_loop computes it, i.e. the quotient
+// src_idx*or_num*fps_den / (or_den*fps_num) rounded once to the nearest
+// double, ties to even. Both products are held exactly (256-bit unsigned
+// magnitudes, so no int64 input overflows) and divided bit by bit. A zero
+// denominator gives what the double division would (inf or nan).
+namespace frame_time {
+
+struct U256 {
+  uint64_t w[4] = {0, 0, 0, 0};   // little-endian 64-bit limbs
+};
+
+// |a| * |b| * |c|
+U256 mul3(uint64_t a, uint64_t b, uint64_t c) {
+  const unsigned __int128 ab = (unsigned __int128)a * b;
+  const unsigned __int128 lo = (unsigned __int128)(uint64_t)ab * c;
+  const unsigned __int128 hi =
+      (unsigned __int128)(uint64_t)(ab >> 64) * c + (uint64_t)(lo >> 64);
+  U256 r;
+  r.w[0] = (uint64_t)lo;
+  r.w[1] = (uint64_t)hi;
+  r.w[2] = (uint64_t)(hi >> 64);
+  return r;
+}
+
+int bit_length(const U256 &x) {
+  for (int k = 3; k >= 0; --k)
+    if (x.w[k]) return 64 * k + 64 - __builtin_clzll(x.w[k]);
+  return 0;
+}
+
+bool bit(const U256 &x, int i) { return (x.w[i / 64] >> (i % 64)) & 1; }
+
+U256 shift_left(const U256 &x, int k) {   // 0 <= k < 256
+  U256 r;
+  const int limbs = k / 64, bits = k % 64;
+  for (int i = 3; i >= limbs; --i) {
+    r.w[i] = x.w[i - limbs] << bits;
+    if (bits && i > limbs) r.w[i] |= x.w[i - limbs - 1] >> (64 - bits);
+  }
+  return r;
+}
+
+bool less(const U256 &a, const U256 &b) {
+  for (int k = 3; k >= 0; --k)
+    if (a.w[k] != b.w[k]) return a.w[k] < b.w[k];
+  return false;
+}
+
+void subtract(U256 &a, const U256 &b) {   // a -= b, a >= b
+  uint64_t borrow = 0;
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t bk = b.w[k] + borrow;
+    const uint64_t nb = (bk < borrow) || (a.w[k] < bk);
+    a.w[k] -= bk;
+    borrow = nb;
+  }
+}
+
+uint64_t magnitude(int64_t v) { return v < 0 ? 0 - (uint64_t)v : (uint64_t)v; }
+
+}  // namespace frame_time
+
+double frameblend_time(int64_t src_idx, int64_t or_num, int64_t or_den,
+                       int64_t fps_num, int64_t fps_den) {
+  using namespace frame_time;
+  const bool negative = (src_idx < 0) ^ (or_num < 0) ^ (fps_den < 0) ^
+                        (or_den < 0) ^ (fps_num < 0);
+  const U256 n = mul3(magnitude(src_idx), magnitude(or_num), magnitude(fps_den));
+  const U256 d = mul3(magnitude(or_den), magnitude(fps_num), 1);
+  const int bn = bit_length(n), bd = bit_length(d);
+  if (bd == 0) return bn == 0 ? NAN : (negative ? -INFINITY : INFINITY);
+  if (bn == 0) return 0.0;
+  // q = floor(n * 2^s / d) in [2^54, 2^56): 53 bits, a rounding bit and
+  // at least one more below it; the remainder is the sticky part
+  const int s = 55 - (bn - bd);
+  const U256 num = s > 0 ? shift_left(n, s) : n;
+  const U256 den = s < 0 ? shift_left(d, -s) : d;
+  U256 rem;
+  uint64_t q = 0;
+  for (int i = bit_length(num) - 1; i >= 0; --i) {
+    rem = shift_left(rem, 1);
+    if (bit(num, i)) rem.w[0] |= 1;
+    q <<= 1;
+    if (!less(rem, den)) {
+      subtract(rem, den);
+      q |= 1;
+    }
+  }
+  const bool sticky = bit_length(rem) != 0;
+  int drop = (64 - __builtin_clzll(q)) - 53;
+  uint64_t mant = q >> drop;
+  const uint64_t low = q & (((uint64_t)1 << drop) - 1);
+  const uint64_t half = (uint64_t)1 << (drop - 1);
+  if (low > half || (low == half && (sticky || (mant & 1)))) {
+    if (++mant == (uint64_t)1 << 53) {
+      mant >>= 1;
+      ++drop;
+    }
+  }
+  const double v = std::ldexp((double)mant, drop - s);
+  return negative ? -v : v;
+}
+
 // models/restore.frameblend_weights (frameblend.cpp:929-1023), double
 // arithmetic statement-for-statement with the Python implementation
 long fb_weights(const std::deque<double> &frame_t, long long current,
@@ -1233,10 +1339,8 @@ int cmd_tool(const std::string &tool, const Args &a) {
     fprintf(stderr, "\n");
   } else {
     // frameblend: cli/tools._run_frameblend_loop.  frame_t entries are
-    // float(src_idx * out_rate / fps) — exact rationals rounded once;
-    // the int64 products stay < 2^53 (the Python dispatcher gates
-    // out-rate numerator/denominator at 1e6), so the double division
-    // here is the identical correctly-rounded value.
+    // float(src_idx * out_rate / fps) — exact rationals rounded once
+    // (frameblend_time), at any input and output rate.
     int framealt = a.fa < 1 ? 1 : (a.fa > 8 ? 8 : a.fa);
     std::deque<std::unique_ptr<uint8_t[]>> frames;
     // recycle retired lookahead buffers: the deque holds ~40 frames and a
@@ -1262,8 +1366,8 @@ int cmd_tool(const std::string &tool, const Args &a) {
         }
         sc.run_underscan(p, W, H, a.underscan, buf.get(), uscr);
         frames.push_back(std::move(buf));
-        frame_t.push_back((double)(src_idx * a.or_num * dec.fps.den) /
-                          (double)(a.or_den * (long long)dec.fps.num));
+        frame_t.push_back(frameblend_time(src_idx, a.or_num, a.or_den,
+                                          dec.fps.num, dec.fps.den));
         src_idx++;
       }
       if (frames.empty() ||

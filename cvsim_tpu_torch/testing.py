@@ -317,13 +317,15 @@ def timed_cases(device) -> list[TimedCase]:
     return out
 
 
-# Kernels #3 (yiq_b1: its y, i, q planes in turn) and #9 (fused_iir) on
-# every case of timed_cases, and the CRC32 of each output (case_crc32) as
-# the kernels of commit 6f83bf8 (one row a CTA) computed it on an H100
-# (kernel_ab.py). Both kernels were then rebuilt to take several rows a
-# CTA, keeping every output bit; the `cuda` tests, chip_smoke.py [3] and
-# kernel_ab.py hold them to these values. Keyed by "kernel label".
-PINNED_KERNELS = ("yiq_b1", "fused_iir")
+# Kernels #3 (yiq_b1: its y, i, q planes in turn), #9 (fused_iir), #7
+# (yuv_b1: y, u, v) and #8 (yuv_b2: y, u, v) on every case of their
+# timed_cases, and the CRC32 of each output (case_crc32) as the one-row
+# kernels computed it on an H100 (kernel_ab.py): #3 and #9 those of
+# commit 6f83bf8, #7 and #8 those of commit 3552a33. Each kernel was then
+# rebuilt to take several rows a CTA, keeping every output bit; the
+# `cuda` tests, chip_smoke.py [3] and kernel_ab.py hold them to these
+# values. Keyed by "kernel label".
+PINNED_KERNELS = ("yiq_b1", "fused_iir", "yuv_b1", "yuv_b2")
 PINNED_CASE_CRC32 = {
     "yiq_b1 240x704 B=64 bench VHS-EP":
         0xB34C9CB6,
@@ -349,6 +351,14 @@ PINNED_CASE_CRC32 = {
         0x60652EBA,
     "fused_iir [8640, 1888] preemphasis, emph 1 pole":
         0x9F9CE573,
+    "yuv_b1 288x720 B=64 gen-1 bench VHS-EP PAL":
+        0x18BDF134,
+    "yuv_b2 288x720 B=64 gen-1 bench VHS-EP PAL":
+        0xEE8FD46A,
+    "yuv_b1 540x1888 B=16 gen-1 bench VHS-EP":
+        0x1C8F1F30,
+    "yuv_b2 540x1888 B=16 gen-1 bench VHS-EP":
+        0x628D57BB,
 }
 
 

@@ -1,26 +1,31 @@
 """Bits and times of one tree's CUDA kernels, for comparing two trees on
 one card.
 
-    python3 kernel_ab.py [--root DIR]
+    python3 kernel_ab.py [--root DIR] [--rows-per-cta R]
 
 Builds the kernels of the tree at DIR (default: this checkout), prints the
 CRC32 of kernels #1 and #5 on every case of testing.PINNED_CHAIN_CRC32 and
-of #3 and #9 on every case of testing.PINNED_CASE_CRC32, and whether each
-equals the pinned value, then times every kernel on the cases of
+of the multi-row kernels (#3, #9, #7, #8) on every case of
+testing.PINNED_CASE_CRC32, and whether each equals the pinned value, then
+times every kernel on the cases of
 testing.timed_cases, the ones chip_smoke.py [5] times (testing.time_ms:
 CUDA events, median of 5 after two warm-ups), once a call and once over
 10 calls back to back (the device time without the wrapper's host work).
 The inputs, the pinned values and the timing come from this checkout's
 testing.py, so two trees (say a parent unpacked with `git archive` into
 an ignored directory, and this one) get the same inputs; run them in
-turns within one call, parent, change, change, parent. A run that builds prints ptxas's register and spill lines.
-The last line is one JSON object {"root", "card", "crc32", "pinned_equal",
-"ms", "ms_back_to_back"}. Needs one card; exits 1 without one.
+turns within one call, parent, change, change, parent. --rows-per-cta sets
+the library's cvsim_rows_per_cta_override, so that every multi-row kernel
+of the tree takes R rows a CTA. A run that builds prints ptxas's register
+and spill lines. The last line is one JSON object {"root", "card",
+"rows_per_cta", "crc32", "pinned_equal", "ms", "ms_back_to_back"}. Needs
+one card; exits 1 without one, and 1 if a CRC32 differs from its pin.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
@@ -44,6 +49,9 @@ def _testing():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
+    ap.add_argument("--rows-per-cta", type=int, default=0,
+                    help="rows a CTA of the multi-row kernels (0: their own "
+                    "choice)")
     args = ap.parse_args()
     sys.modules["jax"] = None
     sys.modules["cvsim_tpu"] = None
@@ -62,13 +70,16 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    kernels.load()
+    lib = kernels.load()
+    ctypes.c_int.in_dll(lib, "cvsim_rows_per_cta_override").value = (
+        args.rows_per_cta)
     if kernels.BUILD_LOG:   # built in this process
         for line in kernels.BUILD_LOG.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling",
                                        "Function properties")):
                 print(f"    ptxas: {line.strip()}")
-    print(f"kernel_ab: {root} on {card}")
+    print(f"kernel_ab: {root} on {card}, rows a CTA "
+          f"{args.rows_per_cta or 'chosen by each kernel'}")
     T = _testing()
     crcs, equal = {}, True
     for (kernel, name, shape), pinned in T.PINNED_CHAIN_CRC32.items():
@@ -92,10 +103,11 @@ def main() -> int:
         b2b[label] = T.time_ms(case.kern, calls=10)
         print(f"{label}: {ms[label]:.3f} ms, back to back "
               f"{b2b[label]:.3f} ms")
-    print(json.dumps({"root": root, "card": card, "crc32": crcs,
+    print(json.dumps({"root": root, "card": card,
+                      "rows_per_cta": args.rows_per_cta, "crc32": crcs,
                       "pinned_equal": equal, "ms": ms,
                       "ms_back_to_back": b2b}))
-    return 0
+    return 0 if equal else 1
 
 
 if __name__ == "__main__":

@@ -6,17 +6,26 @@
 //
 //   g++ -std=c++20 -O1 -ffp-contract=off -fno-strict-aliasing -pthread \
 //       -I cvsim_tpu_torch/csrc tests/pole_model.cpp -o pole_model
-//   ./pole_model FORM W R ROWS SEED      FORM: pole, pole3 or walk
+//   ./pole_model FORM W R ROWS SEED   FORM: pole, pole3, walk or walk8
 //   ./pole_model rows PLANES WP...
+//   ./pole_model gen1 WP WP2 [WP WP2 ...]
+//   ./pole_model yuv DIR b1|b2 R OUT     (built with -DGEN1_KERNELS)
 //
 // ROWS rows of W samples (random values, a random reset value each) go
 // through the one-row form row by row, and through the multi-row form R
 // rows a CTA (the last CTA may hold fewer). For pole and pole3 each row is
 // also computed by a plain sequential loop with the primitives' operation
-// order. Prints "ok" and exits 0 when all are bit-identical; else prints
-// the first mismatch and exits 1. `rows` prints, for each padded width WP,
-// the rows a CTA that pole.cuh's rows_per_cta gives rows of PLANES planes
-// on an H100 SM (228 KB of shared memory, 1 KB kept a CTA).
+// order. walk is the noise walk of gen-2 (add_walk, add_walk_rows), walk8
+// the u8-masked walk of gen-1 (sums clamped to 0..255, zero past W). Prints
+// "ok" and exits 0 when all are bit-identical; else prints the first
+// mismatch and exits 1. `rows` prints, for each padded width WP, the rows a
+// CTA that pole.cuh's rows_per_cta_of gives rows of PLANES planes on an H100
+// SM (228 KB of shared memory, 1 KB kept a CTA); `gen1` prints, for each
+// pair of padded luma and chroma widths, the rows a CTA of the gen-1
+// kernels #7 and #8 (yuv_chain.cu's gen1::rows_per_cta: a row of 3 luma
+// and 3 chroma planes, its pole calls at both widths). Built with
+// -DGEN1_KERNELS beside a copy of csrc/yuv_chain.cu (see run_yuv), `yuv`
+// runs kernel #7 or #8 whole through its C entry point.
 // tests/test_torch_pole_model.py runs it.
 
 #include <algorithm>
@@ -54,6 +63,39 @@ static std::barrier<>* g_warps[4];
 inline void __syncthreads() { g_cta->arrive_and_wait(); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 
+#ifdef GEN1_KERNELS
+// what csrc/yuv_chain.cu and pole.cuh's device-side choice of rows a CTA
+// take from the CUDA compiler and runtime: an SM of an H100 (228 KB of
+// shared memory, 1 KB kept a CTA), launches that never fail
+#define __CUDACC__ 1
+#define __global__
+#define __launch_bounds__(threads, ctas)
+#define __host__
+#define __shared__
+thread_local ThreadIndex blockIdx;
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr {
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+  cudaDevAttrReservedSharedMemoryPerBlock
+};
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? 228 * 1024 : 1024;
+  return cudaSuccess;
+}
+#endif
+
 #include "noise.cuh"
 
 using namespace cvsim;
@@ -75,6 +117,71 @@ static void run_cta(const std::function<void()>& body) {
     });
   for (auto& th : threads) th.join();
 }
+
+#ifdef GEN1_KERNELS
+// ---- whole kernels: yuv_chain_cpu.cu is csrc/yuv_chain.cu with each
+// `kernel<<<ctas, ...>>>(args)` rewritten as cvsim_launch(ctas, [&] {
+// kernel(args); }) (tests/test_torch_pole_model.py), so that its C entry
+// points run here, CTA after CTA.
+int cvsim_rows_per_cta_override = 0;
+namespace cvsim {
+alignas(16) float sm[1 << 18];   // the dynamic shared memory of a CTA
+}
+template <class F>
+static void cvsim_launch(int ctas, F body) {
+  for (int c = 0; c < ctas; ++c)
+    run_cta([&] {
+      blockIdx.x = (unsigned)c;
+      body();
+    });
+}
+#include "yuv_chain_cpu.cu"
+
+static std::vector<char> read_file(const std::string& dir, const char* name) {
+  FILE* f = std::fopen((dir + "/" + name).c_str(), "rb");
+  std::vector<char> v;
+  if (!f) return v;
+  char buf[1 << 16];
+  for (size_t n; (n = std::fread(buf, 1, sizeof buf, f)) > 0;)
+    v.insert(v.end(), buf, buf + n);
+  std::fclose(f);
+  return v;
+}
+
+// `yuv DIR b1|b2 R OUT`: kernel #7 (b1) or #8 (b2) through its C entry
+// point at R rows a CTA (0: its own choice) on the inputs in DIR (raw
+// files params, y, u, v, xi, keys, sincos, keep, tt, d, tt3, d3, vt);
+// writes the y, u and v bytes to OUT.
+static int run_yuv(int argc, char** argv) {
+  if (argc != 6) return 2;
+  const std::string dir = argv[2], kernel = argv[3];
+  cvsim_rows_per_cta_override = std::atoi(argv[4]);
+  const auto in = [&](const char* n) { return read_file(dir, n); };
+  const auto P = in("params"), y = in("y"), u = in("u"), v = in("v");
+  const auto xi = in("xi"), keys = in("keys"), sc = in("sincos");
+  const auto keep = in("keep"), tt = in("tt"), d = in("d"), tt3 = in("tt3");
+  const auto d3 = in("d3"), vt = in("vt");
+  std::vector<char> yo(y.size()), uo(u.size()), vo(v.size());
+  const int rc =
+      kernel == "b1"
+          ? cvsim_yuv_b1(y.data(), xi.data(), keys.data(), sc.data(),
+                         tt.data(), d.data(), tt3.data(), d3.data(),
+                         vt.data(), yo.data(), uo.data(), vo.data(),
+                         P.data(), nullptr)
+          : cvsim_yuv_b2(y.data(), u.data(), v.data(), xi.data(), keep.data(),
+                         tt.data(), d.data(), tt3.data(), d3.data(),
+                         vt.data(), yo.data(), uo.data(), vo.data(),
+                         P.data(), nullptr);
+  if (rc != 0) {
+    std::printf("launch error %d\n", rc);
+    return 1;
+  }
+  FILE* f = std::fopen(argv[5], "wb");
+  for (const auto* b : {&yo, &uo, &vo}) std::fwrite(b->data(), 1, b->size(), f);
+  std::fclose(f);
+  return 0;
+}
+#endif
 
 // ---- the tables of one pole (the layouts of pole.cuh's PoleTables),
 // computed in double and cast once
@@ -166,10 +273,23 @@ static int first_diff(const std::vector<float>& a, const std::vector<float>& b) 
 }
 
 int main(int argc, char** argv) {
+#ifdef GEN1_KERNELS
+  if (argc >= 2 && std::string(argv[1]) == "yuv") return run_yuv(argc, argv);
+#endif
+  if (argc >= 4 && std::string(argv[1]) == "gen1") {
+    for (int k = 2; k + 1 < argc; k += 2) {
+      const int wp = std::atoi(argv[k]), wp2 = std::atoi(argv[k + 1]);
+      std::printf("%d\n", rows_per_cta_of(3 * wp + 3 * wp2, wp / BLOCK,
+                                          wp2 / BLOCK, 228 * 1024, 1024));
+    }
+    return 0;
+  }
   if (argc >= 3 && std::string(argv[1]) == "rows") {
-    for (int k = 3; k < argc; ++k)
-      std::printf("%d\n", rows_per_cta(std::atoi(argv[k]), std::atoi(argv[2]),
-                                       228 * 1024, 1024));
+    for (int k = 3; k < argc; ++k) {
+      const int wp = std::atoi(argv[k]), planes = std::atoi(argv[2]);
+      std::printf("%d\n", rows_per_cta_of(planes * wp, wp / BLOCK, 0,
+                                          228 * 1024, 1024));
+    }
     return 0;
   }
   if (argc != 6) {
@@ -181,7 +301,8 @@ int main(int argc, char** argv) {
   const int rows = std::atoi(argv[4]);
   std::mt19937 rng(std::atoi(argv[5]));
   const int wp = (w + BLOCK - 1) / BLOCK * BLOCK, nb = wp / BLOCK;
-  const bool walk = form == "walk", three = form == "pole3";
+  const bool masked = form == "walk8";
+  const bool walk = form == "walk" || masked, three = form == "pole3";
   if (!walk && !three && form != "pole") return 2;
 
   std::uniform_real_distribution<float> val(0.f, 256.f);
@@ -211,7 +332,7 @@ int main(int argc, char** argv) {
       __syncthreads();
       if (walk)
         add_walk(buf.data(), tmp.data(), red.data(), p, streams[r].key,
-                 streams[r].row, mag, plane_off, w, wp, false);
+                 streams[r].row, mag, plane_off, w, wp, masked);
       else if (three)
         pole3(buf.data(), buf.data(), p, y0[r], nb, red.data());
       else
@@ -227,7 +348,7 @@ int main(int argc, char** argv) {
       if (walk)
         add_walk_rows(buf.data(), tmp.data(), red.data(), p,
                       [&](int k) { return streams[r0 + k]; }, n, mag,
-                      plane_off, w, wp);
+                      plane_off, w, wp, masked);
       else if (three)
         pole3_rows(buf.data(), buf.data(), p, 0.f, n, nb, red.data(),
                    y0.data() + r0);

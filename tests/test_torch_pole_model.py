@@ -1,7 +1,8 @@
 """The multi-row pole primitives of csrc/pole.cuh (pole_rows, pole3_rows)
-and the multi-row noise walk of csrc/noise.cuh (add_walk_rows), which
-kernels #3 (yiq_b1) and #9 (fused_iir) run, against the one-row forms
-that every other kernel runs, bit for bit, on the CPU.
+and the multi-row noise walk of csrc/noise.cuh (add_walk_rows, gen-2 and
+u8-masked gen-1), which kernels #3 (yiq_b1), #9 (fused_iir), #7 (yuv_b1)
+and #8 (yuv_b2) run, against the one-row forms that every other kernel
+runs, bit for bit, on the CPU.
 
 There is no CUDA compiler here, so tests/pole_model.cpp compiles the two
 headers with g++ under a shim (128 std::threads for a CTA, barriers for
@@ -9,32 +10,67 @@ __syncthreads/__syncwarp) and runs ROWS random rows, each with its own
 reset value (or noise stream), through the one-row form and through the
 multi-row form R rows a CTA, the last CTA holding fewer; pole and pole3
 are also held against a plain sequential loop with the same operation
-order. The same build holds pole.cuh's rows_per_cta, the rows a CTA
-that kernels #3 and #9 choose per width, at an H100 SM's shared memory.
+order. The same build holds pole.cuh's rows_per_cta_of, the rows a CTA
+that the multi-row kernels choose per width, as #3 and #9 call it (rows
+of 5 or 3 planes) and as #7 and #8 call it (a gen-1 row of 3 luma and 3
+half-width chroma planes), at an H100 SM's shared memory. Built beside a copy of csrc/yuv_chain.cu, the
+model runs kernels #7 and #8 whole, through their C entry points, on the
+inputs the port's CPU path prepares: the multi-row instance at several
+rows a CTA gives the bytes of the one-row instance, and the one-row
+instance agrees with the plain PyTorch version (assert_chain_equal).
 Skips without g++.
 """
 
 import os
+import re
 import shutil
 import subprocess
+import zlib
 
+import numpy as np
 import pytest
+import torch
+
+from cvsim_tpu_torch.interop import key32_from_seed
+from cvsim_tpu_torch.models import fused_yuv
+from cvsim_tpu_torch.models.fused_yiq import _u32_as_i32
+from cvsim_tpu_torch.testing import (BENCH_CONFIGS, GEN1_CHAIN_CONFIGS,
+                                     assert_chain_equal)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, os.pardir, "cvsim_tpu_torch", "csrc")
 
 
-@pytest.fixture(scope="module")
-def pole_model(tmp_path_factory):
+def _build(out_dir, *flags):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the CPU model of pole.cuh")
-    exe = str(tmp_path_factory.mktemp("pole_model") / "pole_model")
+    exe = str(out_dir / "pole_model")
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-fno-strict-aliasing", "-pthread", "-I", CSRC,
+                    "-fno-strict-aliasing", "-pthread", *flags, "-I", CSRC,
                     os.path.join(HERE, "pole_model.cpp"), "-o", exe],
                    check=True, capture_output=True, text=True)
     return exe
+
+
+@pytest.fixture(scope="module")
+def pole_model(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("pole_model"))
+
+
+@pytest.fixture(scope="module")
+def gen1_model(tmp_path_factory):
+    """The model with csrc/yuv_chain.cu's kernels, each launch rewritten
+    to run its CTAs one after another on the model's threads."""
+    d = tmp_path_factory.mktemp("gen1_model")
+    with open(os.path.join(CSRC, "yuv_chain.cu")) as f:
+        src = f.read().replace("#include <cuda_runtime.h>\n", "")
+    src, launches = re.subn(r"(\w+)<<<(.*?),.*?>>>\((.*?)\);",
+                            r"cvsim_launch(\2, [&] { \1(\3); });", src,
+                            flags=re.S)
+    assert launches == 5   # #5's two, #6, #7, #8
+    (d / "yuv_chain_cpu.cu").write_text(src)
+    return _build(d, "-DGEN1_KERNELS", "-I", str(d))
 
 
 # widths of the half-width chroma (3 blocks), luma (6) and 1080i (15)
@@ -48,6 +84,21 @@ def test_multi_row_form_equals_one_row_form(pole_model, form, w,
     seed = w * 10 + rows_per_cta
     res = subprocess.run([pole_model, form, str(w), str(rows_per_cta),
                           str(rows), str(seed)],
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("ok"), res.stdout
+
+
+# the u8-masked walk of gen-1 (yuv_b1's chroma noise): the half-width
+# chroma of 720 samples (3 blocks), a full 720-sample row (6) and the
+# half-width chroma of 1888 (944: 8 blocks, R = 4 across two rounds)
+@pytest.mark.parametrize("w", [360, 720, 944])
+@pytest.mark.parametrize("rows_per_cta", [1, 2, 4])
+def test_masked_multi_row_walk_equals_one_row_walk(pole_model, w,
+                                                   rows_per_cta):
+    rows = 2 * rows_per_cta + 1   # the last CTA holds one row
+    res = subprocess.run([pole_model, "walk8", str(w), str(rows_per_cta),
+                          str(rows), str(w + rows_per_cta)],
                          capture_output=True, text=True, timeout=60)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("ok"), res.stdout
@@ -80,3 +131,82 @@ def test_rows_per_cta_fits_four_ctas_an_sm(pole_model):
         for wp, r in zip(wps, map(int, res.stdout.split()), strict=True):
             assert 1 <= r <= 16
             assert r == 1 or r * planes * wp * 4 <= room
+
+
+# the gen-1 kernels #7 and #8: 576i and 480i rows (wp 768, wp2 384: 54
+# KB) 4 a CTA, luma in 2 rounds and chroma in 1 for the four; 1080i rows
+# (1920, 1024: 34.5 KB) one a CTA; narrow rows up to ROUND
+@pytest.mark.parametrize("wp,wp2,rows", [(768, 384, 4), (1920, 1024, 1),
+                                         (128, 128, 16), (256, 128, 8)])
+def test_gen1_rows_per_cta(pole_model, wp, wp2, rows):
+    res = subprocess.run([pole_model, "gen1", str(wp), str(wp2)],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    assert int(res.stdout) == rows
+
+
+def test_gen1_rows_per_cta_fits_four_ctas_an_sm(pole_model):
+    # every width w of 3..4096 samples: its padded luma and half-width
+    # chroma rows, R of them beside the carries, within a quarter of 228 KB
+    # less the 1 KB kept a CTA (57 KB)
+    room = 228 * 1024 // 4 - 1024 - 304 * 4
+    pairs = sorted({(-(-w // 128) * 128, -(-(w // 2) // 128) * 128)
+                    for w in range(3, 4097)})
+    res = subprocess.run([pole_model, "gen1",
+                          *(str(v) for pair in pairs for v in pair)],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    for (wp, wp2), r in zip(pairs, map(int, res.stdout.split()), strict=True):
+        assert 1 <= r <= 16
+        assert r == 1 or r * (3 * wp + 3 * wp2) * 4 <= room
+
+
+# Kernels #7 and #8 whole on the CPU model: every gen-1 configuration of
+# the chain tests and the PAL bench configuration, at a 720-sample raster
+# of 18 rows (4 rows a CTA: the last CTA holds 2) and at 1888 samples
+# (rows across rounds of 16 blocks at 2 and 3 rows a CTA)
+GEN1_MODEL_CONFIGS = {**GEN1_CHAIN_CONFIGS,
+                      "bench-pal": BENCH_CONFIGS["bench-gen1-ep-pal"]}
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 720), (1, 5, 1888)])
+@pytest.mark.parametrize("name", sorted(GEN1_MODEL_CONFIGS))
+def test_gen1_kernels_at_any_rows_per_cta(gen1_model, tmp_path, name, shape):
+    cfg = GEN1_MODEL_CONFIGS[name]
+    b, l, w = shape
+    rng = np.random.default_rng(zlib.crc32(f"{name}/{shape}".encode()))
+    y, u, v = (torch.from_numpy(rng.integers(0, 256, s).astype(np.uint8))
+               for s in ((b, l, w), (b, l, w // 2), (b, l, w // 2)))
+    fn = torch.arange(b, dtype=torch.int32) + 3
+    prep = fused_yuv.prepare(cfg, y, fn, fn % 2, key32_from_seed(5))
+    w2 = w // 2
+    params = fused_yuv._yuv_params(cfg, b, l, w, -(-w // 128) * 128, w2,
+                                   -(-w2 // 128) * 128)
+    files = {"params": bytes(params), "y": y, "u": u, "v": v,
+             "xi": prep.xi, "keys": _u32_as_i32(prep.keys_ab),
+             "sincos": prep.sincos, "keep": prep.keep,
+             **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))}
+    for fname, t in files.items():
+        data = t if isinstance(t, bytes) else t.contiguous().numpy().tobytes()
+        (tmp_path / fname).write_bytes(data)
+
+    def run(kernel, rows_per_cta):
+        out = tmp_path / f"{kernel}_{rows_per_cta}"
+        res = subprocess.run([gen1_model, "yuv", str(tmp_path), kernel,
+                              str(rows_per_cta), str(out)],
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stdout + res.stderr
+        data = np.frombuffer(out.read_bytes(), np.uint8)
+        return np.split(data, [y.numel(), y.numel() + u.numel()])
+
+    plain = {"b1": fused_yuv.stage_b1_reference(y, prep, cfg=cfg),
+             "b2": fused_yuv.stage_b2_reference(y, u, v, prep, cfg=cfg)}
+    for kernel in ("b1", "b2"):
+        one_row = run(kernel, 1)
+        for k, want in enumerate(plain[kernel]):
+            assert_chain_equal(one_row[k], want.numpy().ravel(),
+                               err_msg=f"{kernel} plane {k}")
+        for rows_per_cta in (0, 2, 3, 4):
+            for k, got in enumerate(run(kernel, rows_per_cta)):
+                assert np.array_equal(got, one_row[k]), (kernel, k,
+                                                         rows_per_cta)
