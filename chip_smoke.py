@@ -27,7 +27,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      the kernels that take several rows a CTA on every one of their timed
      cases byte-identical to the one-row kernels before them
      (testing.PINNED_CASE_CRC32): yiq_b1 and fused_iir to 6f83bf8's,
-     yuv_b1 and yuv_b2 to 3552a33's;
+     yuv_b1 and yuv_b2 to 3552a33's, yuv_a and yiq_a to a7f4f68's, with
+     the rows a CTA each chose;
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -430,8 +431,9 @@ def kernel_cases_iir(cases) -> float:
 
 def check_case_pins(cases) -> None:
     """[3] the kernels that take several rows a CTA (yiq_b1, fused_iir,
-    yuv_b1, yuv_b2) on each of their timed cases against the CRC32s of the
-    one-row kernels before them, and the rows a CTA each chose."""
+    yuv_b1, yuv_b2, yuv_a, yiq_a) on each of their timed cases against the
+    CRC32s of the one-row kernels before them, and the rows a CTA each
+    chose."""
     from cvsim_tpu_torch import kernels
     from cvsim_tpu_torch.testing import (PINNED_CASE_CRC32, PINNED_KERNELS,
                                          case_crc32)

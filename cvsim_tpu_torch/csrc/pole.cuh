@@ -117,9 +117,9 @@ inline int rows_per_cta_of(int row_floats, int nb, int nb2) {
 }
 
 // rows_per_cta_of on the current device for rows of `planes` planes of wp
-// floats (#3 yiq_b1, #9 fused_iir). On an H100 (228 KB an SM, 1 KB a CTA):
-// 3 planes (#9) 5 rows at 360 and 720 samples, 1 at 1888; 5 planes (#3) 2
-// at 704-720, 1 at 1888.
+// floats (#2 yiq_a, #3 yiq_b1, #9 fused_iir). On an H100 (228 KB an SM, 1
+// KB a CTA): 3 planes (#9) 5 rows at 360 and 720 samples, 1 at 1888; 5
+// planes (#2, #3) 2 at 704-720, 1 at 1888.
 inline int rows_per_cta(int wp, int planes) {
   return rows_per_cta_of(planes * wp, wp / BLOCK, 0);
 }

@@ -27,7 +27,7 @@
 // Design. Every stage is local to one scanline except the chroma vertical
 // blend, which reads the line above, and the head switch is a per-row
 // rotation by a precomputed shift. So each launch runs one CTA of 128
-// threads per (field, row), but yiq_b1 one per R rows:
+// threads per (field, row), but yiq_a and yiq_b1 one per R rows:
 //   yiq_front: uint8 RGB in -> group A, head switch, group B1 -> y, i, q
 //              float planes in scratch;
 //   yiq_back:  the blend against row l-1's front output, then group B2 and
@@ -35,10 +35,11 @@
 //   yiq_a, yiq_b1, yiq_b2: one group each; between launches the planes are
 //              f32 [B, L, Wp] in device memory.
 // The row's planes live in shared memory (5 x Wp floats: 38 KB at
-// Wp = 1920; yiq_b1's R rows take R times that, R chosen per width by
-// pole.cuh's rows_per_cta: 2 at 704-720, 1 at 1888), so only the RGB bytes,
-// the float planes and the output bytes touch device memory. The noise walks are generated in-kernel
-// from the same splitmix32 words as the TPU kernel (_walk_rows_kernel).
+// Wp = 1920; the R rows of yiq_a and yiq_b1 take R times that, R chosen
+// per width by pole.cuh's rows_per_cta: 2 at 704-720, 1 at 1888), so only
+// the RGB bytes, the float planes and the output bytes touch device
+// memory. The noise walks are generated in-kernel from the same
+// splitmix32 words as the TPU kernel (_walk_rows_kernel).
 //
 // What bounds it. Each pole is a 128x128 lower-triangular product per
 // 128-sample block (8,256 multiply-adds), and a row of the bench
@@ -56,14 +57,16 @@
 // blocks and reads the samples as float4 broadcasts, the triangular loops
 // skip the exact-zero upper half of every table, three-pole cascades run
 // as one T^3 product, and all intermediates of a group stay on chip.
-// yiq_b1 runs its rows' poles through the multi-row primitives
+// yiq_a and yiq_b1 run their rows' poles through the multi-row primitives
 // (pole_rows, pole3_rows, add_walk_rows), so that each table entry a
-// thread loads and each barrier serve the blocks of all its rows; the row
-// functions take ROWS = true for it and stay one-row code for the other
-// kernels. Each output keeps the TPU kernel's operation sequence (the
-// CRC32s of testing.PINNED_CHAIN_CRC32 and PINNED_CASE_CRC32 hold the
-// bits). Several rows a CTA in the other kernels and fusing the launches
-// with a recomputed halo row are later work.
+// thread loads and each barrier serve the blocks of all their rows. Group
+// B1's row functions take ROWS = true for yiq_b1 and stay one-row code for
+// the other kernels; group A's multi-row form (stage_a_rows) is written
+// beside its one-row form, which kernel #1 runs as it always compiled it.
+// Each output keeps the TPU kernel's operation sequence (the CRC32s of
+// testing.PINNED_CHAIN_CRC32 and PINNED_CASE_CRC32 hold the bits). Several
+// rows a CTA in the other kernels and fusing the launches with a
+// recomputed halo row are later work.
 
 #include <cuda_runtime.h>
 
@@ -93,7 +96,8 @@ enum { TAB_I = 0, TAB_Q = 1, TAB_PRE = 2, TAB_VLUMA = 3, TAB_VCHROMA = 4,
        TAB_SHARPEN = 5, TAB_TV = 6, TAB_WALK = 7 };
 
 // Shared-memory working set of a CTA: ROW_PLANES planes, each of n rows of
-// wp floats one after another (n = 1 in every kernel but yiq_b1).
+// wp floats one after another (n = 1 in every kernel but yiq_a and
+// yiq_b1).
 constexpr int ROW_PLANES = 5;
 struct Row {
   float *y, *i, *q, *t1, *t2;
@@ -103,7 +107,8 @@ struct Row {
 };
 
 // The row functions run on one row (ROWS false), or on the r.n rows of a
-// multi-row CTA (ROWS true: yiq_b1), each plane's row k at offset k * wp.
+// multi-row CTA (ROWS true: yiq_a, yiq_b1), each plane's row k at offset
+// k * wp.
 template <bool ROWS>
 __device__ __forceinline__ int rows_of(const Row& r) {
   return ROWS ? r.n : 1;
@@ -151,6 +156,26 @@ __device__ void qam_encode(Row& r, int xi, int amp) {
     const float vm = s == 1 ? 1.f : (s == 3 ? -1.f : 0.f);
     const float chroma = r.i[x] * (a * um) + r.q[x] * (a * vm);
     r.y[x] = r.y[x] + truncf(chroma / 50.f);
+  }
+  __syncthreads();
+}
+
+// qam_encode on the r.n rows held, row k at subcarrier phase xi_of(k).
+template <class XiOf>
+__device__ void qam_encode_rows(Row& r, XiOf xi_of, int amp) {
+  const float a = (float)amp;
+  for (int k = 0; k < r.n; ++k) {
+    const int xi = xi_of(k);
+    float* y = r.y + k * r.wp;
+    const float* i = r.i + k * r.wp;
+    const float* q = r.q + k * r.wp;
+    for (int x = threadIdx.x; x < r.wp; x += BLOCK) {
+      const int s = (xi + x) & 3;
+      const float um = s == 0 ? 1.f : (s == 2 ? -1.f : 0.f);
+      const float vm = s == 1 ? 1.f : (s == 3 ? -1.f : 0.f);
+      const float chroma = i[x] * (a * um) + q[x] * (a * vm);
+      y[x] = y[x] + truncf(chroma / 50.f);
+    }
   }
   __syncthreads();
 }
@@ -272,6 +297,64 @@ __device__ void stage_a_row(Row& r, const uint8_t* px, int xi, uint32_t key,
              w, wp, false);
   for (int x = threadIdx.x; x < wp; x += BLOCK)
     if (x >= w) r.y[x] = 0.f;
+  __syncthreads();
+}
+
+// A row's inputs of group A: subcarrier phase, luma noise stream, global
+// row in its field.
+struct ARow {
+  int xi;
+  uint32_t key;
+  int grow;
+};
+
+// stage_a_row on the r.n rows held, row k's RGB at px + k*w*3 and its
+// inputs args_of(k) (an ARow); the poles and the luma noise walk of all
+// rows in one multi-row call each.
+template <class ArgsOf>
+__device__ void stage_a_rows(Row& r, const uint8_t* px, ArgsOf args_of,
+                             const Tables& tab, const ChainParams& P) {
+  const int w = P.w, wp = P.wp;
+  for (int k = 0; k < r.n; ++k) {
+    const uint8_t* pk = px + (size_t)k * w * 3;
+    for (int x = threadIdx.x; x < wp; x += BLOCK) {
+      float yv = 0.f, iv = 0.f, qv = 0.f;
+      if (x < w) {
+        const float R = pk[3 * x], G = pk[3 * x + 1], B = pk[3 * x + 2];
+        const float dy = 0.30f * R + 0.59f * G + 0.11f * B;
+        yv = truncf(256.f * dy);
+        iv = truncf(256.f * ((-0.27f * (B - dy)) + (0.74f * (R - dy))));
+        qv = truncf(256.f * ((0.41f * (B - dy)) + (0.48f * (R - dy))));
+      }
+      r.y[k * wp + x] = yv;
+      r.i[k * wp + x] = iv;
+      r.q[k * wp + x] = qv;
+    }
+  }
+  __syncthreads();
+
+  if (P.in_lowpass) {
+    lowpass_writeback<true>(r, r.i, tab[TAB_I], 2);
+    lowpass_writeback<true>(r, r.q, tab[TAB_Q], 4);
+  }
+  qam_encode_rows(r, [&](int k) { return args_of(k).xi; }, P.amp);
+
+  if (P.preemph) {
+    poles<true, false>(r.y, r.t1, tab[TAB_PRE], 16.f, r);
+    for (int x = threadIdx.x; x < r.n * wp; x += BLOCK)
+      r.y[x] = truncf(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
+    __syncthreads();
+  }
+  if (P.video_noise) {
+    const auto stream = [&](int k) {
+      const ARow a = args_of(k);
+      return WalkRow{a.key, a.grow};
+    };
+    add_walk_rows(r.y, r.t1, r.red, tab[TAB_WALK], stream, r.n,
+                  P.video_noise, 0u, w, wp);
+  }
+  for (int k = 0; k < r.n; ++k)
+    for (int x = threadIdx.x + w; x < wp; x += BLOCK) r.y[k * wp + x] = 0.f;
   __syncthreads();
 }
 
@@ -509,19 +592,36 @@ yiq_back(const float* __restrict__ y_in, const float* __restrict__ i_in,
 // vertical blend run between the launches (models/fused_yiq.py), as the
 // TPU program runs them between its kernels.
 
-// #2: uint8 RGB -> encoded luma plane (zero past w).
+// #2: uint8 RGB -> encoded luma plane (zero past w). ROWS false: one
+// (field, line) row a CTA (rows_per_cta == 1), through the one-row
+// function #1 runs; true: the rows_per_cta consecutive rows of a CTA
+// together (the last CTA may hold fewer), which on a shard of odd height
+// may belong to two fields.
+template <bool ROWS>
 __global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_a(const uint8_t* __restrict__ rgb, const int* __restrict__ xi_tab,
       const uint32_t* __restrict__ keys, Tables tab, ChainParams P,
-      float* __restrict__ y_out) {
+      int rows_per_cta, float* __restrict__ y_out) {
   extern __shared__ float sm[];
-  const int row = blockIdx.x;
-  const int fld = row / P.l, grow = P.row0 + row % P.l;
-  Row r = row_planes(sm, P.w, P.wp);
-  stage_a_row(r, rgb + (size_t)row * P.w * 3, xi_tab[row], keys[2 * fld],
-              grow, tab, P);
-  const size_t off = (size_t)row * P.wp;
-  for (int x = threadIdx.x; x < P.wp; x += BLOCK) y_out[off + x] = r.y[x];
+  if constexpr (!ROWS) {
+    const int row = blockIdx.x;
+    const int fld = row / P.l, grow = P.row0 + row % P.l;
+    Row r = row_planes(sm, P.w, P.wp);
+    stage_a_row(r, rgb + (size_t)row * P.w * 3, xi_tab[row], keys[2 * fld],
+                grow, tab, P);
+    const size_t off = (size_t)row * P.wp;
+    for (int x = threadIdx.x; x < P.wp; x += BLOCK) y_out[off + x] = r.y[x];
+  } else {
+    const int row0 = blockIdx.x * rows_per_cta;  // field * L + line
+    const int n = min(rows_per_cta, P.b * P.l - row0);
+    Row r = row_planes(sm, P.w, P.wp, rows_per_cta, n);
+    stage_a_rows(r, rgb + (size_t)row0 * P.w * 3, [&](int k) {
+      const int row = row0 + k;
+      return ARow{xi_tab[row], keys[2 * (row / P.l)], P.row0 + row % P.l};
+    }, tab, P);
+    const size_t off = (size_t)row0 * P.wp;
+    for (int x = threadIdx.x; x < n * P.wp; x += BLOCK) y_out[off + x] = r.y[x];
+  }
 }
 
 // #3: head-switched luma plane -> y, i, q planes (zero past w). ROWS
@@ -652,27 +752,36 @@ extern "C" int cvsim_yiq_chain(const void* rgb, const void* xi,
   return (int)cudaGetLastError();
 }
 
-// Kernel #2: uint8 RGB [b, l, w, 3] -> encoded luma f32 [b, l, wp].
+// The rows a CTA of cvsim_yiq_a and cvsim_yiq_b1 at padded width wp on the
+// current device.
+extern "C" int cvsim_yiq_a_rows_per_cta(int wp) {
+  return rows_per_cta(wp, ROW_PLANES);
+}
+
+extern "C" int cvsim_yiq_b1_rows_per_cta(int wp) {
+  return rows_per_cta(wp, ROW_PLANES);
+}
+
+// Kernel #2: uint8 RGB [b, l, w, 3] -> encoded luma f32 [b, l, wp],
+// cvsim_yiq_a_rows_per_cta(wp) rows a CTA.
 extern "C" int cvsim_yiq_a(const void* rgb, const void* xi, const void* keys,
                            const void* tt, const void* d, const void* tt3,
                            const void* d3, const void* vt, void* y_out,
                            const void* params, void* stream) {
   const ChainParams P = *static_cast<const ChainParams*>(params);
   size_t smem = 0;
-  const int rc = prepare_launch(yiq_a, P, &smem);
+  const int R = rows_per_cta(P.wp, ROW_PLANES);
+  const auto kernel = R == 1 ? yiq_a<false> : yiq_a<true>;
+  const int rc = prepare_launch(kernel, P, &smem, R);
   if (rc != 0) return rc;
   const int rows = P.b * P.l;
   if (rows == 0) return 0;
-  yiq_a<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int ctas = (rows + R - 1) / R;
+  kernel<<<ctas, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(rgb), static_cast<const int*>(xi),
-      static_cast<const uint32_t*>(keys), tables(tt, d, tt3, d3, vt), P,
+      static_cast<const uint32_t*>(keys), tables(tt, d, tt3, d3, vt), P, R,
       static_cast<float*>(y_out));
   return (int)cudaGetLastError();
-}
-
-// The rows a CTA of cvsim_yiq_b1 at padded width wp on the current device.
-extern "C" int cvsim_yiq_b1_rows_per_cta(int wp) {
-  return rows_per_cta(wp, ROW_PLANES);
 }
 
 // Kernel #3: head-switched luma f32 [b, l, wp] -> y, i, q f32 [b, l, wp],

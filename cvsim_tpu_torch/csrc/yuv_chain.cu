@@ -38,16 +38,16 @@
 // product before any carry, table entries reused over a thread's blocks,
 // the row on chip, four CTAs an SM.
 //
-// #7 and #8 (the split program's B1 and B2, whose pole calls are mostly on
-// the half-width chroma) take R consecutive rows a CTA, R chosen per width
-// by gen1::rows_per_cta (4 at 576i, 1 at 1080i on an H100), and run the
-// rows' poles through the multi-row primitives (pole_rows, pole3_rows,
-// add_walk_rows), so that each table entry a thread loads and each barrier
-// serve the blocks of all R rows. The multi-row functions (the *_rows
-// section) repeat the one-row functions' operations row by row; the
-// one-row functions are left as #5 and #6 (and #7, #8 at R = 1) compiled
-// them, since a ROWS template parameter on them (as in yiq_chain.cu) made
-// #5's yuv_back spill and run 4-7% slower (PERF.md). Each output keeps its
+// #6, #7 and #8 (the split program's A, B1 and B2, whose pole calls are
+// mostly on the half-width chroma) take R consecutive rows a CTA, R chosen
+// per width by gen1::rows_per_cta (4 at 576i, 1 at 1080i on an H100), and
+// run the rows' poles through the multi-row primitives (pole_rows,
+// pole3_rows, add_walk_rows), so that each table entry a thread loads and
+// each barrier serve the blocks of all R rows. The multi-row functions (the
+// *_rows section) repeat the one-row functions' operations row by row; the
+// one-row functions are left as #5 (and #6-#8 at R = 1) compiled them,
+// since a ROWS template parameter on them (as in yiq_chain.cu) made #5's
+// yuv_back spill and run 4-7% slower (PERF.md). Each output keeps its
 // operation sequence (testing.PINNED_CASE_CRC32).
 
 #include <cuda_runtime.h>
@@ -81,8 +81,7 @@ enum { TAB_U = 0, TAB_U_HP = 1, TAB_V = 2, TAB_V_HP = 3, TAB_PRE = 4,
 
 // Shared-memory working set of a CTA: luma y and two luma temporaries, each
 // n rows of wp floats one after another, and chroma u, v and one chroma
-// temporary, each n rows of wp2 floats (n = 1 in every kernel but yuv_b1
-// and yuv_b2).
+// temporary, each n rows of wp2 floats (n = 1 in the one-row kernels).
 constexpr int LUMA_PLANES = 3, CHROMA_PLANES = 3;
 struct Row {
   float *y, *t1, *t2;  // luma and two luma temporaries
@@ -382,7 +381,8 @@ __device__ void b2_row(Row& r, const Tables& tab, const Params& P, int xi,
   }
 }
 
-// ---- the multi-row forms of #7 (_b_front) and #8 (_b_back): the one-row
+// ---- the multi-row forms of #6 (_a_math), #7 (_b_front) and #8
+// (_b_back): the one-row
 // functions' operations on each of the r.n rows held (each plane's row k
 // at offset k * wp, or k * wp2 for chroma), the poles of all rows in one
 // multi-row call (pole.cuh). Each output is computed as the one-row
@@ -518,13 +518,15 @@ __device__ void load_rows(Row& r, const uint8_t* py, const uint8_t* pu,
   __syncthreads();
 }
 
-// store_planes on the rows held (row k at oy + k*w and ou, ov + k*w2).
+// store_planes on the rows held (row k at oy + k*w and ou, ov + k*w2); u
+// and v only when ou is given.
 __device__ void store_rows(const Row& r, uint8_t* oy, uint8_t* ou,
                            uint8_t* ov) {
   for (int k = 0; k < r.n; ++k) {
     const float* y = r.y + k * r.wp;
     for (int x = threadIdx.x; x < r.w; x += BLOCK)
       oy[k * r.w + x] = (uint8_t)y[x];
+    if (ou == nullptr) continue;
     const float* u = r.u + k * r.wp2;
     const float* v = r.v + k * r.wp2;
     for (int x = threadIdx.x; x < r.w2; x += BLOCK) {
@@ -532,6 +534,44 @@ __device__ void store_rows(const Row& r, uint8_t* oy, uint8_t* ou,
       ov[k * r.w2 + x] = (uint8_t)v[x];
     }
   }
+}
+
+// A row's inputs of _a_math: subcarrier phase, luma noise stream, line in
+// its field.
+struct ARow {
+  int xi;
+  uint32_t key;
+  int line;
+};
+
+// a_row on the rows held, row k's inputs args_of(k) (an ARow); the luma
+// noise walk of all rows in one add_walk_rows call.
+template <class ArgsOf>
+__device__ void a_rows(Row& r, const Tables& tab, const Params& P,
+                       ArgsOf args_of) {
+  const int w = r.w, wp = r.wp;
+  if (P.in_lowpass) {
+    chroma_lowpass_full_rows(r, r.u, tab[TAB_U_HP], tab[TAB_U], 2);
+    chroma_lowpass_full_rows(r, r.v, tab[TAB_V_HP], tab[TAB_V], P.v_delay);
+  }
+  qam_encode_rows(r, [=](int k) { return args_of(k).xi; }, P.amp);
+  if (P.preemph) {
+    pole_rows(r.y, r.t1, tab[TAB_PRE], 16.f, r.n, r.nb, r.red);
+    for (int x = threadIdx.x; x < r.n * wp; x += BLOCK)
+      r.y[x] = u8f(r.y[x] + (r.y[x] - r.t1[x]) * P.pre_gain);
+    __syncthreads();
+  }
+  if (P.video_noise) {
+    const auto stream = [=](int k) {
+      const ARow a = args_of(k);
+      return WalkRow{a.key, a.line};
+    };
+    add_walk_rows(r.y, r.t1, r.red, tab[TAB_WALK], stream, r.n,
+                  P.video_noise, 0u, w, wp, true);
+  }
+  for (int k = 0; k < r.n; ++k)
+    for (int x = threadIdx.x + w; x < wp; x += BLOCK) r.y[k * wp + x] = 0.f;
+  __syncthreads();
 }
 
 // A row's inputs of _b_front: subcarrier phase, chroma noise stream, line
@@ -714,26 +754,40 @@ yuv_back(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
 // launches are uint8 at the active widths: every value at those seams is
 // clamped to [0, 255] or is the floor of a mean of such values.
 
+// #6, #7 and #8 take R = rows_per_cta consecutive rows a CTA (the last
+// CTA may hold fewer). ROWS false: one (field, line) row a CTA (R == 1),
+// through the one-row functions #5 runs; true: the R rows together,
+// through the multi-row functions.
+template <bool ROWS>
 __global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_a(const uint8_t* __restrict__ y_in, const uint8_t* __restrict__ u_in,
       const uint8_t* __restrict__ v_in, const int* __restrict__ xi_tab,
       const uint32_t* __restrict__ keys, Tables tab, Params P,
-      uint8_t* __restrict__ y_out) {
+      int rows_per_cta, uint8_t* __restrict__ y_out) {
   using namespace gen1;
   extern __shared__ float sm[];
-  const int row = blockIdx.x;
-  const int fld = row / P.l, line = row % P.l;
-  Row r = row_planes(sm, P);
-  const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
-  load_planes(r, y_in + o1, u_in + o2, v_in + o2, false, line);
-  a_row(r, tab, P, xi_tab[row], keys[2 * fld], line);
-  store_planes(r, y_out + o1, nullptr, nullptr);
+  if constexpr (!ROWS) {
+    const int row = blockIdx.x;
+    const int fld = row / P.l, line = row % P.l;
+    Row r = row_planes(sm, P);
+    const size_t o1 = (size_t)row * r.w, o2 = (size_t)row * r.w2;
+    load_planes(r, y_in + o1, u_in + o2, v_in + o2, false, line);
+    a_row(r, tab, P, xi_tab[row], keys[2 * fld], line);
+    store_planes(r, y_out + o1, nullptr, nullptr);
+  } else {
+    const int row0 = blockIdx.x * rows_per_cta;  // field * L + line
+    Row r = row_planes(sm, P, rows_per_cta,
+                       min(rows_per_cta, P.b * P.l - row0));
+    const size_t o1 = (size_t)row0 * r.w, o2 = (size_t)row0 * r.w2;
+    load_rows(r, y_in + o1, u_in + o2, v_in + o2);
+    a_rows(r, tab, P, [=, l = P.l](int k) {
+      const int row = row0 + k;
+      return ARow{xi_tab[row], keys[2 * (row / l)], row % l};
+    });
+    store_rows(r, y_out + o1, nullptr, nullptr);
+  }
 }
 
-// #7 and #8 take R = rows_per_cta consecutive rows a CTA (the last CTA
-// may hold fewer). ROWS false: one (field, line) row a CTA (R == 1),
-// through the one-row functions #5 runs; true: the R rows together,
-// through the multi-row functions.
 template <bool ROWS>
 __global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yuv_b1(const uint8_t* __restrict__ y_in, const int* __restrict__ xi_tab,
@@ -815,12 +869,12 @@ int prepare_launch(const Params& P, K kernel, size_t* smem, int rows = 1) {
   return 0;
 }
 
-// Rows a CTA of #7 and #8 at padded widths wp (luma) and wp2 (chroma) on
-// the current device: pole.cuh's rows_per_cta_of for a row of
+// Rows a CTA of #6, #7 and #8 at padded widths wp (luma) and wp2 (chroma)
+// on the current device: pole.cuh's rows_per_cta_of for a row of
 // row_floats(P) floats whose pole calls run at both widths, a round of
-// each counted alike (under the bench configuration #7 runs two luma and
-// four chroma pole calls a row, #8 one and six; weighing by those counts
-// picks the same R on an H100). There (228 KB an SM, 1 KB a CTA): 4 rows
+// each counted alike (under the bench configuration #6 runs one luma and
+// four chroma pole calls a row, #7 two and four, #8 one and six; weighing
+// by those counts picks the same R on an H100). There (228 KB an SM, 1 KB a CTA): 4 rows
 // at 576i and 480i (wp 768, wp2 384: 54 KB of rows; luma 24 blocks in 2
 // rounds, chroma 12 in 1), 1 at 1080i (wp 1920, wp2 1024: 34.5 KB a row).
 int rows_per_cta(int wp, int wp2) {
@@ -879,7 +933,22 @@ extern "C" int cvsim_yuv_chain(const void* y, const void* u, const void* v,
   return (int)cudaGetLastError();
 }
 
-// Kernel #6 (A): y, u, v -> the encoded luma y_out, before the head switch.
+// The rows a CTA of cvsim_yuv_a, cvsim_yuv_b1 and cvsim_yuv_b2 at padded
+// widths wp (luma) and wp2 (chroma) on the current device.
+extern "C" int cvsim_yuv_a_rows_per_cta(int wp, int wp2) {
+  return cvsim::gen1::rows_per_cta(wp, wp2);
+}
+
+extern "C" int cvsim_yuv_b1_rows_per_cta(int wp, int wp2) {
+  return cvsim::gen1::rows_per_cta(wp, wp2);
+}
+
+extern "C" int cvsim_yuv_b2_rows_per_cta(int wp, int wp2) {
+  return cvsim::gen1::rows_per_cta(wp, wp2);
+}
+
+// Kernel #6 (A): y, u, v -> the encoded luma y_out, before the head switch,
+// cvsim_yuv_a_rows_per_cta(wp, wp2) rows a CTA.
 extern "C" int cvsim_yuv_a(const void* y, const void* u, const void* v,
                            const void* xi, const void* keys, const void* tt,
                            const void* d, const void* tt3, const void* d3,
@@ -887,27 +956,20 @@ extern "C" int cvsim_yuv_a(const void* y, const void* u, const void* v,
                            void* stream) {
   using namespace cvsim;
   const Params P = *static_cast<const Params*>(params);
+  const int R = gen1::rows_per_cta(P.wp, P.wp2);
+  const auto kernel = R == 1 ? yuv_a<false> : yuv_a<true>;
   size_t smem = 0;
-  const int err = gen1::prepare_launch(P, yuv_a, &smem);
+  const int err = gen1::prepare_launch(P, kernel, &smem, R);
   if (err != 0) return err;
   const int rows = P.b * P.l;
   if (rows == 0) return 0;
-  yuv_a<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int ctas = (rows + R - 1) / R;
+  kernel<<<ctas, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
       static_cast<const uint8_t*>(v), static_cast<const int*>(xi),
       static_cast<const uint32_t*>(keys), gen1::tables(tt, d, tt3, d3, vt), P,
-      static_cast<uint8_t*>(y_out));
+      R, static_cast<uint8_t*>(y_out));
   return (int)cudaGetLastError();
-}
-
-// The rows a CTA of cvsim_yuv_b1 and cvsim_yuv_b2 at padded widths wp
-// (luma) and wp2 (chroma) on the current device.
-extern "C" int cvsim_yuv_b1_rows_per_cta(int wp, int wp2) {
-  return cvsim::gen1::rows_per_cta(wp, wp2);
-}
-
-extern "C" int cvsim_yuv_b2_rows_per_cta(int wp, int wp2) {
-  return cvsim::gen1::rows_per_cta(wp, wp2);
 }
 
 // Kernel #7 (B1): the head-switched luma -> y, u, v before the blend,

@@ -376,7 +376,7 @@ def stage_a(rgb: torch.Tensor, prep: Prepared, *,
             cfg: CompositeConfig) -> torch.Tensor:
     """Kernel #2 (yiq_a) on uint8 [B, L, W, 3] rows of a field: the encoded
     luma, f32 [B, L, Wp]. CPU tensor: stage_a_reference; CUDA tensor: the
-    kernel or raise."""
+    kernel (several rows a CTA at 480i and 576i widths) or raise."""
     global A_LAUNCHES
     dev = _cuda_device(rgb, "yiq_a")
     if dev is None:

@@ -318,14 +318,16 @@ def timed_cases(device) -> list[TimedCase]:
 
 
 # Kernels #3 (yiq_b1: its y, i, q planes in turn), #9 (fused_iir), #7
-# (yuv_b1: y, u, v) and #8 (yuv_b2: y, u, v) on every case of their
-# timed_cases, and the CRC32 of each output (case_crc32) as the one-row
-# kernels computed it on an H100 (kernel_ab.py): #3 and #9 those of
-# commit 6f83bf8, #7 and #8 those of commit 3552a33. Each kernel was then
+# (yuv_b1: y, u, v), #8 (yuv_b2: y, u, v), #6 (yuv_a: y) and #2 (yiq_a:
+# y) on every case of their timed_cases, and the CRC32 of each output
+# (case_crc32) as the one-row kernels computed it on an H100
+# (kernel_ab.py): #3 and #9 those of commit 6f83bf8, #7 and #8 those of
+# commit 3552a33, #6 and #2 those of commit a7f4f68. Each kernel was then
 # rebuilt to take several rows a CTA, keeping every output bit; the
 # `cuda` tests, chip_smoke.py [3] and kernel_ab.py hold them to these
 # values. Keyed by "kernel label".
-PINNED_KERNELS = ("yiq_b1", "fused_iir", "yuv_b1", "yuv_b2")
+PINNED_KERNELS = ("yiq_b1", "fused_iir", "yuv_b1", "yuv_b2", "yuv_a",
+                  "yiq_a")
 PINNED_CASE_CRC32 = {
     "yiq_b1 240x704 B=64 bench VHS-EP":
         0xB34C9CB6,
@@ -359,6 +361,14 @@ PINNED_CASE_CRC32 = {
         0x1C8F1F30,
     "yuv_b2 540x1888 B=16 gen-1 bench VHS-EP":
         0x628D57BB,
+    "yuv_a 288x720 B=64 gen-1 bench VHS-EP PAL":
+        0xB0DD6F72,
+    "yuv_a 540x1888 B=16 gen-1 bench VHS-EP":
+        0x4AC9820C,
+    "yiq_a 240x704 B=64 bench VHS-EP":
+        0x80B8B6DC,
+    "yiq_a 540x1888 B=16 bench VHS-EP":
+        0x619D3BB2,
 }
 
 

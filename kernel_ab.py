@@ -1,11 +1,11 @@
 """Bits and times of one tree's CUDA kernels, for comparing two trees on
 one card.
 
-    python3 kernel_ab.py [--root DIR] [--rows-per-cta R]
+    python3 kernel_ab.py [--root DIR] [--rows-per-cta R] [--lines]
 
 Builds the kernels of the tree at DIR (default: this checkout), prints the
 CRC32 of kernels #1 and #5 on every case of testing.PINNED_CHAIN_CRC32 and
-of the multi-row kernels (#3, #9, #7, #8) on every case of
+of the multi-row kernels (#2, #3, #9, #6, #7, #8) on every case of
 testing.PINNED_CASE_CRC32, and whether each equals the pinned value, then
 times every kernel on the cases of
 testing.timed_cases, the ones chip_smoke.py [5] times (testing.time_ms:
@@ -20,6 +20,15 @@ of the tree takes R rows a CTA. A run that builds prints ptxas's register
 and spill lines. The last line is one JSON object {"root", "card",
 "rows_per_cta", "crc32", "pinned_equal", "ms", "ms_back_to_back"}. Needs
 one card; exits 1 without one, and 1 if a CRC32 differs from its pin.
+
+--lines times the line-sharded program (kernels #2-#4 on row shards,
+prepare() included: parallel.run_fused_lines_local and
+run_sharded_chain_fused_lines) in place of the kernels: at 240x704 B=64
+and 540x1888 B=16 of testing.BENCH_VHS_EP (testing.chain_inputs), 4 row
+shards on card 0 and one shard on each visible card, beside kernel #1's
+path (prepare() and kernel #1), each output held to kernel #1's with
+assert_chain_equal (a difference raises). Its last line is {"root",
+"card", "cards", "ms"}.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ def main() -> int:
     ap.add_argument("--rows-per-cta", type=int, default=0,
                     help="rows a CTA of the multi-row kernels (0: their own "
                     "choice)")
+    ap.add_argument("--lines", action="store_true",
+                    help="time the line-sharded program instead")
     args = ap.parse_args()
     sys.modules["jax"] = None
     sys.modules["cvsim_tpu"] = None
@@ -81,6 +92,11 @@ def main() -> int:
     print(f"kernel_ab: {root} on {card}, rows a CTA "
           f"{args.rows_per_cta or 'chosen by each kernel'}")
     T = _testing()
+    if args.lines:
+        ms = lines_ms(T, dev)
+        print(json.dumps({"root": root, "card": card,
+                          "cards": torch.cuda.device_count(), "ms": ms}))
+        return 0
     crcs, equal = {}, True
     for (kernel, name, shape), pinned in T.PINNED_CHAIN_CRC32.items():
         cfg = T.BENCH_CONFIGS[name]
@@ -108,6 +124,43 @@ def main() -> int:
                       "pinned_equal": equal, "ms": ms,
                       "ms_back_to_back": b2b}))
     return 0 if equal else 1
+
+
+def lines_ms(T, dev) -> dict:
+    """--lines: {label: CUDA-event ms} of the line-sharded program and of
+    kernel #1's path, each checked against kernel #1's output first."""
+    import torch
+
+    from cvsim_tpu_torch.interop import key32_from_seed
+    from cvsim_tpu_torch.models import fused_yiq, yiq
+    from cvsim_tpu_torch.parallel import (make_mesh, run_fused_lines_local,
+                                          run_sharded_chain_fused_lines)
+
+    cfg, key = T.BENCH_VHS_EP, key32_from_seed(5)
+    count = torch.cuda.device_count()
+    mesh = make_mesh(count, "cuda", dp=1)
+    ms = {}
+    for b, l, w in ((64, 240, 704), (16, 540, 1888)):
+        (rgb,), prep = T.chain_inputs("yiq_chain", "time", cfg, (b, l, w),
+                                      dev)
+        fn = torch.arange(b, dtype=torch.int32, device=dev) + 3
+        want = fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)
+        runs = {"4 shards on one card": lambda: run_fused_lines_local(
+            cfg, rgb, fn, fn % 2, key, sp=4)}
+        if l % count == 0:
+            runs[f"one shard on each of {count} card(s)"] = (
+                lambda: run_sharded_chain_fused_lines(mesh, cfg, rgb, fn,
+                                                      fn % 2, key))
+        runs["kernel #1's path"] = lambda: yiq.composite_layer_rgb_auto(
+            rgb, fn, fn % 2, key, cfg=cfg)
+        for what, run in runs.items():
+            label = f"{l}x{w} B={b} {what}"
+            T.assert_chain_equal(run().cpu().numpy(), want.cpu().numpy(),
+                                 err_msg=label)
+            ms[label] = T.time_ms(run)
+            print(f"{label}: {ms[label]:.3f} ms = "
+                  f"{b / ms[label] * 1e3:.1f} fields/s")
+    return ms
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@
 //   ./pole_model FORM W R ROWS SEED   FORM: pole, pole3, walk or walk8
 //   ./pole_model rows PLANES WP...
 //   ./pole_model gen1 WP WP2 [WP WP2 ...]
-//   ./pole_model yuv DIR b1|b2 R OUT     (built with -DGEN1_KERNELS)
+//   ./pole_model yuv DIR a|b1|b2 R OUT   (built with -DGEN1_KERNELS)
+//   ./pole_model yiq DIR R OUT           (built with -DGEN2_KERNELS)
 //
 // ROWS rows of W samples (random values, a random reset value each) go
 // through the one-row form row by row, and through the multi-row form R
@@ -25,7 +26,9 @@
 // kernels #7 and #8 (yuv_chain.cu's gen1::rows_per_cta: a row of 3 luma
 // and 3 chroma planes, its pole calls at both widths). Built with
 // -DGEN1_KERNELS beside a copy of csrc/yuv_chain.cu (see run_yuv), `yuv`
-// runs kernel #7 or #8 whole through its C entry point.
+// runs kernel #6, #7 or #8 whole through its C entry point; built with
+// -DGEN2_KERNELS beside a copy of csrc/yiq_chain.cu (see run_yiq), `yiq`
+// runs kernel #2.
 // tests/test_torch_pole_model.py runs it.
 
 #include <algorithm>
@@ -36,6 +39,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <initializer_list>
 #include <random>
 #include <string>
 #include <thread>
@@ -63,10 +67,15 @@ static std::barrier<>* g_warps[4];
 inline void __syncthreads() { g_cta->arrive_and_wait(); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 
-#ifdef GEN1_KERNELS
-// what csrc/yuv_chain.cu and pole.cuh's device-side choice of rows a CTA
-// take from the CUDA compiler and runtime: an SM of an H100 (228 KB of
-// shared memory, 1 KB kept a CTA), launches that never fail
+#if defined(GEN1_KERNELS) || defined(GEN2_KERNELS)
+#define WHOLE_KERNELS
+#endif
+
+#ifdef WHOLE_KERNELS
+// what csrc/yuv_chain.cu, csrc/yiq_chain.cu and pole.cuh's device-side
+// choice of rows a CTA take from the CUDA compiler and runtime: an SM of
+// an H100 (228 KB of shared memory, 1 KB kept a CTA), launches that never
+// fail
 #define __CUDACC__ 1
 #define __global__
 #define __launch_bounds__(threads, ctas)
@@ -82,6 +91,7 @@ enum cudaDeviceAttr {
   cudaDevAttrReservedSharedMemoryPerBlock
 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "no error"; }
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
@@ -118,8 +128,9 @@ static void run_cta(const std::function<void()>& body) {
   for (auto& th : threads) th.join();
 }
 
-#ifdef GEN1_KERNELS
-// ---- whole kernels: yuv_chain_cpu.cu is csrc/yuv_chain.cu with each
+#ifdef WHOLE_KERNELS
+// ---- whole kernels: yuv_chain_cpu.cu (yiq_chain_cpu.cu) is
+// csrc/yuv_chain.cu (csrc/yiq_chain.cu) with each
 // `kernel<<<ctas, ...>>>(args)` rewritten as cvsim_launch(ctas, [&] {
 // kernel(args); }) (tests/test_torch_pole_model.py), so that its C entry
 // points run here, CTA after CTA.
@@ -135,7 +146,11 @@ static void cvsim_launch(int ctas, F body) {
       body();
     });
 }
+#ifdef GEN1_KERNELS
 #include "yuv_chain_cpu.cu"
+#else
+#include "yiq_chain_cpu.cu"
+#endif
 
 static std::vector<char> read_file(const std::string& dir, const char* name) {
   FILE* f = std::fopen((dir + "/" + name).c_str(), "rb");
@@ -148,10 +163,20 @@ static std::vector<char> read_file(const std::string& dir, const char* name) {
   return v;
 }
 
-// `yuv DIR b1|b2 R OUT`: kernel #7 (b1) or #8 (b2) through its C entry
-// point at R rows a CTA (0: its own choice) on the inputs in DIR (raw
-// files params, y, u, v, xi, keys, sincos, keep, tt, d, tt3, d3, vt);
-// writes the y, u and v bytes to OUT.
+static int write_out(const char* path,
+                     std::initializer_list<const std::vector<char>*> bufs) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) return 1;
+  for (const auto* b : bufs) std::fwrite(b->data(), 1, b->size(), f);
+  std::fclose(f);
+  return 0;
+}
+
+#ifdef GEN1_KERNELS
+// `yuv DIR a|b1|b2 R OUT`: kernel #6 (a), #7 (b1) or #8 (b2) through its C
+// entry point at R rows a CTA (0: its own choice) on the inputs in DIR
+// (raw files params, y, u, v, xi, keys, sincos, keep, tt, d, tt3, d3,
+// vt); writes the y bytes (a) or the y, u and v bytes (b1, b2) to OUT.
 static int run_yuv(int argc, char** argv) {
   if (argc != 6) return 2;
   const std::string dir = argv[2], kernel = argv[3];
@@ -162,25 +187,52 @@ static int run_yuv(int argc, char** argv) {
   const auto keep = in("keep"), tt = in("tt"), d = in("d"), tt3 = in("tt3");
   const auto d3 = in("d3"), vt = in("vt");
   std::vector<char> yo(y.size()), uo(u.size()), vo(v.size());
-  const int rc =
-      kernel == "b1"
-          ? cvsim_yuv_b1(y.data(), xi.data(), keys.data(), sc.data(),
-                         tt.data(), d.data(), tt3.data(), d3.data(),
-                         vt.data(), yo.data(), uo.data(), vo.data(),
-                         P.data(), nullptr)
-          : cvsim_yuv_b2(y.data(), u.data(), v.data(), xi.data(), keep.data(),
-                         tt.data(), d.data(), tt3.data(), d3.data(),
-                         vt.data(), yo.data(), uo.data(), vo.data(),
-                         P.data(), nullptr);
+  int rc = 0;
+  if (kernel == "a")
+    rc = cvsim_yuv_a(y.data(), u.data(), v.data(), xi.data(), keys.data(),
+                     tt.data(), d.data(), tt3.data(), d3.data(), vt.data(),
+                     yo.data(), P.data(), nullptr);
+  else if (kernel == "b1")
+    rc = cvsim_yuv_b1(y.data(), xi.data(), keys.data(), sc.data(), tt.data(),
+                      d.data(), tt3.data(), d3.data(), vt.data(), yo.data(),
+                      uo.data(), vo.data(), P.data(), nullptr);
+  else
+    rc = cvsim_yuv_b2(y.data(), u.data(), v.data(), xi.data(), keep.data(),
+                      tt.data(), d.data(), tt3.data(), d3.data(), vt.data(),
+                      yo.data(), uo.data(), vo.data(), P.data(), nullptr);
   if (rc != 0) {
     std::printf("launch error %d\n", rc);
     return 1;
   }
-  FILE* f = std::fopen(argv[5], "wb");
-  for (const auto* b : {&yo, &uo, &vo}) std::fwrite(b->data(), 1, b->size(), f);
-  std::fclose(f);
-  return 0;
+  if (kernel == "a") return write_out(argv[5], {&yo});
+  return write_out(argv[5], {&yo, &uo, &vo});
 }
+#else
+// `yiq DIR R OUT`: kernel #2 through its C entry point at R rows a CTA (0:
+// its own choice) on the inputs in DIR (raw files params, rgb, xi, keys,
+// tt, d, tt3, d3, vt); writes the float32 luma plane [b, l, wp] to OUT.
+static int run_yiq(int argc, char** argv) {
+  if (argc != 5) return 2;
+  const std::string dir = argv[2];
+  cvsim_rows_per_cta_override = std::atoi(argv[3]);
+  const auto in = [&](const char* n) { return read_file(dir, n); };
+  const auto P = in("params"), rgb = in("rgb"), xi = in("xi");
+  const auto keys = in("keys"), tt = in("tt"), d = in("d"), tt3 = in("tt3");
+  const auto d3 = in("d3"), vt = in("vt");
+  if (P.size() != sizeof(ChainParams)) return 2;
+  ChainParams cp;
+  std::memcpy(&cp, P.data(), sizeof cp);
+  std::vector<char> yo((size_t)cp.b * cp.l * cp.wp * sizeof(float));
+  const int rc = cvsim_yiq_a(rgb.data(), xi.data(), keys.data(), tt.data(),
+                             d.data(), tt3.data(), d3.data(), vt.data(),
+                             yo.data(), P.data(), nullptr);
+  if (rc != 0) {
+    std::printf("launch error %d\n", rc);
+    return 1;
+  }
+  return write_out(argv[4], {&yo});
+}
+#endif
 #endif
 
 // ---- the tables of one pole (the layouts of pole.cuh's PoleTables),
@@ -275,6 +327,9 @@ static int first_diff(const std::vector<float>& a, const std::vector<float>& b) 
 int main(int argc, char** argv) {
 #ifdef GEN1_KERNELS
   if (argc >= 2 && std::string(argv[1]) == "yuv") return run_yuv(argc, argv);
+#endif
+#ifdef GEN2_KERNELS
+  if (argc >= 2 && std::string(argv[1]) == "yiq") return run_yiq(argc, argv);
 #endif
   if (argc >= 4 && std::string(argv[1]) == "gen1") {
     for (int k = 2; k + 1 < argc; k += 2) {

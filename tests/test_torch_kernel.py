@@ -4,8 +4,8 @@ chain, #2-#4 its split stage groups for row shards), of the gen-1 chain
 rasters above the reference's single-tile budget) and the standalone pole
 cascade (csrc/fused_iir.cu, #9) against their plain PyTorch versions, and
 the wrappers' contracts; #1 and #5 also against the CRC32s of their
-outputs pinned in testing.PINNED_CHAIN_CRC32, and #3, #9, #7 and #8
-(several rows a CTA) against those in testing.PINNED_CASE_CRC32 and
+outputs pinned in testing.PINNED_CHAIN_CRC32, and #2, #3, #9, #6, #7 and
+#8 (several rows a CTA) against those in testing.PINNED_CASE_CRC32 and
 against themselves at other rows a CTA.
 
 Imports torch and the port only (no jax), so that on a GPU host the
@@ -432,7 +432,7 @@ def test_debug_tap_route_runs_fused_iir(cuda_device, tap):
         assert_chain_equal(g.cpu().numpy(), w.numpy(), err_msg=f"plane {k}")
 
 
-# ----------------------------------- several rows a CTA (#3, #9, #7, #8)
+# --------------------------- several rows a CTA (#2, #3, #9, #6, #7, #8)
 
 @pytest.fixture(scope="module")
 def timed():
@@ -449,7 +449,7 @@ def timed():
 def test_multi_row_kernels_keep_pinned_bits(timed, label):
     """#3 and #9 on their timed cases: the same bytes as the kernels of
     commit 6f83bf8, which took one row a CTA; #7 and #8 as those of commit
-    3552a33."""
+    3552a33; #6 and #2 as those of commit a7f4f68."""
     assert case_crc32(timed[label]) == PINNED_CASE_CRC32[label]
 
 
@@ -462,10 +462,11 @@ def _rows_override():
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows_per_cta", [1, 3, 4, 7])
 def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
-    """#9 at three widths, #3 on a row shard and #7, #8 on 39 gen-1 rows
-    give the same bytes at any rows a CTA (set through
-    cvsim_rows_per_cta_override) as at the count the kernels choose, rows
-    across rounds of 16 blocks and a short last CTA included."""
+    """#9 at three widths, #2 and #3 on a row shard of 37 rows (CTAs that
+    hold rows of two fields) and #6, #7, #8 on 39 gen-1 rows give the same
+    bytes at any rows a CTA (set through cvsim_rows_per_cta_override) as
+    at the count the kernels choose, rows across rounds of 16 blocks and a
+    short last CTA included."""
     cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
     rgb, prep = _shard("vhs-ep-stochastic", (3, 64, 720), 16, cuda_device,
                        rows=37)
@@ -482,7 +483,9 @@ def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
 
     def run():
         return ([fused_iir.fused_iir(x, **kw) for x in xs]
+                + [fused_yiq.stage_a(rgb, prep, cfg=cfg)]
                 + list(fused_yiq.stage_b1(y, prep, cfg=cfg, w=720))
+                + [fused_yuv.stage_a(y1, u1, v1, prep1, cfg=cfg1)]
                 + list(fused_yuv.stage_b1(y1, prep1, cfg=cfg1))
                 + list(fused_yuv.stage_b2(y1, u1, v1, prep1, cfg=cfg1)))
 
@@ -492,7 +495,9 @@ def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
     override.value = rows_per_cta
     try:
         assert lib.cvsim_fused_iir_rows_per_cta(768) == rows_per_cta
+        assert lib.cvsim_yiq_a_rows_per_cta(768) == rows_per_cta
         assert lib.cvsim_yiq_b1_rows_per_cta(768) == rows_per_cta
+        assert lib.cvsim_yuv_a_rows_per_cta(768, 384) == rows_per_cta
         assert lib.cvsim_yuv_b1_rows_per_cta(768, 384) == rows_per_cta
         assert lib.cvsim_yuv_b2_rows_per_cta(768, 384) == rows_per_cta
         got = run()
@@ -510,6 +515,25 @@ def test_gen1_multi_row_kernels_keep_pinned_bits_at_any_rows_per_cta(
     and 4 rows a CTA: the bytes of the one-row kernels of commit 3552a33."""
     labels = [k for k in sorted(PINNED_CASE_CRC32)
               if k.startswith(("yuv_b1 ", "yuv_b2 "))]
+    assert len(labels) == 4
+    override = _rows_override()
+    override.value = rows_per_cta
+    try:
+        crcs = {k: case_crc32(timed[k]) for k in labels}
+    finally:
+        override.value = 0
+    assert crcs == {k: PINNED_CASE_CRC32[k] for k in labels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_cta", [1, 2, 3, 4])
+def test_stage_a_kernels_keep_pinned_bits_at_any_rows_per_cta(
+        timed, rows_per_cta):
+    """#6 (576i PAL B=64, 1080i B=16) and #2 (480i B=64, 1080i B=16) on
+    their timed cases at 1 to 4 rows a CTA: the bytes of the one-row
+    kernels of commit a7f4f68."""
+    labels = [k for k in sorted(PINNED_CASE_CRC32)
+              if k.startswith(("yuv_a ", "yiq_a "))]
     assert len(labels) == 4
     override = _rows_override()
     override.value = rows_per_cta

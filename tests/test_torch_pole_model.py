@@ -1,8 +1,8 @@
 """The multi-row pole primitives of csrc/pole.cuh (pole_rows, pole3_rows)
 and the multi-row noise walk of csrc/noise.cuh (add_walk_rows, gen-2 and
-u8-masked gen-1), which kernels #3 (yiq_b1), #9 (fused_iir), #7 (yuv_b1)
-and #8 (yuv_b2) run, against the one-row forms that every other kernel
-runs, bit for bit, on the CPU.
+u8-masked gen-1), which kernels #2 (yiq_a), #3 (yiq_b1), #9 (fused_iir),
+#6 (yuv_a), #7 (yuv_b1) and #8 (yuv_b2) run, against the one-row forms
+that every other kernel runs, bit for bit, on the CPU.
 
 There is no CUDA compiler here, so tests/pole_model.cpp compiles the two
 headers with g++ under a shim (128 std::threads for a CTA, barriers for
@@ -13,12 +13,13 @@ are also held against a plain sequential loop with the same operation
 order. The same build holds pole.cuh's rows_per_cta_of, the rows a CTA
 that the multi-row kernels choose per width, as #3 and #9 call it (rows
 of 5 or 3 planes) and as #7 and #8 call it (a gen-1 row of 3 luma and 3
-half-width chroma planes), at an H100 SM's shared memory. Built beside a copy of csrc/yuv_chain.cu, the
-model runs kernels #7 and #8 whole, through their C entry points, on the
-inputs the port's CPU path prepares: the multi-row instance at several
-rows a CTA gives the bytes of the one-row instance, and the one-row
-instance agrees with the plain PyTorch version (assert_chain_equal).
-Skips without g++.
+half-width chroma planes), at an H100 SM's shared memory. Built beside a
+copy of csrc/yuv_chain.cu, the model runs kernels #6, #7 and #8 whole,
+through their C entry points, on the inputs the port's CPU path prepares;
+built beside a copy of csrc/yiq_chain.cu, kernel #2, on whole fields and
+on a row shard. The multi-row instance at several rows a CTA gives the
+bytes of the one-row instance, and the one-row instance agrees with the
+plain PyTorch version (assert_chain_equal). Skips without g++.
 """
 
 import os
@@ -32,10 +33,10 @@ import pytest
 import torch
 
 from cvsim_tpu_torch.interop import key32_from_seed
-from cvsim_tpu_torch.models import fused_yuv
+from cvsim_tpu_torch.models import fused_yiq, fused_yuv
 from cvsim_tpu_torch.models.fused_yiq import _u32_as_i32
-from cvsim_tpu_torch.testing import (BENCH_CONFIGS, GEN1_CHAIN_CONFIGS,
-                                     assert_chain_equal)
+from cvsim_tpu_torch.testing import (BENCH_CONFIGS, CHAIN_CONFIGS,
+                                     GEN1_CHAIN_CONFIGS, assert_chain_equal)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, os.pardir, "cvsim_tpu_torch", "csrc")
@@ -58,19 +59,36 @@ def pole_model(tmp_path_factory):
     return _build(tmp_path_factory.mktemp("pole_model"))
 
 
-@pytest.fixture(scope="module")
-def gen1_model(tmp_path_factory):
-    """The model with csrc/yuv_chain.cu's kernels, each launch rewritten
+def _kernels_model(d, source, flag):
+    """The model with the kernels of csrc/<source>, each launch rewritten
     to run its CTAs one after another on the model's threads."""
-    d = tmp_path_factory.mktemp("gen1_model")
-    with open(os.path.join(CSRC, "yuv_chain.cu")) as f:
+    with open(os.path.join(CSRC, source)) as f:
         src = f.read().replace("#include <cuda_runtime.h>\n", "")
     src, launches = re.subn(r"(\w+)<<<(.*?),.*?>>>\((.*?)\);",
                             r"cvsim_launch(\2, [&] { \1(\3); });", src,
                             flags=re.S)
-    assert launches == 5   # #5's two, #6, #7, #8
-    (d / "yuv_chain_cpu.cu").write_text(src)
-    return _build(d, "-DGEN1_KERNELS", "-I", str(d))
+    # yuv_chain.cu: #5's two, #6, #7, #8; yiq_chain.cu: #1's two, #2-#4
+    assert launches == 5
+    (d / source.replace(".cu", "_cpu.cu")).write_text(src)
+    return _build(d, flag, "-I", str(d))
+
+
+@pytest.fixture(scope="module")
+def gen1_model(tmp_path_factory):
+    return _kernels_model(tmp_path_factory.mktemp("gen1_model"),
+                          "yuv_chain.cu", "-DGEN1_KERNELS")
+
+
+@pytest.fixture(scope="module")
+def gen2_model(tmp_path_factory):
+    return _kernels_model(tmp_path_factory.mktemp("gen2_model"),
+                          "yiq_chain.cu", "-DGEN2_KERNELS")
+
+
+def _write_inputs(d, files):
+    for fname, t in files.items():
+        data = t if isinstance(t, bytes) else t.contiguous().numpy().tobytes()
+        (d / fname).write_bytes(data)
 
 
 # widths of the half-width chroma (3 blocks), luma (6) and 1080i (15)
@@ -161,10 +179,11 @@ def test_gen1_rows_per_cta_fits_four_ctas_an_sm(pole_model):
         assert r == 1 or r * (3 * wp + 3 * wp2) * 4 <= room
 
 
-# Kernels #7 and #8 whole on the CPU model: every gen-1 configuration of
-# the chain tests and the PAL bench configuration, at a 720-sample raster
-# of 18 rows (4 rows a CTA: the last CTA holds 2) and at 1888 samples
-# (rows across rounds of 16 blocks at 2 and 3 rows a CTA)
+# Kernels #6, #7 and #8 whole on the CPU model: every gen-1 configuration
+# of the chain tests and the PAL bench configuration, at a 720-sample
+# raster of 18 rows (4 rows a CTA: the last CTA holds 2, and CTAs hold rows
+# of two fields) and at 1888 samples (rows across rounds of 16 blocks at 2
+# and 3 rows a CTA)
 GEN1_MODEL_CONFIGS = {**GEN1_CHAIN_CONFIGS,
                       "bench-pal": BENCH_CONFIGS["bench-gen1-ep-pal"]}
 
@@ -182,13 +201,11 @@ def test_gen1_kernels_at_any_rows_per_cta(gen1_model, tmp_path, name, shape):
     w2 = w // 2
     params = fused_yuv._yuv_params(cfg, b, l, w, -(-w // 128) * 128, w2,
                                    -(-w2 // 128) * 128)
-    files = {"params": bytes(params), "y": y, "u": u, "v": v,
-             "xi": prep.xi, "keys": _u32_as_i32(prep.keys_ab),
-             "sincos": prep.sincos, "keep": prep.keep,
-             **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))}
-    for fname, t in files.items():
-        data = t if isinstance(t, bytes) else t.contiguous().numpy().tobytes()
-        (tmp_path / fname).write_bytes(data)
+    _write_inputs(tmp_path, {
+        "params": bytes(params), "y": y, "u": u, "v": v, "xi": prep.xi,
+        "keys": _u32_as_i32(prep.keys_ab), "sincos": prep.sincos,
+        "keep": prep.keep,
+        **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))})
 
     def run(kernel, rows_per_cta):
         out = tmp_path / f"{kernel}_{rows_per_cta}"
@@ -197,16 +214,66 @@ def test_gen1_kernels_at_any_rows_per_cta(gen1_model, tmp_path, name, shape):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode == 0, res.stdout + res.stderr
         data = np.frombuffer(out.read_bytes(), np.uint8)
+        if kernel == "a":
+            return [data]
         return np.split(data, [y.numel(), y.numel() + u.numel()])
 
-    plain = {"b1": fused_yuv.stage_b1_reference(y, prep, cfg=cfg),
+    plain = {"a": (fused_yuv.stage_a_reference(y, u, v, prep, cfg=cfg),),
+             "b1": fused_yuv.stage_b1_reference(y, prep, cfg=cfg),
              "b2": fused_yuv.stage_b2_reference(y, u, v, prep, cfg=cfg)}
-    for kernel in ("b1", "b2"):
+    for kernel in ("a", "b1", "b2"):
         one_row = run(kernel, 1)
         for k, want in enumerate(plain[kernel]):
             assert_chain_equal(one_row[k], want.numpy().ravel(),
                                err_msg=f"{kernel} plane {k}")
         for rows_per_cta in (0, 2, 3, 4):
-            for k, got in enumerate(run(kernel, rows_per_cta)):
-                assert np.array_equal(got, one_row[k]), (kernel, k,
-                                                         rows_per_cta)
+            got = run(kernel, rows_per_cta)
+            assert len(got) == len(one_row)
+            for k, g in enumerate(got):
+                assert np.array_equal(g, one_row[k]), (kernel, k,
+                                                       rows_per_cta)
+
+
+# Kernel #2 whole on the CPU model: every gen-2 configuration of the chain
+# tests and the bench configuration, on whole fields of 9 rows at 720
+# samples (the last CTA holds fewer rows, CTAs hold rows of two fields) and
+# of 5 rows at 1888, and on a row shard: rows 5..11 of two fields 16 rows
+# high (row0 > 0, an odd height, so that at 2 rows a CTA the fourth CTA
+# holds line 11 of field 0 and line 5 of field 1)
+GEN2_MODEL_CONFIGS = {**CHAIN_CONFIGS,
+                      "bench": BENCH_CONFIGS["bench-vhs-ep"]}
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 720, 0, 9), (1, 5, 1888, 0, 5),
+                                   (2, 16, 720, 5, 7)])
+@pytest.mark.parametrize("name", sorted(GEN2_MODEL_CONFIGS))
+def test_gen2_kernel_a_at_any_rows_per_cta(gen2_model, tmp_path, name,
+                                           shape):
+    cfg = GEN2_MODEL_CONFIGS[name]
+    b, l_glob, w, row0, l = shape
+    rng = np.random.default_rng(zlib.crc32(f"{name}/{shape}".encode()))
+    rgb = torch.from_numpy(
+        rng.integers(0, 256, (b, l, w, 3)).astype(np.uint8))
+    fn = torch.arange(b, dtype=torch.int32) + 3
+    prep = fused_yiq.prepare(cfg, rgb, fn, fn % 2, key32_from_seed(5),
+                             row0=row0, l_glob=l_glob)
+    wp = -(-w // 128) * 128
+    params = fused_yiq._chain_params(cfg, b, l, w, wp, row0, l_glob)
+    _write_inputs(tmp_path, {
+        "params": bytes(params), "rgb": rgb, "xi": prep.xi,
+        "keys": _u32_as_i32(prep.keys_ab),
+        **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))})
+
+    def run(rows_per_cta):
+        out = tmp_path / f"a_{rows_per_cta}"
+        res = subprocess.run([gen2_model, "yiq", str(tmp_path),
+                              str(rows_per_cta), str(out)],
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stdout + res.stderr
+        return np.frombuffer(out.read_bytes(), np.float32)
+
+    one_row = run(1)
+    want = fused_yiq.stage_a_reference(rgb, prep, cfg=cfg)
+    assert_chain_equal(one_row, want.numpy().ravel())
+    for rows_per_cta in (0, 2, 3, 4):
+        assert np.array_equal(run(rows_per_cta), one_row), rows_per_cta
