@@ -27,8 +27,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      the kernels that take several rows a CTA on every one of their timed
      cases byte-identical to the one-row kernels before them
      (testing.PINNED_CASE_CRC32): yiq_b1 and fused_iir to 6f83bf8's,
-     yuv_b1 and yuv_b2 to 3552a33's, yuv_a and yiq_a to a7f4f68's, with
-     the rows a CTA each chose;
+     yuv_b1 and yuv_b2 to 3552a33's, yuv_a and yiq_a to a7f4f68's, yiq_b2
+     to f9f71a9's, with the rows a CTA each chose;
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -429,17 +429,29 @@ def kernel_cases_iir(cases) -> float:
     return max_err
 
 
-def check_case_pins(cases) -> None:
-    """[3] the kernels that take several rows a CTA (yiq_b1, fused_iir,
-    yuv_b1, yuv_b2, yuv_a, yiq_a) on each of their timed cases against the
-    CRC32s of the one-row kernels before them, and the rows a CTA each
-    chose."""
+def rows_a_cta(case) -> int:
+    """The rows a CTA that a multi-row kernel (testing.PINNED_KERNELS)
+    takes on a timed case."""
     from cvsim_tpu_torch import kernels
-    from cvsim_tpu_torch.testing import (PINNED_CASE_CRC32, PINNED_KERNELS,
-                                         case_crc32)
 
     def padded(w):
         return -(-w // 128) * 128
+
+    w = case.shape[-1]
+    choose = getattr(kernels.load(), f"cvsim_{case.kernel}_rows_per_cta")
+    # the gen-1 kernels' rows hold luma and half-width chroma planes
+    widths = ((padded(w), padded(w // 2)) if case.kernel.startswith("yuv")
+              else (padded(w),))
+    return choose(*widths)
+
+
+def check_case_pins(cases) -> None:
+    """[3] the kernels that take several rows a CTA (yiq_b1, fused_iir,
+    yuv_b1, yuv_b2, yuv_a, yiq_a, yiq_b2) on each of their timed cases
+    against the CRC32s of the one-row kernels before them, and the rows a
+    CTA each chose."""
+    from cvsim_tpu_torch.testing import (PINNED_CASE_CRC32, PINNED_KERNELS,
+                                         case_crc32)
 
     n, rows = 0, {}
     for case in cases:
@@ -451,12 +463,7 @@ def check_case_pins(cases) -> None:
             raise AssertionError(f"{label}: CRC32 {crc:#010x} != pinned "
                                  f"{pinned:#010x}")
         n += 1
-        w = case.shape[-1]
-        choose = getattr(kernels.load(), f"cvsim_{case.kernel}_rows_per_cta")
-        # the gen-1 kernels' rows hold luma and half-width chroma planes
-        widths = ((padded(w), padded(w // 2)) if case.kernel.startswith("yuv")
-                  else (padded(w),))
-        rows[f"{case.kernel} at {w} samples"] = choose(*widths)
+        rows[f"{case.kernel} at {case.shape[-1]} samples"] = rows_a_cta(case)
     print(f"[3] {', '.join(PINNED_KERNELS)}: outputs byte-identical to the "
           f"one-row kernels before them in all {n} timed cases (CRC32 == "
           f"testing.PINNED_CASE_CRC32); rows a CTA: "
@@ -705,7 +712,8 @@ def main() -> int:
     from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yiq
     from cvsim_tpu_torch.ops import fused_iir
     from cvsim_tpu_torch.parallel import run_fused_lines_local
-    from cvsim_tpu_torch.testing import BENCH_VHS_EP, time_ms, timed_cases
+    from cvsim_tpu_torch.testing import (BENCH_VHS_EP, PINNED_KERNELS,
+                                         time_ms, timed_cases)
 
     # ---- 1. the card
     card = card_line()
@@ -901,8 +909,10 @@ def main() -> int:
                              time_ms(case.kern))
         rate = ("" if case.kernel == "fused_iir" else
                 f" = {case.shape[0] / ms * 1e3:.1f} fields/s")
+        rows = (f", {rows_a_cta(case)} rows a CTA"
+                if case.kernel in PINNED_KERNELS else "")
         print(f"[5] {case.kernel} {case.label} on {card}: kernel {ms:.3f} ms "
-              f"(again {ms2:.3f} ms){rate}; plain {plain_ms:.3f} ms")
+              f"(again {ms2:.3f} ms){rate}{rows}; plain {plain_ms:.3f} ms")
         if case.kernel not in times:
             times[case.kernel] = (ms, plain_ms)
             bound, by, floor = case_bound(case)

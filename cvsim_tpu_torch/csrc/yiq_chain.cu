@@ -26,8 +26,9 @@
 //
 // Design. Every stage is local to one scanline except the chroma vertical
 // blend, which reads the line above, and the head switch is a per-row
-// rotation by a precomputed shift. So each launch runs one CTA of 128
-// threads per (field, row), but yiq_a and yiq_b1 one per R rows:
+// rotation by a precomputed shift. So kernel #1's launches run one CTA of
+// 128 threads per (field, row), and yiq_a, yiq_b1 and yiq_b2 one per R
+// rows:
 //   yiq_front: uint8 RGB in -> group A, head switch, group B1 -> y, i, q
 //              float planes in scratch;
 //   yiq_back:  the blend against row l-1's front output, then group B2 and
@@ -35,11 +36,12 @@
 //   yiq_a, yiq_b1, yiq_b2: one group each; between launches the planes are
 //              f32 [B, L, Wp] in device memory.
 // The row's planes live in shared memory (5 x Wp floats: 38 KB at
-// Wp = 1920; the R rows of yiq_a and yiq_b1 take R times that, R chosen
-// per width by pole.cuh's rows_per_cta: 2 at 704-720, 1 at 1888), so only
-// the RGB bytes, the float planes and the output bytes touch device
-// memory. The noise walks are generated in-kernel from the same
-// splitmix32 words as the TPU kernel (_walk_rows_kernel).
+// Wp = 1920; the R rows of yiq_a, yiq_b1 and yiq_b2 take R times that, R
+// chosen per width by pole.cuh's rows_per_cta: 2 at 704-720, 1 at 1888;
+// one row runs a one-row instance of each), so only the RGB bytes, the
+// float planes and the output bytes touch device memory. The noise walks
+// are generated in-kernel from the same splitmix32 words as the TPU
+// kernel (_walk_rows_kernel).
 //
 // What bounds it. Each pole is a 128x128 lower-triangular product per
 // 128-sample block (8,256 multiply-adds), and a row of the bench
@@ -57,16 +59,19 @@
 // blocks and reads the samples as float4 broadcasts, the triangular loops
 // skip the exact-zero upper half of every table, three-pole cascades run
 // as one T^3 product, and all intermediates of a group stay on chip.
-// yiq_a and yiq_b1 run their rows' poles through the multi-row primitives
-// (pole_rows, pole3_rows, add_walk_rows), so that each table entry a
-// thread loads and each barrier serve the blocks of all their rows. Group
-// B1's row functions take ROWS = true for yiq_b1 and stay one-row code for
-// the other kernels; group A's multi-row form (stage_a_rows) is written
-// beside its one-row form, which kernel #1 runs as it always compiled it.
-// Each output keeps the TPU kernel's operation sequence (the CRC32s of
-// testing.PINNED_CHAIN_CRC32 and PINNED_CASE_CRC32 hold the bits). Several
-// rows a CTA in the other kernels and fusing the launches with a
-// recomputed halo row are later work.
+// yiq_a, yiq_b1 and yiq_b2 run their rows' poles through the multi-row
+// primitives (pole_rows, pole3_rows, add_walk_rows), so that each table
+// entry a thread loads and each barrier serve the blocks of all their
+// rows, and each element-wise pass (QAM re-encode and decode, chroma
+// dropout, Y/C recombine, the lowpass writebacks) covers all rows before
+// its barrier. Group B1's row functions take ROWS = true for yiq_b1 and
+// stay one-row code for the other kernels; the multi-row forms of groups
+// A and B2 (stage_a_rows, stage_b2_rows) are written beside their one-row
+// forms, which kernel #1 runs as it always compiled them. yiq_b2 stores
+// each row's RGB bytes with kernel #1's store_rgb. Each output keeps the
+// TPU kernel's operation sequence (the CRC32s of
+// testing.PINNED_CHAIN_CRC32 and PINNED_CASE_CRC32 hold the bits). Fusing
+// the launches with a recomputed halo row is later work.
 
 #include <cuda_runtime.h>
 
@@ -96,8 +101,8 @@ enum { TAB_I = 0, TAB_Q = 1, TAB_PRE = 2, TAB_VLUMA = 3, TAB_VCHROMA = 4,
        TAB_SHARPEN = 5, TAB_TV = 6, TAB_WALK = 7 };
 
 // Shared-memory working set of a CTA: ROW_PLANES planes, each of n rows of
-// wp floats one after another (n = 1 in every kernel but yiq_a and
-// yiq_b1).
+// wp floats one after another (n = 1 in kernel #1 and in the one-row
+// instances).
 constexpr int ROW_PLANES = 5;
 struct Row {
   float *y, *i, *q, *t1, *t2;
@@ -107,8 +112,8 @@ struct Row {
 };
 
 // The row functions run on one row (ROWS false), or on the r.n rows of a
-// multi-row CTA (ROWS true: yiq_a, yiq_b1), each plane's row k at offset
-// k * wp.
+// multi-row CTA (ROWS true: yiq_a, yiq_b1, yiq_b2), each plane's row k at
+// offset k * wp.
 template <bool ROWS>
 __device__ __forceinline__ int rows_of(const Row& r) {
   return ROWS ? r.n : 1;
@@ -513,6 +518,64 @@ __device__ void stage_b2_row(Row& r, int xi, float keep, const Tables& tab,
   }
 }
 
+// A row's inputs of group B2: subcarrier phase, chroma dropout factor.
+struct B2Row {
+  int xi;
+  float keep;
+};
+
+// stage_b2_row on the r.n rows held, row k's inputs args_of(k) (a B2Row):
+// the sharpen and each output lowpass of all rows in one multi-row pole
+// call, each element-wise pass over all rows before its barrier.
+template <class ArgsOf>
+__device__ void stage_b2_rows(Row& r, ArgsOf args_of, const Tables& tab,
+                              const ChainParams& P) {
+  const int w = P.w, wp = P.wp;
+  const auto xi_of = [&](int k) { return args_of(k).xi; };
+  if (P.vhs) {
+    poles<true, true>(r.y, r.t1, tab[TAB_SHARPEN], 0.f, r);
+    for (int k = 0; k < r.n; ++k) {
+      float* y = r.y + k * wp;
+      const float* s = r.t1 + k * wp;
+      for (int x = threadIdx.x; x < wp; x += BLOCK) {
+        const float yv = y[x];
+        y[x] = x < w ? truncf(yv + (yv - s[x]) * P.sharpen_gain) : 0.f;
+      }
+    }
+    __syncthreads();
+    if (!P.svideo) {
+      qam_encode_rows(r, xi_of, P.amp);
+      qam_decode_rows<true>(r, xi_of, P.amp);
+    }
+  }
+
+  if (P.chroma_loss) {
+    for (int k = 0; k < r.n; ++k) {
+      const float keep = args_of(k).keep;
+      float* i = r.i + k * wp;
+      float* q = r.q + k * wp;
+      for (int x = threadIdx.x; x < wp; x += BLOCK) {
+        i[x] = i[x] * keep;
+        q[x] = q[x] * keep;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int n = 0; n < P.yc_recombine; ++n) {
+    qam_encode_rows(r, xi_of, P.amp);
+    qam_decode_rows<true>(r, xi_of, P.amp);
+  }
+
+  if (P.out_lowpass == 1) {
+    lowpass_writeback<true>(r, r.i, tab[TAB_TV], 1);
+    lowpass_writeback<true>(r, r.q, tab[TAB_TV], 1);
+  } else if (P.out_lowpass == 2) {
+    lowpass_writeback<true>(r, r.i, tab[TAB_I], 2);
+    lowpass_writeback<true>(r, r.q, tab[TAB_Q], 4);
+  }
+}
+
 // YIQ -> RGB, truncated and clamped to 0..255: the TPU path's crop-and-cast.
 __device__ void store_rgb(const Row& r, uint8_t* px) {
   for (int x = threadIdx.x; x < r.w; x += BLOCK) {
@@ -665,25 +728,43 @@ yiq_b1(const float* __restrict__ y_in, const int* __restrict__ xi_tab,
   }
 }
 
-// #4: blended y, i, q planes -> uint8 RGB.
+// #4: blended y, i, q planes -> uint8 RGB. ROWS false: one (field, line)
+// row a CTA (rows_per_cta == 1), through the one-row functions #1 runs;
+// true: the rows_per_cta consecutive rows of a CTA together (the last CTA
+// may hold fewer), each row's bytes stored where one-row code stores them.
+template <bool ROWS>
 __global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 yiq_b2(const float* __restrict__ y_in, const float* __restrict__ i_in,
        const float* __restrict__ q_in, const int* __restrict__ xi_tab,
        const float* __restrict__ keep, Tables tab, ChainParams P,
-       uint8_t* __restrict__ out) {
+       int rows_per_cta, uint8_t* __restrict__ out) {
   extern __shared__ float sm[];
-  const int row = blockIdx.x;
+  const int R = ROWS ? rows_per_cta : 1;
+  const int row0 = blockIdx.x * R;    // field * L + line of the first row
+  const int n = ROWS ? min(R, P.b * P.l - row0) : 1;
   const int wp = P.wp;
-  Row r = row_planes(sm, P.w, wp);
-  const size_t off = (size_t)row * wp;
-  for (int x = threadIdx.x; x < wp; x += BLOCK) {
+  Row r = row_planes(sm, P.w, wp, R, n);
+  const size_t off = (size_t)row0 * wp;
+  for (int x = threadIdx.x; x < n * wp; x += BLOCK) {
     r.y[x] = y_in[off + x];
     r.i[x] = i_in[off + x];
     r.q[x] = q_in[off + x];
   }
   __syncthreads();
-  stage_b2_row(r, xi_tab[row], keep[row], tab, P);
-  store_rgb(r, out + (size_t)row * P.w * 3);
+  if constexpr (ROWS) {
+    stage_b2_rows(r, [&](int k) {
+      return B2Row{xi_tab[row0 + k], keep[row0 + k]};
+    }, tab, P);
+  } else {
+    stage_b2_row(r, xi_tab[row0], keep[row0], tab, P);
+  }
+  for (int k = 0; k < n; ++k) {
+    Row rk = r;
+    rk.y += k * wp;
+    rk.i += k * wp;
+    rk.q += k * wp;
+    store_rgb(rk, out + (size_t)(row0 + k) * P.w * 3);
+  }
 }
 
 }  // namespace cvsim
@@ -752,13 +833,17 @@ extern "C" int cvsim_yiq_chain(const void* rgb, const void* xi,
   return (int)cudaGetLastError();
 }
 
-// The rows a CTA of cvsim_yiq_a and cvsim_yiq_b1 at padded width wp on the
-// current device.
+// The rows a CTA of cvsim_yiq_a, cvsim_yiq_b1 and cvsim_yiq_b2 at padded
+// width wp on the current device.
 extern "C" int cvsim_yiq_a_rows_per_cta(int wp) {
   return rows_per_cta(wp, ROW_PLANES);
 }
 
 extern "C" int cvsim_yiq_b1_rows_per_cta(int wp) {
+  return rows_per_cta(wp, ROW_PLANES);
+}
+
+extern "C" int cvsim_yiq_b2_rows_per_cta(int wp) {
   return rows_per_cta(wp, ROW_PLANES);
 }
 
@@ -808,7 +893,8 @@ extern "C" int cvsim_yiq_b1(const void* y_in, const void* xi, const void* keys,
   return (int)cudaGetLastError();
 }
 
-// Kernel #4: blended y, i, q f32 [b, l, wp] -> uint8 RGB [b, l, w, 3].
+// Kernel #4: blended y, i, q f32 [b, l, wp] -> uint8 RGB [b, l, w, 3],
+// cvsim_yiq_b2_rows_per_cta(wp) rows a CTA.
 extern "C" int cvsim_yiq_b2(const void* y_in, const void* i_in,
                             const void* q_in, const void* xi, const void* keep,
                             const void* tt, const void* d, const void* tt3,
@@ -816,14 +902,17 @@ extern "C" int cvsim_yiq_b2(const void* y_in, const void* i_in,
                             const void* params, void* stream) {
   const ChainParams P = *static_cast<const ChainParams*>(params);
   size_t smem = 0;
-  const int rc = prepare_launch(yiq_b2, P, &smem);
+  const int R = rows_per_cta(P.wp, ROW_PLANES);
+  const auto kernel = R == 1 ? yiq_b2<false> : yiq_b2<true>;
+  const int rc = prepare_launch(kernel, P, &smem, R);
   if (rc != 0) return rc;
   const int rows = P.b * P.l;
   if (rows == 0) return 0;
-  yiq_b2<<<rows, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int ctas = (rows + R - 1) / R;
+  kernel<<<ctas, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y_in), static_cast<const float*>(i_in),
       static_cast<const float*>(q_in), static_cast<const int*>(xi),
-      static_cast<const float*>(keep), tables(tt, d, tt3, d3, vt), P,
+      static_cast<const float*>(keep), tables(tt, d, tt3, d3, vt), P, R,
       static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }

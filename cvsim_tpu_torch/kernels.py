@@ -114,11 +114,12 @@ def load():
                 fn.argtypes = [ptr] * n_args
                 fn.restype = ctypes.c_int
             # rows a CTA of the multi-row kernels on the current device:
-            # #9, #2 and #3 at a padded width, #6, #7 and #8 at the padded
-            # luma and chroma widths
+            # #9, #2, #3 and #4 at a padded width, #6, #7 and #8 at the
+            # padded luma and chroma widths
             for name, n_args in (("cvsim_fused_iir_rows_per_cta", 1),
                                  ("cvsim_yiq_a_rows_per_cta", 1),
                                  ("cvsim_yiq_b1_rows_per_cta", 1),
+                                 ("cvsim_yiq_b2_rows_per_cta", 1),
                                  ("cvsim_yuv_a_rows_per_cta", 2),
                                  ("cvsim_yuv_b1_rows_per_cta", 2),
                                  ("cvsim_yuv_b2_rows_per_cta", 2)):

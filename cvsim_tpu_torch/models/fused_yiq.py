@@ -429,7 +429,8 @@ def stage_b2(y: torch.Tensor, i: torch.Tensor, q: torch.Tensor,
              prep: Prepared, *, cfg: CompositeConfig, w: int) -> torch.Tensor:
     """Kernel #4 (yiq_b2) on the blended y, i, q f32 [B, L, Wp] of w
     active samples: uint8 RGB [B, L, w, 3]. CPU tensor:
-    stage_b2_reference; CUDA tensor: the kernel or raise."""
+    stage_b2_reference; CUDA tensor: the kernel (several rows a CTA at
+    480i and 576i widths) or raise."""
     global B2_LAUNCHES
     dev = _cuda_device(y, "yiq_b2")
     if dev is None:

@@ -318,16 +318,16 @@ def timed_cases(device) -> list[TimedCase]:
 
 
 # Kernels #3 (yiq_b1: its y, i, q planes in turn), #9 (fused_iir), #7
-# (yuv_b1: y, u, v), #8 (yuv_b2: y, u, v), #6 (yuv_a: y) and #2 (yiq_a:
-# y) on every case of their timed_cases, and the CRC32 of each output
-# (case_crc32) as the one-row kernels computed it on an H100
-# (kernel_ab.py): #3 and #9 those of commit 6f83bf8, #7 and #8 those of
-# commit 3552a33, #6 and #2 those of commit a7f4f68. Each kernel was then
-# rebuilt to take several rows a CTA, keeping every output bit; the
-# `cuda` tests, chip_smoke.py [3] and kernel_ab.py hold them to these
-# values. Keyed by "kernel label".
+# (yuv_b1: y, u, v), #8 (yuv_b2: y, u, v), #6 (yuv_a: y), #2 (yiq_a: y)
+# and #4 (yiq_b2: its uint8 RGB) on every case of their timed_cases, and
+# the CRC32 of each output (case_crc32) as the one-row kernels computed it
+# on an H100 (kernel_ab.py): #3 and #9 those of commit 6f83bf8, #7 and #8
+# those of commit 3552a33, #6 and #2 those of commit a7f4f68, #4 those of
+# commit f9f71a9. Each kernel was then rebuilt to take several rows a
+# CTA, keeping every output bit; the `cuda` tests, chip_smoke.py [3] and
+# kernel_ab.py hold them to these values. Keyed by "kernel label".
 PINNED_KERNELS = ("yiq_b1", "fused_iir", "yuv_b1", "yuv_b2", "yuv_a",
-                  "yiq_a")
+                  "yiq_a", "yiq_b2")
 PINNED_CASE_CRC32 = {
     "yiq_b1 240x704 B=64 bench VHS-EP":
         0xB34C9CB6,
@@ -369,6 +369,10 @@ PINNED_CASE_CRC32 = {
         0x80B8B6DC,
     "yiq_a 540x1888 B=16 bench VHS-EP":
         0x619D3BB2,
+    "yiq_b2 240x704 B=64 bench VHS-EP":
+        0x87332681,
+    "yiq_b2 540x1888 B=16 bench VHS-EP":
+        0x7B3742C6,
 }
 
 

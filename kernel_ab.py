@@ -5,7 +5,7 @@ one card.
 
 Builds the kernels of the tree at DIR (default: this checkout), prints the
 CRC32 of kernels #1 and #5 on every case of testing.PINNED_CHAIN_CRC32 and
-of the multi-row kernels (#2, #3, #9, #6, #7, #8) on every case of
+of the multi-row kernels (#2, #3, #4, #9, #6, #7, #8) on every case of
 testing.PINNED_CASE_CRC32, and whether each equals the pinned value, then
 times every kernel on the cases of
 testing.timed_cases, the ones chip_smoke.py [5] times (testing.time_ms:

@@ -10,7 +10,7 @@
 //   ./pole_model rows PLANES WP...
 //   ./pole_model gen1 WP WP2 [WP WP2 ...]
 //   ./pole_model yuv DIR a|b1|b2 R OUT   (built with -DGEN1_KERNELS)
-//   ./pole_model yiq DIR R OUT           (built with -DGEN2_KERNELS)
+//   ./pole_model yiq DIR a|b1|b2 R OUT   (built with -DGEN2_KERNELS)
 //
 // ROWS rows of W samples (random values, a random reset value each) go
 // through the one-row form row by row, and through the multi-row form R
@@ -28,7 +28,7 @@
 // -DGEN1_KERNELS beside a copy of csrc/yuv_chain.cu (see run_yuv), `yuv`
 // runs kernel #6, #7 or #8 whole through its C entry point; built with
 // -DGEN2_KERNELS beside a copy of csrc/yiq_chain.cu (see run_yiq), `yiq`
-// runs kernel #2.
+// runs kernel #2, #3 or #4.
 // tests/test_torch_pole_model.py runs it.
 
 #include <algorithm>
@@ -208,29 +208,47 @@ static int run_yuv(int argc, char** argv) {
   return write_out(argv[5], {&yo, &uo, &vo});
 }
 #else
-// `yiq DIR R OUT`: kernel #2 through its C entry point at R rows a CTA (0:
-// its own choice) on the inputs in DIR (raw files params, rgb, xi, keys,
-// tt, d, tt3, d3, vt); writes the float32 luma plane [b, l, wp] to OUT.
+// `yiq DIR a|b1|b2 R OUT`: kernel #2 (a), #3 (b1) or #4 (b2) through its C
+// entry point at R rows a CTA (0: its own choice) on the inputs in DIR
+// (raw files params, rgb, y, i, q, xi, keys, sincos, keep, tt, d, tt3, d3,
+// vt; a kernel reads only its own); writes the float32 luma plane
+// [b, l, wp] (a), the float32 y, i and q planes (b1) or the uint8 RGB
+// [b, l, w, 3] (b2) to OUT.
 static int run_yiq(int argc, char** argv) {
-  if (argc != 5) return 2;
-  const std::string dir = argv[2];
-  cvsim_rows_per_cta_override = std::atoi(argv[3]);
+  if (argc != 6) return 2;
+  const std::string dir = argv[2], kernel = argv[3];
+  cvsim_rows_per_cta_override = std::atoi(argv[4]);
   const auto in = [&](const char* n) { return read_file(dir, n); };
-  const auto P = in("params"), rgb = in("rgb"), xi = in("xi");
-  const auto keys = in("keys"), tt = in("tt"), d = in("d"), tt3 = in("tt3");
-  const auto d3 = in("d3"), vt = in("vt");
+  const auto P = in("params"), rgb = in("rgb"), y = in("y"), i = in("i");
+  const auto q = in("q"), xi = in("xi"), keys = in("keys");
+  const auto sc = in("sincos"), keep = in("keep"), tt = in("tt");
+  const auto d = in("d"), tt3 = in("tt3"), d3 = in("d3"), vt = in("vt");
   if (P.size() != sizeof(ChainParams)) return 2;
   ChainParams cp;
   std::memcpy(&cp, P.data(), sizeof cp);
-  std::vector<char> yo((size_t)cp.b * cp.l * cp.wp * sizeof(float));
-  const int rc = cvsim_yiq_a(rgb.data(), xi.data(), keys.data(), tt.data(),
-                             d.data(), tt3.data(), d3.data(), vt.data(),
-                             yo.data(), P.data(), nullptr);
+  const size_t plane = (size_t)cp.b * cp.l * cp.wp * sizeof(float);
+  std::vector<char> yo(plane), io(plane), qo(plane);
+  std::vector<char> rgbo((size_t)cp.b * cp.l * cp.w * 3);
+  int rc = 0;
+  if (kernel == "a")
+    rc = cvsim_yiq_a(rgb.data(), xi.data(), keys.data(), tt.data(), d.data(),
+                     tt3.data(), d3.data(), vt.data(), yo.data(), P.data(),
+                     nullptr);
+  else if (kernel == "b1")
+    rc = cvsim_yiq_b1(y.data(), xi.data(), keys.data(), sc.data(), tt.data(),
+                      d.data(), tt3.data(), d3.data(), vt.data(), yo.data(),
+                      io.data(), qo.data(), P.data(), nullptr);
+  else
+    rc = cvsim_yiq_b2(y.data(), i.data(), q.data(), xi.data(), keep.data(),
+                      tt.data(), d.data(), tt3.data(), d3.data(), vt.data(),
+                      rgbo.data(), P.data(), nullptr);
   if (rc != 0) {
     std::printf("launch error %d\n", rc);
     return 1;
   }
-  return write_out(argv[4], {&yo});
+  if (kernel == "a") return write_out(argv[5], {&yo});
+  if (kernel == "b1") return write_out(argv[5], {&yo, &io, &qo});
+  return write_out(argv[5], {&rgbo});
 }
 #endif
 #endif

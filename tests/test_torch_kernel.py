@@ -432,7 +432,7 @@ def test_debug_tap_route_runs_fused_iir(cuda_device, tap):
         assert_chain_equal(g.cpu().numpy(), w.numpy(), err_msg=f"plane {k}")
 
 
-# --------------------------- several rows a CTA (#2, #3, #9, #6, #7, #8)
+# ----------------------- several rows a CTA (#2, #3, #4, #9, #6, #7, #8)
 
 @pytest.fixture(scope="module")
 def timed():
@@ -449,7 +449,8 @@ def timed():
 def test_multi_row_kernels_keep_pinned_bits(timed, label):
     """#3 and #9 on their timed cases: the same bytes as the kernels of
     commit 6f83bf8, which took one row a CTA; #7 and #8 as those of commit
-    3552a33; #6 and #2 as those of commit a7f4f68."""
+    3552a33; #6 and #2 as those of commit a7f4f68; #4 as those of commit
+    f9f71a9."""
     assert case_crc32(timed[label]) == PINNED_CASE_CRC32[label]
 
 
@@ -462,16 +463,17 @@ def _rows_override():
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows_per_cta", [1, 3, 4, 7])
 def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
-    """#9 at three widths, #2 and #3 on a row shard of 37 rows (CTAs that
-    hold rows of two fields) and #6, #7, #8 on 39 gen-1 rows give the same
-    bytes at any rows a CTA (set through cvsim_rows_per_cta_override) as
-    at the count the kernels choose, rows across rounds of 16 blocks and a
-    short last CTA included."""
+    """#9 at three widths, #2, #3 and #4 on a row shard of 37 rows (CTAs
+    that hold rows of two fields) and #6, #7, #8 on 39 gen-1 rows give the
+    same bytes at any rows a CTA (set through cvsim_rows_per_cta_override)
+    as at the count the kernels choose, rows across rounds of 16 blocks
+    and a short last CTA included."""
     cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
     rgb, prep = _shard("vhs-ep-stochastic", (3, 64, 720), 16, cuda_device,
                        rows=37)
     y = fused_yiq.head_switch_rows(fused_yiq.stage_a(rgb, prep, cfg=cfg),
                                    prep.shifts, 720)
+    planes = fused_yiq.stage_b1(y, prep, cfg=cfg, w=720)
     cfg1 = GEN1_CHAIN_CONFIGS["full-ep-stochastic"]
     y1, u1, v1, fn, par = _planes("rows-a-cta", (3, 13, 720), cuda_device)
     prep1 = fused_yuv.prepare(cfg1, y1, fn, par, 5)
@@ -485,6 +487,7 @@ def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
         return ([fused_iir.fused_iir(x, **kw) for x in xs]
                 + [fused_yiq.stage_a(rgb, prep, cfg=cfg)]
                 + list(fused_yiq.stage_b1(y, prep, cfg=cfg, w=720))
+                + [fused_yiq.stage_b2(*planes, prep, cfg=cfg, w=720)]
                 + [fused_yuv.stage_a(y1, u1, v1, prep1, cfg=cfg1)]
                 + list(fused_yuv.stage_b1(y1, prep1, cfg=cfg1))
                 + list(fused_yuv.stage_b2(y1, u1, v1, prep1, cfg=cfg1)))
@@ -497,6 +500,7 @@ def test_multi_row_kernels_at_any_rows_per_cta(cuda_device, rows_per_cta):
         assert lib.cvsim_fused_iir_rows_per_cta(768) == rows_per_cta
         assert lib.cvsim_yiq_a_rows_per_cta(768) == rows_per_cta
         assert lib.cvsim_yiq_b1_rows_per_cta(768) == rows_per_cta
+        assert lib.cvsim_yiq_b2_rows_per_cta(768) == rows_per_cta
         assert lib.cvsim_yuv_a_rows_per_cta(768, 384) == rows_per_cta
         assert lib.cvsim_yuv_b1_rows_per_cta(768, 384) == rows_per_cta
         assert lib.cvsim_yuv_b2_rows_per_cta(768, 384) == rows_per_cta
@@ -535,6 +539,22 @@ def test_stage_a_kernels_keep_pinned_bits_at_any_rows_per_cta(
     labels = [k for k in sorted(PINNED_CASE_CRC32)
               if k.startswith(("yuv_a ", "yiq_a "))]
     assert len(labels) == 4
+    override = _rows_override()
+    override.value = rows_per_cta
+    try:
+        crcs = {k: case_crc32(timed[k]) for k in labels}
+    finally:
+        override.value = 0
+    assert crcs == {k: PINNED_CASE_CRC32[k] for k in labels}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_cta", [1, 2, 3, 4])
+def test_yiq_b2_keeps_pinned_bits_at_any_rows_per_cta(timed, rows_per_cta):
+    """#4 on its timed cases (480i B=64, 1080i B=16) at 1 to 4 rows a CTA:
+    the bytes of the one-row kernel of commit f9f71a9."""
+    labels = [k for k in sorted(PINNED_CASE_CRC32) if k.startswith("yiq_b2 ")]
+    assert len(labels) == 2
     override = _rows_override()
     override.value = rows_per_cta
     try:

@@ -1,8 +1,8 @@
 """The multi-row pole primitives of csrc/pole.cuh (pole_rows, pole3_rows)
 and the multi-row noise walk of csrc/noise.cuh (add_walk_rows, gen-2 and
-u8-masked gen-1), which kernels #2 (yiq_a), #3 (yiq_b1), #9 (fused_iir),
-#6 (yuv_a), #7 (yuv_b1) and #8 (yuv_b2) run, against the one-row forms
-that every other kernel runs, bit for bit, on the CPU.
+u8-masked gen-1), which kernels #2 (yiq_a), #3 (yiq_b1), #4 (yiq_b2),
+#9 (fused_iir), #6 (yuv_a), #7 (yuv_b1) and #8 (yuv_b2) run, against the
+one-row forms that every other kernel runs, bit for bit, on the CPU.
 
 There is no CUDA compiler here, so tests/pole_model.cpp compiles the two
 headers with g++ under a shim (128 std::threads for a CTA, barriers for
@@ -16,10 +16,11 @@ of 5 or 3 planes) and as #7 and #8 call it (a gen-1 row of 3 luma and 3
 half-width chroma planes), at an H100 SM's shared memory. Built beside a
 copy of csrc/yuv_chain.cu, the model runs kernels #6, #7 and #8 whole,
 through their C entry points, on the inputs the port's CPU path prepares;
-built beside a copy of csrc/yiq_chain.cu, kernel #2, on whole fields and
-on a row shard. The multi-row instance at several rows a CTA gives the
-bytes of the one-row instance, and the one-row instance agrees with the
-plain PyTorch version (assert_chain_equal). Skips without g++.
+built beside a copy of csrc/yiq_chain.cu, kernels #2, #3 and #4, on
+whole fields and on a row shard. The multi-row instance at several rows
+a CTA gives the bytes of the one-row instance, and the one-row instance
+agrees with the plain PyTorch version (assert_chain_equal). Skips
+without g++.
 """
 
 import os
@@ -32,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from cvsim_tpu_torch.config import CompositeConfig
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import fused_yiq, fused_yuv
 from cvsim_tpu_torch.models.fused_yiq import _u32_as_i32
@@ -234,21 +236,32 @@ def test_gen1_kernels_at_any_rows_per_cta(gen1_model, tmp_path, name, shape):
                                                        rows_per_cta)
 
 
-# Kernel #2 whole on the CPU model: every gen-2 configuration of the chain
-# tests and the bench configuration, on whole fields of 9 rows at 720
-# samples (the last CTA holds fewer rows, CTAs hold rows of two fields) and
-# of 5 rows at 1888, and on a row shard: rows 5..11 of two fields 16 rows
-# high (row0 > 0, an odd height, so that at 2 rows a CTA the fourth CTA
-# holds line 11 of field 0 and line 5 of field 1)
-GEN2_MODEL_CONFIGS = {**CHAIN_CONFIGS,
-                      "bench": BENCH_CONFIGS["bench-vhs-ep"]}
+# Kernels #2, #3 and #4 whole on the CPU model: every gen-2 configuration
+# of the chain tests and the bench configuration, on whole fields of 9 rows
+# at 720 samples (the last CTA holds fewer rows, CTAs hold rows of two
+# fields) and of 5 rows at 1888, and on a row shard: rows 5..11 of two
+# fields 16 rows high (row0 > 0, an odd height, so that at 2 rows a CTA the
+# fourth CTA holds line 11 of field 0 and line 5 of field 1). The chain
+# configurations take #4 down each of its branches: the sharpen with and
+# without the re-encode/decode (vhs-sp, svideo), Y/C recombine (yc-recomb)
+# and the output lowpass off, 'tv' and full (bare, defaults-noise-off,
+# full-lowpass-out); chroma dropout takes a row in 100,000 per unit of
+# video_chroma_loss, so "chroma-loss-half" drops about every other row, and
+# each CTA's rows take their own keep.
+GEN2_MODEL_CONFIGS = {
+    **CHAIN_CONFIGS, "bench": BENCH_CONFIGS["bench-vhs-ep"],
+    "chroma-loss-half": CompositeConfig(video_noise=0, emulating_vhs=True,
+                                        video_chroma_loss=50000)}
+GEN2_MODEL_SHAPES = [(2, 9, 720, 0, 9), (1, 5, 1888, 0, 5),
+                     (2, 16, 720, 5, 7)]
 
 
-@pytest.mark.parametrize("shape", [(2, 9, 720, 0, 9), (1, 5, 1888, 0, 5),
-                                   (2, 16, 720, 5, 7)])
-@pytest.mark.parametrize("name", sorted(GEN2_MODEL_CONFIGS))
-def test_gen2_kernel_a_at_any_rows_per_cta(gen2_model, tmp_path, name,
-                                           shape):
+def _gen2_kernel_at_any_rows_per_cta(gen2_model, tmp_path, kernel, name,
+                                     shape):
+    """Kernel #2 (a), #3 (b1) or #4 (b2) through the CPU model at 1 row a
+    CTA against its plain version (assert_chain_equal), and at 0 (its own
+    choice), 2, 3 and 4 rows a CTA against 1, byte for byte. #3 runs on
+    #2's plain output, head-switched; #4 on #3's plain output."""
     cfg = GEN2_MODEL_CONFIGS[name]
     b, l_glob, w, row0, l = shape
     rng = np.random.default_rng(zlib.crc32(f"{name}/{shape}".encode()))
@@ -259,21 +272,62 @@ def test_gen2_kernel_a_at_any_rows_per_cta(gen2_model, tmp_path, name,
                              row0=row0, l_glob=l_glob)
     wp = -(-w // 128) * 128
     params = fused_yiq._chain_params(cfg, b, l, w, wp, row0, l_glob)
-    _write_inputs(tmp_path, {
-        "params": bytes(params), "rgb": rgb, "xi": prep.xi,
-        "keys": _u32_as_i32(prep.keys_ab),
-        **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))})
+    files = {"params": bytes(params), "xi": prep.xi,
+             "keys": _u32_as_i32(prep.keys_ab), "sincos": prep.sincos,
+             "keep": prep.keep,
+             **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))}
+    if kernel == "a":
+        files["rgb"] = rgb
+        plain = [fused_yiq.stage_a_reference(rgb, prep, cfg=cfg)]
+    else:
+        y = fused_yiq.stage_a_reference(rgb, prep, cfg=cfg)
+        if cfg.vhs_head_switching:
+            y = fused_yiq.head_switch_rows(y, prep.shifts, w)
+        planes = fused_yiq.stage_b1_reference(y, prep, cfg=cfg, w=w)
+        if kernel == "b1":
+            files["y"] = y
+            plain = list(planes)
+        else:
+            files.update(zip(("y", "i", "q"), planes))
+            plain = [fused_yiq.stage_b2_reference(*planes, prep, cfg=cfg,
+                                                  w=w)]
+    _write_inputs(tmp_path, files)
 
     def run(rows_per_cta):
-        out = tmp_path / f"a_{rows_per_cta}"
-        res = subprocess.run([gen2_model, "yiq", str(tmp_path),
+        out = tmp_path / f"{kernel}_{rows_per_cta}"
+        res = subprocess.run([gen2_model, "yiq", str(tmp_path), kernel,
                               str(rows_per_cta), str(out)],
                              capture_output=True, text=True, timeout=120)
         assert res.returncode == 0, res.stdout + res.stderr
-        return np.frombuffer(out.read_bytes(), np.float32)
+        dtype = np.uint8 if kernel == "b2" else np.float32
+        return np.split(np.frombuffer(out.read_bytes(), dtype), len(plain))
 
     one_row = run(1)
-    want = fused_yiq.stage_a_reference(rgb, prep, cfg=cfg)
-    assert_chain_equal(one_row, want.numpy().ravel())
+    for k, want in enumerate(plain):
+        assert_chain_equal(one_row[k], want.numpy().ravel(),
+                           err_msg=f"{kernel} plane {k}")
     for rows_per_cta in (0, 2, 3, 4):
-        assert np.array_equal(run(rows_per_cta), one_row), rows_per_cta
+        got = run(rows_per_cta)
+        for k, g in enumerate(got):
+            assert np.array_equal(g, one_row[k]), (kernel, k, rows_per_cta)
+
+
+@pytest.mark.parametrize("shape", GEN2_MODEL_SHAPES)
+@pytest.mark.parametrize("name", sorted(GEN2_MODEL_CONFIGS))
+def test_gen2_kernel_a_at_any_rows_per_cta(gen2_model, tmp_path, name,
+                                           shape):
+    _gen2_kernel_at_any_rows_per_cta(gen2_model, tmp_path, "a", name, shape)
+
+
+@pytest.mark.parametrize("shape", GEN2_MODEL_SHAPES)
+@pytest.mark.parametrize("name", sorted(GEN2_MODEL_CONFIGS))
+def test_gen2_kernel_b1_at_any_rows_per_cta(gen2_model, tmp_path, name,
+                                            shape):
+    _gen2_kernel_at_any_rows_per_cta(gen2_model, tmp_path, "b1", name, shape)
+
+
+@pytest.mark.parametrize("shape", GEN2_MODEL_SHAPES)
+@pytest.mark.parametrize("name", sorted(GEN2_MODEL_CONFIGS))
+def test_gen2_kernel_b2_at_any_rows_per_cta(gen2_model, tmp_path, name,
+                                            shape):
+    _gen2_kernel_at_any_rows_per_cta(gen2_model, tmp_path, "b2", name, shape)
