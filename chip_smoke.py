@@ -40,6 +40,14 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      route, yuv_a/_b1/_b2) and `to-composite -nocolor-subcarrier -vhs` on
      the 720x480 clip (the debug-tap route, fused_iir), each against
      its first 8 frames through `--device cpu`;
+     then the audio paths: `to-composite -vhs -audio-in` on the 128-field
+     clip with a 48 kHz stereo WAV as long (the sinc resampler runs; kernel
+     #5's launches read) and `ntsc -audio-in` with a 44.1 kHz one, each
+     video byte-identical to the run without audio and each WAV against
+     the same command through `--device cpu`; `cassette -preset 2`, cuda vs
+     cpu; composite_audio_process on 2^21 stereo samples (two 1M-sample
+     chunks) in the hi-fi 44.1 kHz and PAL linear 48 kHz configurations,
+     card vs CPU chain, all within the chain tolerance, and TF32 off;
      then the multi-device paths: both tools with `-devices 1`, byte-
      identical to the runs without it; `-devices <count+1>` fails and names
      the count; the line-sharded program (4 row shards on one card, and
@@ -52,7 +60,12 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      cascade on testing.iir_cases; CUDA events, median of 5), the gen-2
      split program vs kernel #1's path, the gen-1 split route
      vs yuv_chain at 576i and 1080i, the gen-1 black-key scan's host cost
-     per GOP, and each CLI's end-to-end fields/s.
+     per GOP, and each CLI's end-to-end fields/s; the audio chains (both
+     configurations and cassette -preset 2) per 1M-sample stereo chunk,
+     their multiple of real time and the ops each chunk dispatches (aten
+     ops, and device activities by torch.profiler). The audio path has no
+     TPU kernel: the JAX chains are plain XLA, so the port's are plain
+     torch.
 Each kernel's bound is the larger of two times at the H100 SXM data
 sheet's rates: the float32 operations its one-pole recurrences need (3
 per sample per pole, plus #9's combine) over 67 TFLOP/s, and its bytes
@@ -698,6 +711,220 @@ def line_sharded_paths(shapes, key) -> dict:
     return launches
 
 
+# the audio chains of [4] and [5]: the default hi-fi track (44.1 kHz
+# stereo) and tests/test_audio.py's PAL linear track at 48 kHz (sync buzz
+# and high boost), each with the CLI's default hiss; and cassette -preset 2
+AUDIO_CONFIGS = {
+    "hi-fi 44.1 kHz": {},
+    "PAL linear 48 kHz": dict(ntsc=False, rate=48000, vhs_hifi=False,
+                              vhs_linear_audio=True, lowpass_hz=10000.0,
+                              highpass_hz=100.0, preemphasis_cut_hz=8000.0),
+}
+AUDIO_CHUNK = 1 << 20
+
+
+def tone_samples(n: int, rate: int, seed: int):
+    """int16 [n, 2]: a 440 Hz and a 3 kHz tone with noise."""
+    import numpy as np
+
+    t = np.arange(n)[:, None] / rate
+    rng = np.random.default_rng(seed)
+    sig = (8000 * np.sin(2 * np.pi * 440 * t)
+           + 4000 * np.sin(2 * np.pi * 3000 * t + np.arange(2))
+           + rng.normal(0, 800, (n, 2)))
+    return np.clip(sig, -32768, 32767).astype(np.int16)
+
+
+def write_tone_wav(path: str, seconds: float, rate: int, seed: int) -> int:
+    from cvsim_tpu_torch.host import wavio
+
+    n = int(round(seconds * rate))
+    wavio.write_wav(path, tone_samples(n, rate, seed), rate)
+    return n
+
+
+def compare_audio(got, want, what: str) -> int:
+    """Holds two int16 streams to the chain tolerance; returns the max
+    difference."""
+    from cvsim_tpu_torch.testing import assert_chain_equal, chain_diff
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    dmax, frac = chain_diff(got, want)
+    print(f"[4] {what}: {got.shape[0]} samples x {got.shape[1]}, cuda vs "
+          f"cpu max diff {dmax}, frac {frac:.2e}; tolerance: {TOLERANCE}")
+    assert_chain_equal(got, want, err_msg=what)
+    return dmax
+
+
+def audio_cli_paths(cli_main, src: str, outs: dict, flags: list,
+                    tmp: str) -> None:
+    """[4] the audio paths through the CLI, each on the card and then on
+    the CPU: `to-composite -vhs -audio-in` (a 48 kHz WAV as long as the
+    128-field clip, so the sinc resampler runs) and `ntsc -audio-in`, both
+    beside their video, whose bytes must equal the runs without audio;
+    then `cassette -preset 2`."""
+    from cvsim_tpu_torch.host import wavio
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+
+    seconds = 128 * 1001 / 60000
+    wav48 = os.path.join(tmp, "tone48.wav")
+    wav44 = os.path.join(tmp, "tone44.wav")
+    write_tone_wav(wav48, seconds, 48000, 1)
+    write_tone_wav(wav44, seconds, 44100, 2)
+    for tool, module, extra, wav in (
+            ("to-composite", fused_yuv, ["-vhs"], wav48),
+            ("ntsc", fused_yiq, [], wav44)):
+        out = os.path.join(tmp, f"out-{tool}-audio.y4m")
+        aout = os.path.join(tmp, f"{tool}-cuda.wav")
+        cli_s, counts, _, frames = run_cli(
+            cli_main, {"kernel": (module, "KERNEL_LAUNCHES")},
+            ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags,
+             "-audio-in", wav, "-audio-out", aout])
+        gops = -(-len(frames) // 64)
+        if counts["kernel"] != gops or not same_bytes(out, outs[tool]):
+            raise AssertionError(f"{tool} -audio-in: launches {counts}, "
+                                 "or video bytes differ from the run "
+                                 "without audio")
+        aout_cpu = os.path.join(tmp, f"{tool}-cpu.wav")
+        rc = cli_main(["--device", "cpu", tool, *extra, *flags,
+                       "-audio-in", wav, "-audio-out", aout_cpu])
+        if rc != 0:
+            raise AssertionError(f"{tool} -audio-in CPU CLI rc {rc}")
+        got, rate = wavio.read_wav(aout)
+        print(f"[4] {tool} -audio-in --device cuda: {len(frames)} fields "
+              f"and {got.shape[0]} samples at {rate} Hz in {cli_s:.3f} s; "
+              f"kernel launches {counts['kernel']} for {gops} GOPs; video "
+              f"byte-identical to the run without -audio-in")
+        compare_audio(got, wavio.read_wav(aout_cpu)[0], f"{tool} -audio-in")
+    outs_cas = [os.path.join(tmp, f"cassette-{d}.wav") for d in ("cuda",
+                                                                 "cpu")]
+    for dev, out in zip(("cuda", "cpu"), outs_cas):
+        rc = cli_main(["--device", dev, "cassette", "-i", wav44, "-o", out,
+                       "-preset", "2"])
+        if rc != 0:
+            raise AssertionError(f"cassette --device {dev} rc {rc}")
+    compare_audio(wavio.read_wav(outs_cas[0])[0],
+                  wavio.read_wav(outs_cas[1])[0], "cassette -preset 2")
+
+
+def audio_chain_checks(dev) -> None:
+    """[4] composite_audio_process on 2^21 stereo samples (two 1M-sample
+    chunks with a carried state) in both AUDIO_CONFIGS, on the card and on
+    the CPU."""
+    from cvsim_tpu_torch.config import AudioConfig
+    from cvsim_tpu_torch.host.pipeline import audio_chain
+
+    for k, (name, kw) in enumerate(AUDIO_CONFIGS.items()):
+        acfg = AudioConfig(**kw)
+        samples = tone_samples(2 * AUDIO_CHUNK, acfg.rate, 10 + k)
+        got = audio_chain(samples, acfg, 7, dev, AUDIO_CHUNK)
+        want = audio_chain(samples, acfg, 7, "cpu", AUDIO_CHUNK)
+        compare_audio(got, want, f"audio chain {name}, two 1M chunks")
+    import torch
+
+    # TF32 in the block products breaks the 1-LSB bound
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is on for the audio chains' products")
+    print("[4] audio chains: TF32 off (allow_tf32 False, float32 matmul "
+          "precision 'highest')")
+
+
+def count_ops():
+    """A TorchDispatchMode that counts the aten ops dispatched inside its
+    `with` block (in `.n`)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return CountOps()
+
+
+def device_activities(fn) -> tuple[int, float] | None:
+    """(count, summed duration in ms) of the device activities (kernels,
+    copies, memsets) torch.profiler records in one call of fn; None when
+    it records none (profiler not tracing)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(us), sum(us) / 1e3) if us else None
+
+
+def audio_steps(dev) -> dict:
+    """{name: (rate, host note, step)}: one 1M-sample stereo chunk of each
+    AUDIO_CONFIGS chain and of cassette -preset 2 on `dev`, each step a
+    call of the chain from its initial state."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.audio import (buzz_pulse_counts,
+                                       composite_audio_process,
+                                       init_audio_state)
+    from cvsim_tpu_torch.audio.cassette import (CASSETTE_PRESETS,
+                                                CassetteConfig,
+                                                cassette_audio_process,
+                                                init_cassette_state)
+    from cvsim_tpu_torch.config import AudioConfig
+
+    steps = {}
+    for k, (name, kw) in enumerate(AUDIO_CONFIGS.items()):
+        acfg = AudioConfig(**kw)
+        x = torch.from_numpy(tone_samples(AUDIO_CHUNK, acfg.rate, 20 + k)
+                             .astype(np.int32)).to(dev)
+        t0 = time.perf_counter()
+        pulses = (None if acfg.vhs_hifi
+                  else buzz_pulse_counts(acfg, 0, AUDIO_CHUNK))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        host = (f"; buzz_pulse_counts on the host {host_ms:.1f} ms"
+                if pulses is not None else "")
+        state = init_audio_state(acfg, torch.float32, dev)
+        steps[f"audio chain {name}"] = (acfg.rate, host, partial(
+            composite_audio_process, x, state, 7, cfg=acfg, pulses=pulses))
+    ccfg = CassetteConfig(**CASSETTE_PRESETS[2])
+    x = torch.from_numpy(tone_samples(AUDIO_CHUNK, ccfg.rate, 30)
+                         .astype(np.int32)).to(dev)
+    steps["cassette -preset 2"] = (ccfg.rate, "", partial(
+        cassette_audio_process, x, init_cassette_state(ccfg, torch.float32,
+                                                       dev), 0, cfg=ccfg))
+    return steps
+
+
+def audio_times(dev, card: str) -> None:
+    """[5] ms per 1M-sample stereo chunk on the card (testing.time_ms:
+    CUDA events over one call, host launches included, median of 5), its
+    multiple of real time, the ops it launches and the device time they
+    take (torch.profiler: the durations of its device activities summed)."""
+    from cvsim_tpu_torch.testing import time_ms
+
+    for name, (rate, host, step) in audio_steps(dev).items():
+        ms = time_ms(step)
+        with count_ops() as ops:
+            step()
+        acts = device_activities(step)
+        seconds = AUDIO_CHUNK / rate
+        device = ("device time not measured (torch.profiler recorded no "
+                  "device activity)" if acts is None else
+                  f"{acts[0]} device activities, {acts[1]:.3f} ms of device "
+                  f"time summed (torch.profiler) = {100 * acts[1] / ms:.1f}% "
+                  f"of the chunk's {ms:.3f} ms")
+        print(f"[5] {name}, one 1M-sample stereo chunk ({seconds:.2f} s of "
+              f"audio) on {card}: {ms:.3f} ms = {seconds * 1e3 / ms:.1f}x "
+              f"real time; {ops.n} aten ops dispatched; {device}{host}")
+
+
 def main() -> int:
     import torch
 
@@ -870,6 +1097,11 @@ def main() -> int:
               f"{len(frames_cpu)} fields: max diff {err}; tolerance: "
               f"{TOLERANCE}")
 
+    # the audio paths: both tools' -audio-in beside their video, cassette,
+    # and the chain on two 1M-sample chunks
+    audio_cli_paths(cli_main, src, outs, flags, tmp)
+    audio_chain_checks(dev)
+
     # the multi-device paths: -devices through the CLI (fields over the
     # cards), then the line-sharded program
     count = torch.cuda.device_count()
@@ -968,6 +1200,8 @@ def main() -> int:
     for tool, (_, rate) in paths.items():
         print(f"[5] {tool} CLI end to end on {card}: {rate:.2f} fields/s "
               f"(128 fields, 720x480, build excluded, start-up included)")
+
+    audio_times(dev, card)
 
     # name: (source, TPU kernel it replaces, main-path launches, largest
     # difference against its plain version)

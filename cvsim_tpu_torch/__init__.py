@@ -5,7 +5,10 @@ is). Module names mirror the JAX package's, so each twin sits where a
 reader expects it:
 
 - ops/       C-semantics helpers, phase tables, counter-based noise, the
-             blocked one-pole IIR (plain PyTorch)
+             blocked one-pole IIR with its log-depth carry scan for long
+             axes (plain PyTorch)
+- audio/     the VHS audio chain and the cassette chain (plain PyTorch:
+             the JAX package runs them without a TPU kernel)
 - models/    the gen-2 YIQ and gen-1 YUV 4:2:2 stage paths (yiq.py,
              yuv422.py) and their fused chains (fused_yiq.py,
              fused_yuv.py: per-field inputs, the plain chain and the
@@ -14,13 +17,15 @@ reader expects it:
              by kernels.py
 - parallel/  the multi-device paths: fields over n devices (-devices),
              the line-sharded gen-2 program over row shards
-- host/      the gen-2 and gen-1 GOP pipelines, and the host I/O they
-             need (Y4M, field clock, batching, checkpoints, ffmpeg pipes)
+- host/      the gen-2 and gen-1 GOP pipelines, the audio stream
+             (`CompositePipeline.run_audio`: decode, gap fill, resample,
+             1M-sample chunks), and the host I/O they need (Y4M, WAV,
+             field clock, batching, checkpoints, ffmpeg pipes)
 - native/    the host frame scaler and the cvsim-av container tool
              (C++, built with g++ at first use)
 - config.py, presets.py   the configuration dataclasses and flag parsing
 - cli/       `python -m cvsim_tpu_torch [--device cuda|cpu]
-             ntsc|to-composite ...`
+             ntsc|to-composite|cassette ...`
 
 The package imports torch and numpy, and neither jax nor cvsim_tpu: where
 it needs a module of the JAX package that has no device code (config,

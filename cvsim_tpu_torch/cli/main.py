@@ -1,14 +1,16 @@
 """cvsim_tpu_torch command line: `python -m cvsim_tpu_torch [--device
-cuda|cpu] ntsc|to-composite <flags>`.
+cuda|cpu] ntsc|to-composite|cassette <flags>`.
 
-The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine) and of its
-`to-composite` tool (the gen-1 engine, video side). Flags are the
-reference's, parsed by cvsim_tpu.presets as in the JAX package. The
-device defaults to cuda; without a GPU the command fails unless
-`--device cpu` is given, and it never carries on on the CPU quietly.
-`-devices n` splits each GOP's fields over n devices of that kind: n GPUs
-(fewer visible is an error), or n shards on the CPU. Not yet ported:
-audio (-audio-in) and the other tools.
+The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine), its
+`to-composite` tool (the gen-1 engine) and its `cassette` tool. Flags are
+the reference's, parsed by the port's copy of cvsim_tpu.presets. Both
+video tools take `-audio-in`: the audio runs first (audio/chains.py), and
+its WAV goes to `-audio-out` or is muxed into a container `-o`. The device
+defaults to cuda; without a GPU the command fails unless `--device cpu`
+is given, and it never carries on on the CPU quietly. `-devices n` splits
+each GOP's fields over n devices of that kind: n GPUs (fewer visible is
+an error), or n shards on the CPU. The other 14 tools of the JAX CLI are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ from __future__ import annotations
 import os
 import signal
 import sys
+import tempfile
 
 import torch
 
 from cvsim_tpu_torch import presets
 
 USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] "
-         "ntsc|to-composite -i in.y4m -o out.y4m [flags]")
+         "ntsc|to-composite|cassette [flags]")
 
 
 def _soft_sigint():
@@ -43,16 +46,102 @@ def _soft_sigint():
     return state
 
 
+def _run_audio_stage(st, audio_pipe, will_encode_video: bool,
+                     resuming: bool, gen1: bool):
+    """The audio side, run before the video so that its WAV can be muxed
+    into the video container in the same encode (reference: one file
+    with H.264 + PCM, ffmpeg_to_composite.cpp:2034-2106). Returns
+    (mux_wav, temp file to delete); -audio-out wins when given.
+    `audio_pipe()` gives the CompositePipeline whose run_audio runs."""
+    from cvsim_tpu_torch.host import ffmpeg_pipe
+
+    if not (st.audio_in and st.audio_stream_index >= 0):
+        return None, None
+    audio_dst = st.audio_out
+    # muxing needs the video stage to run (the container is written by
+    # the video encoder); without it the WAV would land in a temp file
+    want_mux = (not audio_dst and will_encode_video
+                and not st.output_file.endswith(".y4m")
+                and ffmpeg_pipe.have_backend())
+    audio_tmp = None
+    if want_mux:
+        fd, audio_tmp = tempfile.mkstemp(suffix=".wav", prefix="cvsim_mux_")
+        os.close(fd)
+        audio_dst = audio_tmp
+    if not audio_dst:
+        print("audio input given but no -audio-out and no container "
+              "video output to mux into; skipping audio", file=sys.stderr)
+        return None, None
+    if resuming and os.path.exists(audio_dst) and audio_dst != audio_tmp:
+        print("Resume: audio output already complete; skipping",
+              file=sys.stderr)
+    else:
+        pts_packets = None
+        if gen1 and st.audio_pts_in:
+            from cvsim_tpu_torch.host import timing as _timing
+
+            pts_packets = _timing.read_audio_pts_log(st.audio_pts_in)
+        try:
+            audio_pipe().run_audio(st.audio_in, audio_dst,
+                                   pts_packets=pts_packets)
+        except BaseException:
+            _unlink(audio_tmp)
+            raise
+    return (audio_dst if want_mux else None), audio_tmp
+
+
+def _unlink(path):
+    if path:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+def _run_video(run, finalize, cleanups):
+    """run() then finalize(); a failing finalize after a failed run (a
+    half-fed encoder exits nonzero) never masks the root cause."""
+    try:
+        fields = run()
+    except BaseException:
+        try:
+            finalize()
+        except Exception:
+            pass
+        raise
+    else:
+        finalize()
+    finally:
+        for c in cleanups:
+            c()
+    return fields
+
+
+def _frame_log(st):
+    if not st.video_pts_in:
+        return None, 90000
+    from cvsim_tpu_torch.host import timing as _timing
+
+    return _timing.read_frame_pts_log(st.video_pts_in)
+
+
+def _open_output(st, resuming: bool, **kw):
+    from cvsim_tpu_torch.host import ffmpeg_pipe
+
+    if resuming:
+        out_stream = open(st.output_file, "r+b")
+        return out_stream, out_stream.close
+    return ffmpeg_pipe.resolve_video_output(st.output_file, **kw)
+
+
 def cmd_ntsc(argv, device: torch.device):
     """Gen-2 YIQ engine tool (ffmpeg_ntsc)."""
     from cvsim_tpu_torch.host import ffmpeg_pipe
+    from cvsim_tpu_torch.host.pipeline import CompositePipeline
     from cvsim_tpu_torch.host.pipeline_yiq import YIQPipeline
 
     st = presets.parse_composite_flags(argv, gen2=True)
-    if st.audio_in:
-        raise ValueError("-audio-in: audio is not yet ported to "
-                         "cvsim_tpu_torch")
-    if not st.output_file:
+    if not st.output_file and not st.audio_out:
         print("No output file specified", file=sys.stderr)
         return 1
     die = _soft_sigint()
@@ -60,55 +149,44 @@ def cmd_ntsc(argv, device: torch.device):
     ckpt_path, resuming = _checkpoint_path(st, cfg)
     pipe = YIQPipeline(cfg, frame_delay=st.frame_delay, die=die,
                        device=device, devices=st.devices)
+    will_encode_video = bool(st.input_files and st.video_stream_index >= 0
+                             and st.output_file)
     fields = 0
-    if st.input_files and st.video_stream_index >= 0:
-        readers, cleanups = [], []
-        for path in st.input_files:
-            r, c = ffmpeg_pipe.resolve_video_input(path)
-            readers.append(r)
-            cleanups.append(c)
-        if resuming:
-            out_stream = open(st.output_file, "r+b")
-            finalize = out_stream.close
-        else:
-            out_stream, finalize = ffmpeg_pipe.resolve_video_output(
-                st.output_file)
-        frame_log, log_rate = None, 90000
-        if st.video_pts_in:
-            from cvsim_tpu_torch.host import timing as _timing
-
-            frame_log, log_rate = _timing.read_frame_pts_log(st.video_pts_in)
-        try:
-            fields = pipe.run_video(readers, out_stream,
-                                    ckpt_path=ckpt_path,
-                                    frame_log=frame_log,
-                                    frame_log_rate=log_rate)
-        except BaseException:
-            try:
-                finalize()   # never mask the root cause
-            except Exception:
-                pass
-            raise
-        else:
-            finalize()
-        finally:
-            for c in cleanups:
-                c()
+    mux_wav, audio_tmp = None, None
+    try:
+        mux_wav, audio_tmp = _run_audio_stage(
+            st, lambda: CompositePipeline(cfg, device=device),
+            will_encode_video, resuming, gen1=False)
+        if will_encode_video:
+            readers, cleanups = [], []
+            for path in st.input_files:
+                r, c = ffmpeg_pipe.resolve_video_input(path)
+                readers.append(r)
+                cleanups.append(c)
+            out_stream, finalize = _open_output(st, resuming,
+                                                mux_wav=mux_wav)
+            frame_log, log_rate = _frame_log(st)
+            fields = _run_video(
+                lambda: pipe.run_video(readers, out_stream,
+                                       ckpt_path=ckpt_path,
+                                       frame_log=frame_log,
+                                       frame_log_rate=log_rate),
+                finalize, cleanups)
+    finally:
+        _unlink(audio_tmp)
     print(f"\n{fields} fields", file=sys.stderr)
     return 0
 
 
 def cmd_to_composite(argv, device: torch.device):
-    """Flagship gen-1 tool (ffmpeg_to_composite), video side."""
+    """Flagship gen-1 tool (ffmpeg_to_composite): audio first, then the
+    video if there is any (the JAX package's `_run_common` order)."""
     st = presets.parse_composite_flags(argv, gen2=False)
     if ((not st.input_files and not st.audio_in)
             or (st.input_files and not st.output_file)):
         print("You must specify an input and output file (-i and -o).",
               file=sys.stderr)
         return 1
-    if st.audio_in:
-        raise ValueError("-audio-in: audio is not yet ported to "
-                         "cvsim_tpu_torch")
     from cvsim_tpu_torch.host import ffmpeg_pipe
     from cvsim_tpu_torch.host.pipeline import CompositePipeline
 
@@ -122,34 +200,35 @@ def cmd_to_composite(argv, device: torch.device):
           file=sys.stderr)
     pipe = CompositePipeline(cfg, die=die, device=device, devices=st.devices)
     ckpt_path, resuming = _checkpoint_path(st, cfg)
-    if st.video_stream_index < 0:
-        return 0
-    reader, rclean = ffmpeg_pipe.resolve_video_input(st.input_files[0])
-    if resuming:
-        out_stream = open(st.output_file, "r+b")
-        finalize = out_stream.close
-    else:
-        out_stream, finalize = ffmpeg_pipe.resolve_video_output(
-            st.output_file, interlaced=cfg.output.interlaced_output)
-    frame_log, log_rate = None, 90000
-    if st.video_pts_in:
-        from cvsim_tpu_torch.host import timing as _timing
-
-        frame_log, log_rate = _timing.read_frame_pts_log(st.video_pts_in)
+    will_encode_video = bool(st.input_files and st.video_stream_index >= 0
+                             and st.output_file)
+    mux_wav, audio_tmp = None, None
     try:
-        pipe.run_video(reader, out_stream, ckpt_path=ckpt_path,
-                       frame_log=frame_log, frame_log_rate=log_rate)
-    except BaseException:
-        try:
-            finalize()   # never mask the root cause
-        except Exception:
-            pass
-        raise
-    else:
-        finalize()
+        mux_wav, audio_tmp = _run_audio_stage(
+            st, lambda: pipe, will_encode_video, resuming, gen1=True)
+        if will_encode_video:
+            reader, rclean = ffmpeg_pipe.resolve_video_input(
+                st.input_files[0])
+            out_stream, finalize = _open_output(
+                st, resuming, mux_wav=mux_wav,
+                interlaced=cfg.output.interlaced_output)
+            frame_log, log_rate = _frame_log(st)
+            _run_video(
+                lambda: pipe.run_video(reader, out_stream,
+                                       ckpt_path=ckpt_path,
+                                       frame_log=frame_log,
+                                       frame_log_rate=log_rate),
+                finalize, [rclean])
     finally:
-        rclean()
+        _unlink(audio_tmp)
     return 0
+
+
+def cmd_cassette(argv, device: torch.device):
+    """Audio-cassette tool (ffmpeg_cassette)."""
+    from cvsim_tpu_torch.cli.tools import run_cassette
+
+    return run_cassette(argv, device)
 
 
 def _checkpoint_path(st, cfg):
@@ -171,7 +250,8 @@ def _checkpoint_path(st, cfg):
     return ckpt_path, resuming
 
 
-COMMANDS = {"ntsc": cmd_ntsc, "to-composite": cmd_to_composite}
+COMMANDS = {"ntsc": cmd_ntsc, "to-composite": cmd_to_composite,
+            "cassette": cmd_cassette}
 
 
 def _split_device(argv):

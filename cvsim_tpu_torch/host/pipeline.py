@@ -18,23 +18,34 @@ Three threads, as in the JAX package:
 With `-devices n` the chain's field batch splits over an n-device mesh
 (parallel.map_fields), with kernel #5 on each device; the rest of the GOP
 step stays on the primary device, because the black-key scan carries
-sequential state from field to field. Audio (-audio-in) is not yet
-ported.
+sequential state from field to field.
+
+Audio (`run_audio`, -audio-in) is decoded whole on the host, gap-filled
+on the packet log, resampled and remixed there (numpy, copied from the
+JAX package), then runs through audio/chains.py on the device in
+1M-sample chunks with a carried state.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import queue
 import sys
+import tempfile
 import threading
 from fractions import Fraction
 
 import numpy as np
 import torch
 
+from cvsim_tpu_torch.audio import (
+    buzz_pulse_counts,
+    composite_audio_process,
+    init_audio_state,
+)
 from cvsim_tpu_torch.config import RunConfig
-from cvsim_tpu_torch.host import fieldops, timing, y4m
+from cvsim_tpu_torch.host import fieldops, timing, wavio, y4m
 from cvsim_tpu_torch.host.batching import (
     FieldBatcher,
     hscale_consts,
@@ -532,3 +543,191 @@ class CompositePipeline:
         if self.progress:
             print("", file=sys.stderr)
         return fields_done["n"]
+
+    # ----------------------------------------------------------- audio side
+
+    def run_audio(self, in_path: str, out_path: str, chunk: int = 1 << 20,
+                  pts_packets=None):
+        """Audio file in, processed WAV out; returns the sample count.
+
+        The whole stream is decoded up front, so the chunk size only sets
+        the device step: chunks run one after another through the carried
+        AudioState with one hiss key for the stream (chunked == whole:
+        tests/test_torch_audio.py). A container input without a packet log
+        gets the demuxer's own (cvsim-av -audio-pkt-log), so PTS gaps are
+        silence-filled on the A/V master clock (ffmpeg_to_composite.cpp:
+        1892-1915)."""
+        cfg = self.cfg
+        acfg = cfg.audio
+        from cvsim_tpu_torch.host import ffmpeg_pipe
+
+        auto_log = None
+        if (pts_packets is None and not in_path.endswith(".wav")
+                and ffmpeg_pipe.av_tool() is not None):
+            fd, auto_log = tempfile.mkstemp(prefix="cvsim_apts_",
+                                            suffix=".log")
+            os.close(fd)
+        try:
+            samples, rate = ffmpeg_pipe.resolve_audio_input(
+                in_path, acfg.rate, acfg.channels, pkt_log=auto_log)
+            if auto_log is not None:
+                log_rate, pkts = timing.read_audio_pts_log(auto_log)
+                if pkts:
+                    # rebase to the stream's own start (the video side
+                    # rebases to its first frame too): keep the gaps
+                    # without leading silence for the container's offset
+                    base = next((p for p, _ in pkts if p is not None), 0)
+                    if base:
+                        pkts = [(None if p is None else p - base, n)
+                                for p, n in pkts]
+                    pts_packets = (log_rate, pkts)
+        finally:
+            if auto_log is not None:
+                os.unlink(auto_log)
+        if pts_packets:
+            log_rate, pkts = pts_packets
+            samples = _audio_pad_fill(samples, pkts, rate,
+                                      log_rate=log_rate)
+        if rate != acfg.rate:
+            samples = _resample_sinc(samples, rate, acfg.rate)
+        if samples.shape[1] != acfg.channels:
+            samples = _remix(samples, acfg.channels)
+        if cfg.transcode_start > 0 or cfg.transcode_end >= 0:
+            s0 = int(cfg.transcode_start * acfg.rate)
+            s1 = (int(cfg.transcode_end * acfg.rate)
+                  if cfg.transcode_end >= 0 else len(samples))
+            samples = samples[s0:s1]
+        if not cfg.enable_audio_emulation:
+            # the sinc resampler's overshoot can exceed full scale: clip
+            # instead of letting astype wrap to the opposite rail
+            wavio.write_wav(out_path,
+                            np.clip(samples, -32768, 32767).astype(np.int16),
+                            acfg.rate)
+            return len(samples)
+
+        result = audio_chain(samples, acfg, key32_from_seed(cfg.seed + 1),
+                             self.device, chunk)
+        wavio.write_wav(out_path, result.astype(np.int16), acfg.rate)
+        return len(result)
+
+
+def audio_chain(samples: np.ndarray, acfg, key32: int,
+                device: torch.device, chunk: int = 1 << 20) -> np.ndarray:
+    """The VHS audio chain over a whole stream [N, C] (int16 range), in
+    `chunk`-sample steps on `device` with a carried state and one hiss key
+    (float32); returns int32 [N, C]."""
+    state = init_audio_state(acfg, torch.float32, device)
+    outs = []
+    for pos in range(0, len(samples), chunk):
+        part = samples[pos:pos + chunk]
+        pulses = (buzz_pulse_counts(acfg, pos, len(part))
+                  if not acfg.vhs_hifi else None)
+        out, state = composite_audio_process(
+            torch.from_numpy(np.ascontiguousarray(part, np.int32)).to(device),
+            state, key32, cfg=acfg, pulses=pulses, dtype=torch.float32)
+        outs.append(out.cpu().numpy())
+    return (np.concatenate(outs) if outs
+            else np.zeros((0, acfg.channels), np.int32))
+
+
+def _audio_pad_fill(samples: np.ndarray, packets, rate: int,
+                    log_rate: int | None = None) -> np.ndarray:
+    """Close audio PTS gaps with silence so audio stays on the video master
+    clock (ffmpeg_to_composite.cpp:1892-1915: when a packet's target sample
+    runs ahead of the running counter, silence is written first; small
+    backward jitter is held via the rate/30 slack of audio_target_sample).
+
+    packets: [(pts_in_samples, n_samples), ...] in stream order, pts in
+    samples at the rate the log was authored against — by default the rate
+    of the DELIVERED stream (`rate`; the ffmpeg ingest path delivers the
+    output rate, not the container's). A log authored at the container's
+    native rate declares it with a `rate <hz>` first line and both pts and
+    n are rescaled here. Samples beyond the log's coverage pass through
+    unchanged."""
+    if log_rate and log_rate != rate:
+        packets = [(None if p is None else round(p * rate / log_rate),
+                    round(n * rate / log_rate)) for p, n in packets]
+    if len(samples) and packets and not any(n for _, n in packets):
+        # a log with no usable durations at all (container carries none and
+        # the logger couldn't attribute decoded samples): consuming 0 per
+        # packet would push the WHOLE stream behind pts-worth of silence —
+        # skip gap fill rather than corrupt
+        print("audio packet log carries no durations; skipping PTS gap fill",
+              file=sys.stderr)
+        return samples
+    out = []
+    cur = 0          # master-clock sample counter (output position)
+    pos = 0          # consumed source samples
+    width = samples.shape[1:]
+    for pts, n in packets:
+        tgt = timing.audio_target_sample(pts, cur, rate)
+        if tgt > cur:
+            out.append(np.zeros((tgt - cur,) + width, samples.dtype))
+            cur = tgt
+        part = samples[pos:pos + n]
+        out.append(part)
+        pos += len(part)
+        cur += len(part)
+    if pos < len(samples):
+        out.append(samples[pos:])
+    return np.concatenate(out) if out else samples
+
+
+def _resample_linear(samples: np.ndarray, src_rate: int, dst_rate: int):
+    """Host-side linear resampler (kept for tiny inputs and as a reference
+    point; _resample_sinc is the production path for the swr role,
+    ffmpeg_to_composite.cpp:1839-1866)."""
+    n = samples.shape[0]
+    m = int(round(n * dst_rate / src_rate))
+    xs = np.arange(m) * (n - 1) / max(1, m - 1)
+    x0 = np.floor(xs).astype(np.int64)
+    x1 = np.minimum(x0 + 1, n - 1)
+    f = (xs - x0)[:, None]
+    out = samples[x0] * (1 - f) + samples[x1] * f
+    return np.round(out).astype(np.int64)
+
+
+def _resample_sinc(samples: np.ndarray, src_rate: int, dst_rate: int,
+                   taps: int = 32, beta: float = 8.6):
+    """Windowed-sinc (Kaiser) resampler — the quality tier of the swr role
+    (ffmpeg_to_composite.cpp:1839-1866). Direct per-output-sample evaluation,
+    vectorized in blocks: out[j] = sum_k x[k] * w(k - t_j) with
+    w = sinc(fc u) * kaiser(beta), fc = min(1, dst/src) for anti-aliased
+    downsampling; weights are renormalized per output sample so DC is exact
+    even at the edges. ~80 dB stopband at taps=32, beta=8.6."""
+    if src_rate == dst_rate:
+        return samples.astype(np.int64)
+    n = samples.shape[0]
+    m = int(round(n * dst_rate / src_rate))
+    if n < 2 * taps or m < 2:
+        return _resample_linear(samples, src_rate, dst_rate)
+    fc = min(1.0, dst_rate / src_rate)
+    half = taps // 2
+    x = samples.astype(np.float64)
+    i0 = np.i0(beta)
+    out = np.empty((m,) + samples.shape[1:], np.float64)
+    block = 1 << 16
+    ks = np.arange(-half + 1, half + 1, dtype=np.float64)   # [taps]
+    for j0 in range(0, m, block):
+        j1 = min(j0 + block, m)
+        t = np.arange(j0, j1, dtype=np.float64) * (src_rate / dst_rate)
+        base = np.floor(t).astype(np.int64)
+        frac = t - base
+        u = ks[None, :] - frac[:, None]                     # [J, taps]
+        w = np.sinc(fc * u) * fc
+        arg = 1.0 - (u / half) ** 2
+        w *= np.where(arg > 0, np.i0(beta * np.sqrt(np.maximum(arg, 0.0))), 0.0) / i0
+        w /= w.sum(axis=1, keepdims=True)
+        idx = np.clip(base[:, None] + ks.astype(np.int64)[None, :], 0, n - 1)
+        out[j0:j1] = np.einsum("jt,jt...->j...", w, x[idx])
+    return np.round(out).astype(np.int64)
+
+
+def _remix(samples: np.ndarray, channels: int):
+    if channels == 1:
+        return np.round(samples.mean(axis=1)).astype(np.int64)[:, None]
+    if samples.shape[1] >= channels:
+        return samples[:, :channels]
+    # upmix by cycling source channels (stereo -> quad duplicates pairs)
+    idx = np.arange(channels) % samples.shape[1]
+    return samples[:, idx]

@@ -1,18 +1,22 @@
 """State that crosses from the JAX package to the port.
 
 The chain has no weights. Its state is the configuration, the PRNG key
-(collapsed to one u32 stream seed) and the IIR constant tables; the tests
-feed both packages through these functions. Nothing here imports the JAX
+(collapsed to one u32 stream seed), the IIR constant tables and, for the
+audio chains, the carried filter registers; the tests feed both packages
+through these functions. Nothing here imports the JAX
 package: a reference object is read by its field names.
 """
 
 from __future__ import annotations
 
-import numpy as np
-
 import dataclasses
 
-from cvsim_tpu_torch.config import CompositeConfig, VHSSpeed
+import numpy as np
+import torch
+
+from cvsim_tpu_torch.audio.cassette import CassetteConfig, CassetteState
+from cvsim_tpu_torch.audio.chains import AudioState
+from cvsim_tpu_torch.config import AudioConfig, CompositeConfig, VHSSpeed
 from cvsim_tpu_torch.models.fused_yiq import _alpha_consts
 from cvsim_tpu_torch.ops.noise import MASK32, key32
 
@@ -35,16 +39,57 @@ def alpha_consts(cfg: CompositeConfig):
     return _alpha_consts(cfg)
 
 
-def convert_config(cfg, config_cls, speed_cls):
+def convert_config(cfg, config_cls, speed_cls=None):
     """A `config_cls` built from any object with its fields (by name),
-    the tape speed by enum member name. The two packages' configs share
-    field and member names, so this maps either way."""
+    the tape speed (where the class has one) by enum member name. The two
+    packages' configs share field and member names, so this maps either
+    way."""
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(config_cls)}
-    kw["vhs_tape_speed"] = speed_cls[kw["vhs_tape_speed"].name]
+    if "vhs_tape_speed" in kw:
+        kw["vhs_tape_speed"] = speed_cls[kw["vhs_tape_speed"].name]
     return config_cls(**kw)
 
 
-def config_from_reference(cfg) -> CompositeConfig:
-    """The port's CompositeConfig from the JAX package's (or any object
-    with its fields)."""
+def config_from_reference(cfg):
+    """The port's CompositeConfig or AudioConfig from the JAX package's
+    (by class name; any object with the class's fields)."""
+    if type(cfg).__name__ == "AudioConfig":
+        return convert_config(cfg, AudioConfig)
     return convert_config(cfg, CompositeConfig, VHSSpeed)
+
+
+def cassette_config_from_reference(cfg) -> CassetteConfig:
+    """The port's CassetteConfig from the JAX package's (a NamedTuple with
+    the same fields)."""
+    return CassetteConfig(**{f: getattr(cfg, f)
+                             for f in CassetteConfig._fields})
+
+
+def _state_from_reference(state, state_cls, device, dtype):
+    """A port state NamedTuple from a reference state (fields by name,
+    each array-like): float fields as `dtype` tensors on `device`,
+    sample_count as an int64 tensor."""
+    kw = {}
+    for name in state_cls._fields:
+        value = np.asarray(getattr(state, name))
+        if name == "sample_count":
+            kw[name] = torch.tensor(int(value), dtype=torch.int64,
+                                    device=device)
+        else:
+            kw[name] = torch.tensor(value, dtype=dtype, device=device)
+    return state_cls(**kw)
+
+
+def audio_state_from_reference(state, device="cpu",
+                               dtype=torch.float32) -> AudioState:
+    """The port's AudioState from the JAX package's (its fields as numpy
+    arrays, e.g. after `jax.device_get`), so a port chain can continue a
+    stream mid-way from the JAX chain's carried registers."""
+    return _state_from_reference(state, AudioState, device, dtype)
+
+
+def cassette_state_from_reference(state, device="cpu",
+                                  dtype=torch.float32) -> CassetteState:
+    """The port's CassetteState from the JAX package's (see
+    audio_state_from_reference)."""
+    return _state_from_reference(state, CassetteState, device, dtype)

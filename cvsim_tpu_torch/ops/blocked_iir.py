@@ -59,6 +59,35 @@ def _cascade3_consts(alpha: float, block: int, np_dtype: str):
             v12.astype(dt))
 
 
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """[e0, o0, e1, o1, ...] along the last axis; `even` is as long as
+    `odd` or one longer."""
+    k = odd.shape[-1]
+    both = torch.stack([even[..., :k], odd], dim=-1).flatten(-2)
+    return torch.cat([both, even[..., k:]], dim=-1)
+
+
+def carry_scan(m: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of y[t] = m*y[t-1] + b[t] along the last axis from
+    y[-1] = 0, for one decay m (a 0-d tensor of b's dtype).
+
+    The odd/even recursion of `jax.lax.associative_scan` (jax 0.9.0,
+    `_scan` in jax/_src/lax/control_flow/loops.py) over the affine maps
+    (m, b[t]) with the combine (a_r*a_l, a_r*b_l + b_r): combine adjacent
+    pairs, scan the reduced sequence, fill the even elements from it,
+    interleave. Only B is kept: its combine reads the right operand's
+    decay, which at every level is that level's m (m, m*m, ...), so the
+    same products and sums in the same order give the JAX function's
+    rounding. A few ops a level, log2(n) levels."""
+    n = b.shape[-1]
+    if n < 2:
+        return b
+    rb = m * b[..., 0:n - 1:2] + b[..., 1::2]
+    ob = carry_scan(m * m, rb)
+    eb = m * (ob[..., :-1] if n % 2 == 0 else ob) + b[..., 2::2]
+    return _interleave(torch.cat([b[..., :1], eb], dim=-1), ob)
+
+
 def full_float32(t: torch.Tensor):
     """The plain versions run with full float32 matrix products on the
     card: the blocked IIR's integer exactness needs them."""
@@ -151,13 +180,10 @@ def iir_lowpass_blocked(x: torch.Tensor, alpha, y0,
             carries.append(last[..., b] + pk_t * carries[-1])
         c = torch.stack(carries, dim=-1)           # carry-in per block
     else:
-        # the JAX function runs this carry chain as an associative scan
-        # (zero init) plus a y0 term; the same affine composition runs
-        # sequentially here (agreement to float32 rounding)
-        post = [last[..., 0]]
-        for b in range(1, nb):
-            post.append(pk_t * post[-1] + last[..., b])
-        post = torch.stack(post, dim=-1)
+        # long axes (noise walks, audio streams): the carry chain as the
+        # JAX function's associative scan (zero init), then the y0 term
+        post = carry_scan(torch.tensor(float(pk), dtype=dtype, device=dev),
+                          last)
         powers = torch.from_numpy(
             np.power(np.float64(pk), np.arange(nb)).astype(
                 _dtype_name(dtype))).to(dev)

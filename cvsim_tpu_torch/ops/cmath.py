@@ -20,6 +20,14 @@ def c_div(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="trunc")
 
 
+def clips16(x: torch.Tensor) -> torch.Tensor:
+    """clips16 (ffmpeg_to_composite.cpp:344-351): truncate a float toward
+    zero, then clamp to the int16 range."""
+    if x.is_floating_point():
+        x = torch.trunc(x)
+    return torch.clamp(x, -32768, 32767)
+
+
 def clampu8(x: torch.Tensor) -> torch.Tensor:
     """clampu8 (ffmpeg_to_composite.cpp:335-342): truncate a float stage
     output toward zero, then clamp to [0, 255]."""

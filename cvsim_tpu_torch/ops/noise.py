@@ -129,3 +129,18 @@ def uniform_pm1_per_field(keys: torch.Tensor,
     """[-1, 1) from the top 24 bits of word 0 (exact in float32)."""
     bits = _bits(keys, torch.zeros_like(keys))
     return (bits >> 8).to(dtype) * (2.0 ** -23) - 1.0
+
+
+def hiss_per_sample(key32: int, start, n: int, c: int, level: int,
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """Content-addressed iid audio hiss [n, c] in [-level, level]: sample
+    t, channel ch draws word (start + t)*c + ch (u32 wrap) of stream
+    `key32`, so chunks with a carried sample counter draw the same noise
+    as one whole stream. `start`: a Python int or an int64 tensor."""
+    t = torch.arange(n, dtype=torch.int64, device=device)
+    idx = ((start & MASK32) + t) & MASK32
+    ch = torch.arange(c, dtype=torch.int64, device=device)
+    stream = ((idx[:, None] * c) & MASK32) + ch
+    bits = _bits(torch.tensor(key32, dtype=torch.int64, device=device),
+                 stream & MASK32)
+    return _randint_bits(bits, -level, level + 1).to(dtype)

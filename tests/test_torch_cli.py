@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from cvsim_tpu.cli.main import main as jax_main
-from cvsim_tpu.host import y4m
+from cvsim_tpu.host import wavio, y4m
 from cvsim_tpu.presets import parse_composite_flags
 from cvsim_tpu_torch.cli.main import main
 from cvsim_tpu_torch.host.pipeline_yiq import YIQPipeline
@@ -120,18 +120,22 @@ def test_cuda_default_without_gpu_fails(tmp_path, capsys):
     (["-devices", "2"], "not yet ported"),
     (["-audio-in", "x.wav", "-audio-out", "y.wav"], "not yet ported"),
 ])
-def test_not_yet_ported_errors(tmp_path, capsys, flag, msg):
-    """-audio-in is not ported yet and fails with a clear error; -devices
-    is ported now and runs (here over a 2-device CPU mesh)."""
+def test_not_yet_ported_errors(tmp_path, capsys, monkeypatch, flag, msg):
+    """-devices and -audio-in were once not ported; both are now and run:
+    -devices here over a 2-device CPU mesh, -audio-in beside the video
+    (relative WAV paths, in the test's directory)."""
+    monkeypatch.chdir(tmp_path)
+    if flag[0] == "-audio-in":
+        tone = (9000 * np.sin(np.arange(3000) * 0.06)).astype(np.int16)
+        wavio.write_wav("x.wav", np.stack([tone, tone], -1), 44100)
     src = make_clip(str(tmp_path / "in.y4m"))
     out = str(tmp_path / "out.y4m")
     rc = main(["--device", "cpu", "ntsc", "-i", src, "-o", out, *flag])
     err = capsys.readouterr().err
-    if flag[0] == "-devices":
-        assert rc == 0 and msg not in err
-        assert len(read_all(out)[1]) == 8
-    else:
-        assert rc == 1 and msg in err
+    assert rc == 0 and msg not in err
+    assert len(read_all(out)[1]) == 8
+    if flag[0] == "-audio-in":
+        assert wavio.read_wav("y.wav")[0].shape == (3000, 2)
 
 
 def _run(src, out, ckpt_path=None, fail_after=None, mode="wb"):

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from cvsim_tpu.cli.main import main as jax_main
-from cvsim_tpu.host import y4m
+from cvsim_tpu.host import wavio, y4m
 from cvsim_tpu.host.pipeline import CompositePipeline as JaxPipeline
 from cvsim_tpu.presets import parse_composite_flags
 from cvsim_tpu_torch.cli.main import main
@@ -143,19 +143,23 @@ def test_cuda_default_without_gpu_fails(tmp_path, capsys):
     ["-devices", "2"],
     ["-audio-in", "x.wav", "-audio-out", "y.wav"],
 ], ids=["devices", "audio-in"])
-def test_not_yet_ported_errors(tmp_path, capsys, flag):
-    """-audio-in is not ported yet and fails with a clear error; -devices
-    is ported now and runs (here over a 2-device CPU mesh)."""
+def test_not_yet_ported_errors(tmp_path, capsys, monkeypatch, flag):
+    """-devices and -audio-in were once not ported; both are now and run:
+    -devices here over a 2-device CPU mesh, -audio-in beside the video
+    (relative WAV paths, in the test's directory)."""
+    monkeypatch.chdir(tmp_path)
+    if flag[0] == "-audio-in":
+        tone = (9000 * np.sin(np.arange(3000) * 0.06)).astype(np.int16)
+        wavio.write_wav("x.wav", np.stack([tone, tone], -1), 44100)
     src = make_clip(str(tmp_path / "in.y4m"))
     out = str(tmp_path / "out.y4m")
     rc = main(["--device", "cpu", "to-composite", "-i", src, "-o", out,
                *flag])
     err = capsys.readouterr().err
-    if flag[0] == "-devices":
-        assert rc == 0 and "not yet ported" not in err
-        assert len(read_all(out)[1]) == 8
-    else:
-        assert rc == 1 and "not yet ported" in err
+    assert rc == 0 and "not yet ported" not in err
+    assert len(read_all(out)[1]) == 8
+    if flag[0] == "-audio-in":
+        assert wavio.read_wav("y.wav")[0].shape == (3000, 2)
 
 
 def test_to_composite_imports_no_jax(tmp_path):

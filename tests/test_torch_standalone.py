@@ -5,14 +5,18 @@ native frame scaler) behave byte for byte as the originals.
 
 - An AST scan of every source file for `jax` / `cvsim_tpu` imports.
 - A subprocess with sys.modules["cvsim_tpu"] = sys.modules["jax"] = None
-  imports every module of the port and runs both CLIs with --device cpu.
+  imports every module of the port and runs its CLI with --device cpu:
+  both video tools, `cassette` and `to-composite -audio-in`.
 - The copies against the originals on the same inputs: flag parsing,
   config reprs and checkpoint hashes, Y4M bytes, the frame scaler, the
-  render and hscale tables, the field-row math and the colour matrices.
-  All exact.
+  render and hscale tables, the field-row math and the colour matrices,
+  the audio host helpers (buzz counts, pad fill, resamplers, remix), the
+  cassette presets and `cassette`'s flag parser. All exact.
 """
 
 import ast
+import dataclasses
+import inspect
 import io
 import subprocess
 import sys
@@ -24,16 +28,23 @@ import pytest
 
 from cvsim_tpu import config as jconfig
 from cvsim_tpu import presets as jpresets
+from cvsim_tpu.audio import cassette as jcassette
+from cvsim_tpu.audio import chains as jchains
+from cvsim_tpu.cli import tools as jtools
 from cvsim_tpu.host import batching as jbatching
 from cvsim_tpu.host import checkpoint as jcheckpoint
 from cvsim_tpu.host import colorconv as jcolorconv
 from cvsim_tpu.host import fieldops as jfieldops
+from cvsim_tpu.host import pipeline as jpipeline
 from cvsim_tpu.host import timing as jtiming
 from cvsim_tpu.host import y4m as jy4m
+from cvsim_tpu.host import wavio as jwavio
 from cvsim_tpu.native import hostpix as jhostpix
 from cvsim_tpu_torch import config, interop, presets
+from cvsim_tpu_torch.audio import cassette, chains
+from cvsim_tpu_torch.cli import tools
 from cvsim_tpu_torch.host import (batching, checkpoint, colorconv, fieldops,
-                                  timing, y4m)
+                                  pipeline, timing, y4m)
 from cvsim_tpu_torch.native import hostpix
 from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
                                      reference_config)
@@ -64,11 +75,15 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_port_runs_with_jax_package_unimportable(tmp_path):
-    """Every module imports, and both CLIs run (gen-1 through the split-
-    route raster check and the debug-tap route), with jax and cvsim_tpu
+    """Every module imports, and the CLI runs (gen-1 through the split-
+    route raster check and the debug-tap route, `cassette`, and
+    `to-composite -audio-in` beside its video), with jax and cvsim_tpu
     made unimportable."""
     src = make_clip(str(tmp_path / "in.y4m"))
-    outs = [str(tmp_path / f"out{k}.y4m") for k in range(3)]
+    outs = [str(tmp_path / f"out{k}.y4m") for k in range(4)]
+    wavs = [str(tmp_path / f"{name}.wav") for name in ("in", "cas", "vhs")]
+    tone = (9000 * np.sin(np.arange(3000) * 0.06)).astype(np.int16)
+    jwavio.write_wav(wavs[0], np.stack([tone, tone], -1), 44100)
     code = f"""
 import importlib, pkgutil, sys
 for name in [m for m in sys.modules
@@ -87,7 +102,11 @@ rcs = [main(["--device", "cpu", "ntsc", *common, "-o", {outs[0]!r}]),
        main(["--device", "cpu", "to-composite", *common, "-o", {outs[1]!r},
              "-tvstd", "pal", "-vhs"]),
        main(["--device", "cpu", "to-composite", *common, "-o", {outs[2]!r},
-             "-nocolor-subcarrier"])]
+             "-nocolor-subcarrier"]),
+       main(["--device", "cpu", "cassette", "-i", {wavs[0]!r}, "-o",
+             {wavs[1]!r}, "-preset", "2"]),
+       main(["--device", "cpu", "to-composite", *common, "-o", {outs[3]!r},
+             "-vhs", "-audio-in", {wavs[0]!r}, "-audio-out", {wavs[2]!r}])]
 assert sys.modules["jax"] is None and sys.modules["cvsim_tpu"] is None
 print("MODULES", len(names), "RCS", rcs)
 sys.exit(max(rcs))
@@ -95,11 +114,21 @@ sys.exit(max(rcs))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "RCS [0, 0, 0]" in proc.stdout
+    assert "RCS [0, 0, 0, 0, 0]" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= len([s for s in SOURCES if s.endswith(".py")]) - 2
     for out in outs:
         assert len(read_all(out)[1]) > 0
+    for wav in wavs[1:]:
+        assert jwavio.read_wav(wav)[0].shape == (3000, 2)
+
+
+def test_import_scan_covers_the_audio_slice():
+    for path in ("cvsim_tpu_torch/audio/__init__.py",
+                 "cvsim_tpu_torch/audio/chains.py",
+                 "cvsim_tpu_torch/audio/cassette.py",
+                 "cvsim_tpu_torch/cli/tools.py"):
+        assert path in SOURCES
 
 
 ARGVS = [
@@ -133,6 +162,10 @@ def test_flags_configs_and_hashes_equal_originals(argv, gen2):
     # other's by field and member name
     assert interop.config_from_reference(run_j.composite) == run.composite
     assert reference_config(run.composite, jconfig) == run_j.composite
+    audio = interop.config_from_reference(run_j.audio)
+    assert audio == run.audio
+    for f in dataclasses.fields(run_j.audio):
+        assert getattr(audio, f.name) == getattr(run_j.audio, f.name)
 
 
 def test_config_module_constants_equal_originals():
@@ -297,3 +330,91 @@ def test_field_clock_equals_original():
         assert clocks[0].fields(idx, 0) == clocks[1].fields(idx, 0)
         assert (timing.frame_pts_to_field(idx, fps, rate)
                 == jtiming.frame_pts_to_field(idx, fps, rate))
+
+
+# the audio host helpers, copied from the JAX package (numpy, float64)
+AUDIO_COPIES = [
+    (chains.buzz_pulse_counts, jchains.buzz_pulse_counts),
+    (pipeline._audio_pad_fill, jpipeline._audio_pad_fill),
+    (pipeline._resample_linear, jpipeline._resample_linear),
+    (pipeline._resample_sinc, jpipeline._resample_sinc),
+    (pipeline._remix, jpipeline._remix),
+]
+
+
+@pytest.mark.parametrize("copy,original", AUDIO_COPIES,
+                         ids=[c.__name__ for c, _ in AUDIO_COPIES])
+def test_audio_helper_sources_equal_originals(copy, original):
+    assert inspect.getsource(copy) == inspect.getsource(original)
+
+
+def _audio_samples(n, c, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-32768, 32768, (n, c)).astype(np.int64)
+
+
+AUDIO_CASES = {
+    "buzz-ntsc": lambda m: m[0](config.AudioConfig(), 7, 3000),
+    "buzz-pal-48k-late": lambda m: m[0](
+        config.AudioConfig(ntsc=False, rate=48000), 2 ** 33 + 5, 3000),
+    "pad-fill": lambda m: m[1](_audio_samples(5000, 2, 1),
+                               [(0, 2000), (3000, 1000), (3900, 1000),
+                                (None, 500), (9000, 700)], 44100),
+    "pad-fill-log-rate": lambda m: m[1](_audio_samples(5000, 2, 2),
+                                        [(0, 1920), (2880, 960)], 44100,
+                                        log_rate=48000),
+    "linear-up": lambda m: m[2](_audio_samples(700, 2, 3), 32000, 44100),
+    "sinc-48k-44k": lambda m: m[3](_audio_samples(4800, 2, 4), 48000, 44100),
+    "sinc-32k-44k-mono": lambda m: m[3](_audio_samples(3200, 1, 5), 32000,
+                                        44100),
+    "sinc-short": lambda m: m[3](_audio_samples(40, 2, 6), 48000, 44100),
+    "sinc-big-block": lambda m: m[3](_audio_samples(72000, 2, 7), 48000,
+                                     44100),
+    "remix-mono": lambda m: m[4](_audio_samples(100, 2, 8), 1),
+    "remix-quad": lambda m: m[4](_audio_samples(100, 2, 9), 4),
+    "remix-cut": lambda m: m[4](_audio_samples(100, 6, 10), 2),
+}
+
+
+@pytest.mark.parametrize("case", list(AUDIO_CASES))
+def test_audio_helpers_equal_originals(case):
+    got = AUDIO_CASES[case]([c for c, _ in AUDIO_COPIES])
+    want = AUDIO_CASES[case]([o for _, o in AUDIO_COPIES])
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cassette_config_and_presets_equal_originals():
+    assert cassette.CASSETTE_PRESETS == jcassette.CASSETTE_PRESETS
+    assert (cassette.CassetteConfig._field_defaults
+            == jcassette.CassetteConfig._field_defaults)
+    for p, kw in jcassette.CASSETTE_PRESETS.items():
+        cfg_j = jcassette.CassetteConfig(**kw)
+        cfg = interop.cassette_config_from_reference(cfg_j)
+        assert tuple(cfg) == tuple(cfg_j)
+        assert (cfg.kernel_len, cfg.hiss_level) == (cfg_j.kernel_len,
+                                                    cfg_j.hiss_level)
+
+
+def _flag_loop(fn):
+    src = inspect.getsource(fn)
+    return src[src.index("    kw = dict()"):src.index("    cfg = CassetteConfig(")]
+
+
+@pytest.mark.parametrize("argv", [
+    ["-h"], ["-i", "a.wav"], ["-o", "b.wav", "-bogus"],
+    ["-i", "a.wav", "-preset", "9", "-o", "b.wav"]],
+    ids=["help", "no-output", "unknown-switch", "bad-preset"])
+def test_cassette_flag_parser_equals_original(argv, capsys):
+    """run_cassette's flag loop is the original's text, and both answer a
+    bad command line alike before touching any file."""
+    assert _flag_loop(tools.run_cassette) == _flag_loop(jtools.run_cassette)
+    results = []
+    for run in (lambda a: tools.run_cassette(a, "cpu"),
+                jtools.run_cassette):
+        try:
+            rc = run(list(argv))
+        except KeyError as e:
+            rc = f"KeyError {e}"
+        results.append((rc, capsys.readouterr().err))
+    assert results[0] == results[1]
