@@ -4,7 +4,8 @@
 
 Phases, each printing its own lines (any failure raises, exit code != 0):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build of the CUDA kernels from cvsim_tpu_torch/csrc with nvcc;
+  2. build of the CUDA kernels from cvsim_tpu_torch/csrc with nvcc, and of
+     the host C++ libraries (the frame scaler, raw28ntsc's DC tracker);
   3. each kernel vs its plain PyTorch version on the card, same prepared
      inputs: the gen-2 kernel (yiq_chain) for every gen-2 chain
      configuration of the port's tests at (2,32,128) and (1,16,176) and the
@@ -28,7 +29,10 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      cases byte-identical to the one-row kernels before them
      (testing.PINNED_CASE_CRC32): yiq_b1 and fused_iir to 6f83bf8's,
      yuv_b1 and yuv_b2 to 3552a33's, yuv_a and yiq_a to a7f4f68's, yiq_b2
-     to f9f71a9's, with the rows a CTA each chose;
+     to f9f71a9's, with the rows a CTA each chose; the raw decoder's
+     line-tail chain (raw28_tails) exactly against its plain loop on three
+     random [262, 1844] fields with random carries and two carried fields
+     of a synthesized ntsc28 capture;
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
@@ -53,6 +57,16 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      the count; the line-sharded program (4 row shards on one card, and
      over every card) at 240x704 B=64 and 540x1888 B=16 against kernel #1;
      with more than one card, both tools with `-devices <count>`;
+     then `raw28ntsc` on two synthesized ntsc28 captures of 64 fields
+     (1820 samples a line): the clean one plain, -color, -nosig and
+     -showsc, and the jittery one (line jitter, DC drift, noise) plain
+     and -color, raw28_tails launched once a field, each against its
+     first 8 MiB through `--device cpu` (byte-identical; -color chroma
+     within the chain tolerance); `scanimate` on colour bars at 720x480,
+     with and without -inntsc, and `-tvstd 1080p60 -inntsc`, each
+     against its first fields through `--device cpu`, and
+     scanimate_field at 1080p in each warp effect, card against CPU,
+     all identical;
   5. times, each taken in turns in this run: each kernel vs its plain
      version on the cases of testing.timed_cases, which kernel_ab.py times
      too (#1-#4 at 240x704 B=64 and 540x1888 B=16; #5 at 240x720 B=64,
@@ -65,7 +79,14 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      their multiple of real time and the ops each chunk dispatches (aten
      ops, and device activities by torch.profiler). The audio path has no
      TPU kernel: the JAX chains are plain XLA, so the port's are plain
-     torch.
+     torch. Then decode_lines a field and raw28_tails against its plain
+     loop, both CLIs' fields/s (raw28ntsc against the capture's 59.94, on
+     both captures), scanimate_field per call at each raster, both CLIs'
+     device busy share (torch.profiler), and raw28ntsc's host stages a
+     field on both captures (the re-lock scans, the vsync hunt, the DC
+     tracker, decode_lines' launches, the rest). raw28_tails' bound counts its bytes and its
+     int32 operations at the H100's 64 INT32 lanes an SM; the chain's
+     serial latency sets its time.
 Each kernel's bound is the larger of two times at the H100 SXM data
 sheet's rates: the float32 operations its one-pole recurrences need (3
 per sample per pole, plus #9's combine) over 67 TFLOP/s, and its bytes
@@ -925,6 +946,380 @@ def audio_times(dev, card: str) -> None:
               f"real time; {ops.n} aten ops dispatched; {device}{host}")
 
 
+# ---- raw28ntsc and scanimate
+
+RAW28_FIELDS = 64          # fields of the synthesized capture of [4]
+RAW28_CPU_BYTES = 8 << 20  # its prefix decoded again on the CPU (the CLI
+# reads 1 MiB chunks, so a whole number of them decodes the same fields)
+# the H100 SXM's int32 rate outside the tensor cores: 64 INT32 units an SM
+# (Hopper architecture white paper) x 132 SMs x 1.98 GHz boost
+INT32_OPS = 64 * 132 * 1.98e9
+# raw28_tails' integer operations a line: the enhancement's 3 per column
+# of 28, 4 denoise passes of 3 per column, 12 chroma divides and luma
+# subtracts, 16 carry divides
+RAW28_LINE_OPS = 3 * 28 + 4 * 3 * 28 + 2 * 12 + 16
+
+
+def raw28_timing():
+    from cvsim_tpu_torch.models import raw28
+
+    return raw28.RawTiming(raw28.rate_preset("ntsc28")).raw_length
+
+
+def capture_lines(rl: int):
+    """uint8 [262, rl + 24]: the 262 lines of one field of the synthesized
+    ntsc28 capture, gathered from the line starts as Raw28Decoder does."""
+    import numpy as np
+
+    from cvsim_tpu_torch.testing import raw28_capture
+
+    cap = raw28_capture(1, rl)
+    idx = 6 * rl + np.arange(262)[:, None] * rl + np.arange(rl + 24)[None, :]
+    return cap[np.minimum(idx, len(cap) - 1)]
+
+
+def raw28_tail_case(lines, blank: float, white: float, dev):
+    """(c3_tail, scan_tail) on dev of a field of raw lines, equalized as
+    decode_lines equalizes them."""
+    import torch
+
+    from cvsim_tpu_torch.models import raw28
+
+    lut = torch.from_numpy(raw28.equalize_lut(blank, white)).to(dev)
+    x = torch.take(lut, torch.from_numpy(lines).to(dev).long())
+    return raw28.tail_inputs(*raw28.split_lines(x, raw28_timing()))
+
+
+def kernel_cases_raw28(dev) -> int:
+    """[3] raw28_tails vs tail_chain_reference (its plain loop) on the
+    card: three random [262, 1844] fields with random carries and AGC
+    levels, then two fields of the synthesized ntsc28 capture's lines,
+    the second carried from the first. Exact, or it raises."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import raw28
+    from cvsim_tpu_torch.testing import RAW28_BLANK, RAW28_WHITE
+
+    rl = raw28_timing()
+    rng = np.random.default_rng(28)
+    cases = [(f"random field {k}", rng.integers(0, 256, (262, rl + 24))
+              .astype(np.uint8), rng.integers(-300, 300, 16),
+              float(rng.uniform(0, 60)), float(rng.uniform(180, 250)))
+             for k in range(3)]
+    lines = capture_lines(rl)
+    cases += [("capture field 1", lines, np.zeros(16), RAW28_BLANK,
+               RAW28_WHITE), ("capture field 2", lines, None, RAW28_BLANK,
+                              RAW28_WHITE)]
+    carry_out = None
+    for name, x, carry, blank, white in cases:
+        c3t, st = raw28_tail_case(x, blank, white, dev)
+        carry = (carry_out if carry is None else
+                 torch.from_numpy(carry.astype(np.int32)).to(dev))
+        got = raw28.raw28_tails(c3t, st, carry)
+        torch.cuda.synchronize()
+        want = raw28.tail_chain_reference(c3t, st, carry)
+        for what, g, w in zip(("chroma", "luma", "carry"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"raw28_tails {name}: {what} differs "
+                                     "from the plain loop")
+        carry_out = got[2]
+        print(f"[3] raw28_tails {name} ({x.shape[0]} lines of {rl} samples): "
+              f"kernel == plain loop (chroma and luma at columns "
+              f"{rl - 12}..{rl - 1}, carry)")
+    print("[3] raw28_tails: exact in all cases (integers only)")
+    return 0
+
+
+def raw28_cli_paths(cli_main, tmp: str) -> dict:
+    """[4] `raw28ntsc` on two synthesized ntsc28 captures of RAW28_FIELDS
+    fields (1820 samples a line): the clean one (plain, -color, -nosig,
+    -showsc) and the jittery one (testing.raw28_capture_jittery: line
+    jitter, DC drift, noise; plain and -color). Each run has raw28_tails'
+    launch count set to 0 just before and read just after (one launch a
+    field), then the capture's first RAW28_CPU_BYTES go through `--device
+    cpu`: its fields byte-identical to the card's first ones, or with
+    -color luma identical and chroma within the chain tolerance. Returns
+    {mode: (fields, seconds, launches)}."""
+    import numpy as np
+
+    from cvsim_tpu_torch.models import raw28
+    from cvsim_tpu_torch.testing import (assert_chain_equal, chain_diff,
+                                         raw28_capture, raw28_capture_jittery)
+
+    rl = raw28_timing()
+    paths = {}
+    for kind, make in (("mono", lambda: raw28_capture(RAW28_FIELDS, rl)),
+                       ("color", lambda: raw28_capture(RAW28_FIELDS, rl,
+                                                       color=True)),
+                       ("jittery", lambda: raw28_capture_jittery(
+                           RAW28_FIELDS, rl))):
+        cap = make()
+        paths[kind] = os.path.join(tmp, f"capture-{kind}.raw")
+        cap.tofile(paths[kind])
+        cap[:RAW28_CPU_BYTES].tofile(paths[kind] + ".head")
+    out_cpu = os.path.join(tmp, "raw28-cpu.y4m")
+    results = {}
+    for mode, flags, kind in (("plain", [], "mono"),
+                              ("-color", ["-color"], "color"),
+                              ("-nosig", ["-nosig"], "mono"),
+                              ("-showsc", ["-showsc"], "mono"),
+                              ("jittery", [], "jittery"),
+                              ("jittery -color", ["-color"], "jittery")):
+        out = os.path.join(tmp, f"raw28{mode.replace(' ', '')}.y4m")
+        secs, counts, hdr, frames = run_cli(
+            cli_main, {"raw28_tails": (raw28, "KERNEL_LAUNCHES")},
+            ["--device", "cuda", "raw28ntsc", "-i", paths[kind], "-o", out,
+             *flags])
+        n = len(frames)
+        if n < RAW28_FIELDS - 4 or counts["raw28_tails"] != n:
+            raise AssertionError(f"raw28ntsc {mode}: {n} fields, "
+                                 f"raw28_tails launches {counts}")
+        if (hdr.width, hdr.height) != ((rl + 1) & ~1, 262):
+            raise AssertionError(f"raw28ntsc {mode}: {hdr.width}x{hdr.height}")
+        if (mode in ("plain", "jittery")
+                and frames[10][0][100, 400:1700].max() < 100):
+            raise AssertionError(f"raw28ntsc {mode}: the ramp was not "
+                                 "recovered")
+        rc = cli_main(["--device", "cpu", "raw28ntsc", "-i",
+                       paths[kind] + ".head", "-o", out_cpu, *flags])
+        if rc != 0:
+            raise AssertionError(f"raw28ntsc {mode} CPU CLI rc {rc}")
+        frames_cpu = read_y4m(out_cpu)[1]
+        if not 8 <= len(frames_cpu) <= n:
+            raise AssertionError(f"raw28ntsc {mode}: {len(frames_cpu)} CPU "
+                                 "fields")
+        err = 0
+        for k, (fg, fc) in enumerate(zip(frames, frames_cpu)):
+            for plane, (pg, pc) in enumerate(zip(fg, fc)):
+                if "-color" in flags and plane > 0:
+                    err = max(err, chain_diff(pg, pc)[0])
+                    assert_chain_equal(pg, pc, err_msg=f"raw28ntsc {mode} "
+                                       f"field {k} plane {plane}")
+                elif not np.array_equal(pg, pc):
+                    raise AssertionError(f"raw28ntsc {mode} field {k} plane "
+                                         f"{plane}: cuda != cpu")
+        how = (f"luma identical, chroma max diff {err} ({TOLERANCE})"
+               if "-color" in flags else "byte-identical")
+        print(f"[4] raw28ntsc {mode} --device cuda: {n} fields "
+              f"({hdr.width}x{hdr.height}) in {secs:.3f} s = {n / secs:.2f} "
+              f"fields/s, raw28_tails launches {counts['raw28_tails']}; the "
+              f"first {len(frames_cpu)} against --device cpu: {how}")
+        results[mode] = (n, secs, counts["raw28_tails"])
+    return results
+
+
+SCANIMATE_CASES = (
+    # label, flags, raster, frames on the card, frames on the CPU
+    ("720x480", [], (720, 480), 16, 4),
+    ("720x480 -inntsc", ["-inntsc"], (720, 480), 16, 4),
+    ("1080p60 -inntsc", ["-tvstd", "1080p60", "-inntsc"], (1920, 1080), 8, 1),
+)
+
+
+def scanimate_cli_paths(cli_main, tmp: str) -> dict:
+    """[4] `scanimate` on colour bars at its raster (2 fields a frame),
+    cuda, then the first frames again through `--device cpu`: identical
+    (the card and the CPU run the same float32 and float64 math, each op
+    correctly rounded). Returns {label: (fields, seconds, args)}."""
+    import numpy as np
+
+    out_cpu = os.path.join(tmp, "scanimate-cpu.y4m")
+    results = {}
+    for label, flags, (w, h), frames_n, cpu_frames in SCANIMATE_CASES:
+        src = os.path.join(tmp, f"bars{w}x{h}.y4m")
+        head = src + ".head.y4m"
+        write_bars_y4m(src, frames_n, w, h)
+        write_bars_y4m(head, cpu_frames, w, h)
+        out = os.path.join(tmp, f"scanimate-{w}{''.join(flags)}.y4m")
+        args = ["--device", "cuda", "scanimate", "-i", src, "-o", out, *flags]
+        secs, _, hdr, frames = run_cli(cli_main, {}, args)
+        if len(frames) != 2 * frames_n or (hdr.width, hdr.height) != (w, h):
+            raise AssertionError(f"scanimate {label}: {len(frames)} fields "
+                                 f"of {hdr.width}x{hdr.height}")
+        if frames[1][0].max() < 100:
+            raise AssertionError(f"scanimate {label}: no phosphor dots")
+        rc = cli_main(["--device", "cpu", "scanimate", "-i", head, "-o",
+                       out_cpu, *flags])
+        if rc != 0:
+            raise AssertionError(f"scanimate {label} CPU CLI rc {rc}")
+        frames_cpu = read_y4m(out_cpu)[1]
+        if len(frames_cpu) != 2 * cpu_frames:
+            raise AssertionError(f"scanimate {label}: {len(frames_cpu)} CPU "
+                                 "fields")
+        for k, (fg, fc) in enumerate(zip(frames, frames_cpu)):
+            for a, b in zip(fg, fc):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"scanimate {label} field {k}: cuda "
+                                         "!= cpu")
+        print(f"[4] scanimate {label} --device cuda: {len(frames)} fields in "
+              f"{secs:.3f} s = {len(frames) / secs:.2f} fields/s; the first "
+              f"{2 * cpu_frames} against --device cpu: identical")
+        results[label] = (len(frames), secs, args)
+    return results
+
+
+def scanimate_field_effects(dev) -> None:
+    """[4] scanimate_field at 1080p (1920x1080 colour bars), one field in
+    each of the 4 warp effects, progressive and -inntsc, card against
+    CPU: identical, or it raises."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import tools
+    from cvsim_tpu_torch.testing import chain_diff
+
+    rgb, _ = colour_bars(1920, 1080)
+    src = torch.from_numpy(rgb)[None]
+    for ntsc in (False, True):
+        mode = "-inntsc" if ntsc else "progressive"
+        for fieldno in (40, 220, 400, 580):
+            got = tools.scanimate_field(src.to(dev), 1080, 1920, 1, [fieldno],
+                                        input_ntsc=ntsc).cpu().numpy()
+            want = tools.scanimate_field(src, 1080, 1920, 1, [fieldno],
+                                         input_ntsc=ntsc).numpy()
+            if not np.array_equal(got, want):
+                dmax, frac = chain_diff(got, want)
+                raise AssertionError(f"scanimate_field 1080p {mode} field "
+                                     f"{fieldno}: cuda != cpu (max diff "
+                                     f"{dmax}, frac {frac:.2e})")
+            print(f"[4] scanimate_field 1080p {mode} field {fieldno} (effect "
+                  f"{fieldno // 180}): cuda == cpu, raster max "
+                  f"{int(want.max())}")
+
+
+def cli_device_share(cli_main, args) -> str:
+    """torch.profiler's device activities over one in-process CLI run:
+    their count, summed duration and share of the run's wall."""
+    t0 = time.perf_counter()
+    acts = device_activities(lambda: cli_main(args))
+    wall = (time.perf_counter() - t0) * 1e3
+    if acts is None:
+        return "device time not measured (torch.profiler recorded none)"
+    return (f"{acts[0]} device activities, {acts[1]:.3f} ms of device time "
+            f"summed = {100 * acts[1] / wall:.1f}% of the {wall:.1f} ms "
+            "profiled run")
+
+
+def raw28_host_stages(cli_main, args) -> str:
+    """Where one in-process `raw28ntsc` run's wall goes on the host: the
+    time inside relock_hsync (the per-line re-lock scans), hunt_vsync,
+    the DC tracker's process and decode_lines (its launches; the card's
+    work is waited for later, in the copy back), each wrapped with a
+    timer for this run only, and the rest (the line gather, the copies
+    and their waits, the Y4M writes), per field and as shares of the
+    wall."""
+    import torch
+
+    from cvsim_tpu_torch import native
+    from cvsim_tpu_torch.models import raw28
+
+    spent = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    saved = [(obj, name, getattr(obj, name)) for obj, name in (
+        (raw28, "relock_hsync"), (raw28, "hunt_vsync"),
+        (native.HsyncDcTracker, "process"), (raw28, "decode_lines"))]
+    for obj, name, fn in saved:
+        setattr(obj, name, timed(name, fn))
+    try:
+        t0 = time.perf_counter()
+        rc = cli_main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    if rc != 0:
+        raise AssertionError(f"raw28ntsc host stages: rc {rc}")
+    n = len(read_y4m(args[args.index("-o") + 1])[1])
+    spent["rest"] = wall - sum(spent.values())
+    return (f"{n} fields in {wall * 1e3:.1f} ms: " + ", ".join(
+        f"{name} {t * 1e3 / n:.3f} ms a field ({100 * t / wall:.1f}%)"
+        for name, t in spent.items()))
+
+
+def raw28_scanimate_times(dev, card: str, cli_main, raw28_runs: dict,
+                          scan_runs: dict, tmp: str) -> dict:
+    """[5] decode_lines ms a field and raw28_tails against its plain loop
+    on the card (testing.time_ms), both CLIs' fields/s from [4], the
+    scanimate device step per batch, and both CLIs' device busy share.
+    Returns raw28_tails' (ms, plain_ms, bound_ms, bound_by)."""
+    import torch
+
+    from cvsim_tpu_torch.models import raw28, tools
+    from cvsim_tpu_torch.testing import RAW28_BLANK, RAW28_WHITE, time_ms
+
+    rl = raw28_timing()
+    lines_np = capture_lines(rl)
+    lines = torch.from_numpy(lines_np).to(dev)
+    carry = torch.zeros(16, dtype=torch.int32, device=dev)
+    decode = lambda: raw28.decode_lines(lines, RAW28_BLANK, RAW28_WHITE,
+                                        raw_len=rl, width=(rl + 1) & ~1,
+                                        chroma_carry=carry)
+    c3t, st = raw28_tail_case(lines_np, RAW28_BLANK, RAW28_WHITE, dev)
+    kern = lambda: raw28.raw28_tails(c3t, st, carry)
+    plain = lambda: raw28.tail_chain_reference(c3t, st, carry)
+    dec_ms, k_ms, p_ms, k2_ms = (time_ms(decode), time_ms(kern),
+                                 time_ms(plain), time_ms(kern))
+    k_b2b = time_ms(kern, calls=10)
+    n = lines.shape[0]
+    n_bytes = nbytes(c3t, st, carry) + nbytes(*kern())
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n * RAW28_LINE_OPS / INT32_OPS * 1e3
+    bound = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+             "operations")
+    print(f"[5] decode_lines, one field of {n} lines x {rl} samples on "
+          f"{card}: {dec_ms:.3f} ms (equalize, Y/C split, raw28_tails, "
+          f"outputs; host launches included)")
+    print(f"[5] raw28_tails {n} lines on {card}: kernel {k_ms * 1e3:.1f} us "
+          f"(again {k2_ms * 1e3:.1f} us; back to back {k_b2b * 1e3:.1f} us); "
+          f"plain loop on the card {p_ms:.3f} ms = {p_ms / k_ms:.0f}x; bound "
+          f"{bound[0] * 1e3:.4f} us ({bound[1]}: {n_bytes} bytes, "
+          f"{n * RAW28_LINE_OPS} int32 operations), the chain's serial "
+          "latency, which no bound counts, sets its time")
+    for mode, kind in (("plain", "mono"), ("jittery", "jittery")):
+        n_f, secs, _ = raw28_runs[mode]
+        what = "clean" if kind == "mono" else "jittery"
+        print(f"[5] raw28ntsc CLI end to end, {what} capture, on {card}: "
+              f"{n_f / secs:.2f} fields/s against the capture's 59.94 ({n_f} "
+              "fields of 262x1820, build excluded)")
+        args = ["--device", "cuda", "raw28ntsc", "-i",
+                os.path.join(tmp, f"capture-{kind}.raw.head"), "-o",
+                os.path.join(tmp, "raw28-prof.y4m")]
+        print(f"[5] raw28ntsc CLI device busy, {what} capture "
+              f"({RAW28_CPU_BYTES >> 20} MiB): "
+              + cli_device_share(cli_main, args))
+        print(f"[5] raw28ntsc CLI host stages, {what} capture "
+              f"({RAW28_CPU_BYTES >> 20} MiB): "
+              + raw28_host_stages(cli_main, args))
+
+    for label, (n_f, secs, args) in scan_runs.items():
+        print(f"[5] scanimate {label} CLI end to end on {card}: "
+              f"{n_f / secs:.2f} fields/s ({n_f} fields, build excluded)")
+    for label, flags, (w, h), _, _ in SCANIMATE_CASES:
+        ntsc = "-inntsc" in flags
+        b = 8 if ntsc else 16     # a CLI call: 16 fields, 8 a parity
+        rgb, _ = colour_bars(w, h)
+        src = torch.from_numpy(rgb)[None].expand(b, -1, -1, -1).to(dev)
+        ms = time_ms(lambda: tools.scanimate_field(
+            src, h, w, 1, list(range(40, 40 + b)), input_ntsc=ntsc))
+        print(f"[5] scanimate_field {label}, {b} fields a call on {card}: "
+              f"{ms:.3f} ms = {b / ms * 1e3:.1f} fields/s on the device")
+    _, _, args = scan_runs["720x480"]
+    print(f"[5] scanimate 720x480 CLI device busy: "
+          + cli_device_share(cli_main, args))
+    return (k_ms, p_ms, *bound)
+
+
 def main() -> int:
     import torch
 
@@ -967,6 +1362,20 @@ def main() -> int:
     grey = np.full((8, 8), 128, np.uint8)
     scale_frame_to(grey, grey[::2, ::2], grey[::2, ::2], 8, 8)
     print(f"[2] host frame scaler ready in {time.perf_counter() - t0:.2f} s")
+    # raw28ntsc's DC tracker is host C++ too (libhostio, g++); its numpy
+    # twin would pass unseen, so its build is checked here
+    from cvsim_tpu_torch.models.raw28 import RawTiming, rate_preset
+    from cvsim_tpu_torch.native import HsyncDcTracker
+
+    t0 = time.perf_counter()
+    rt = RawTiming(rate_preset("ntsc28"))
+    tracker = HsyncDcTracker(rt.sample_rate, rt.one_scanline_time,
+                             rt.one_frame_time)
+    if tracker._native is None:
+        raise AssertionError("libhostio (the raw decoder's DC tracker) did "
+                             "not build")
+    print(f"[2] host DC tracker (libhostio) ready in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # ---- 3. each kernel vs its plain version on the card
     key = interop.key32_from_seed(5)
@@ -978,6 +1387,7 @@ def main() -> int:
     cases = timed_cases(dev)
     err_iir = kernel_cases_iir(cases)
     check_case_pins(cases)
+    err_raw28 = kernel_cases_raw28(dev)
 
     # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
@@ -1131,6 +1541,11 @@ def main() -> int:
     shapes = split_shapes(dev, key)
     split_launches = line_sharded_paths(shapes, key)
 
+    # raw28ntsc (raw28_tails) and scanimate (plain torch)
+    raw28_runs = raw28_cli_paths(cli_main, tmp)
+    scan_runs = scanimate_cli_paths(cli_main, tmp)
+    scanimate_field_effects(dev)
+
     # ---- 5. times
     # every kernel vs its plain version on the cases of testing.timed_cases
     # (kernel_ab.py times the same); the first case of each kernel is its
@@ -1202,6 +1617,10 @@ def main() -> int:
               f"(128 fields, 720x480, build excluded, start-up included)")
 
     audio_times(dev, card)
+    r_ms, r_plain, r_bound, r_by = raw28_scanimate_times(
+        dev, card, cli_main, raw28_runs, scan_runs, tmp)
+    times["raw28_tails"] = (r_ms, r_plain)
+    bounds["raw28_tails"] = (r_bound, r_by)
 
     # name: (source, TPU kernel it replaces, main-path launches, largest
     # difference against its plain version)
@@ -1224,14 +1643,20 @@ def main() -> int:
                    route_launches["yuv_b2"], err_g1split["yuv_b2"]),
         "fused_iir": ("fused_iir", "cvsim_tpu/ops/pallas/fused_iir.py:52",
                       route_launches["fused_iir"], err_iir),
+        # no TPU twin: the JAX package runs this chain as a lax.scan
+        "raw28_tails": ("raw28", "cvsim_tpu/models/raw28.py:283 (lax.scan, "
+                        "no pallas_call)", raw28_runs["plain"][2], err_raw28),
     }
     for name, (ms, by) in bounds.items():
+        if name not in floors:
+            continue   # raw28_tails has no blocked form; [5] printed it
         k_ms, fl = times[name][0], floors[name]
         print(f"[5] {name} bound {ms:.4f} ms ({by}); blocked-form floor "
               f"{fl:.4f} ms (block products' multiply-adds at "
               f"{FMA_PER_S:.3g}/s); kernel {k_ms:.3f} ms = {ms / k_ms:.1%} "
               f"of the bound, {k_ms / fl:.2f}x the floor")
-    # library_ms: no single PyTorch call computes these IIR chains
+    # library_ms: no single PyTorch call computes these IIR chains or the
+    # raw decoder's carried line tails
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,16 +1,17 @@
 """cvsim_tpu_torch command line: `python -m cvsim_tpu_torch [--device
-cuda|cpu] ntsc|to-composite|cassette <flags>`.
+cuda|cpu] ntsc|to-composite|cassette|raw28ntsc|scanimate <flags>`.
 
 The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine), its
-`to-composite` tool (the gen-1 engine) and its `cassette` tool. Flags are
-the reference's, parsed by the port's copy of cvsim_tpu.presets. Both
-video tools take `-audio-in`: the audio runs first (audio/chains.py), and
-its WAV goes to `-audio-out` or is muxed into a container `-o`. The device
-defaults to cuda; without a GPU the command fails unless `--device cpu`
-is given, and it never carries on on the CPU quietly. `-devices n` splits
-each GOP's fields over n devices of that kind: n GPUs (fewer visible is
-an error), or n shards on the CPU. The other 14 tools of the JAX CLI are
-not ported yet.
+`to-composite` tool (the gen-1 engine), and its `cassette`, `raw28ntsc`
+(the software TV set) and `scanimate` tools. Flags are the reference's,
+parsed by the port's copies of cvsim_tpu.presets and the tools' parsers.
+Both video tools take `-audio-in`: the audio runs first
+(audio/chains.py), and its WAV goes to `-audio-out` or is muxed into a
+container `-o`. The device defaults to cuda; without a GPU the command
+fails unless `--device cpu` is given, and it never carries on on the CPU
+quietly. `-devices n` splits each GOP's fields over n devices of that
+kind: n GPUs (fewer visible is an error), or n shards on the CPU. The
+other 12 tools of the JAX CLI are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 from cvsim_tpu_torch import presets
 
 USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] "
-         "ntsc|to-composite|cassette [flags]")
+         "ntsc|to-composite|cassette|raw28ntsc|scanimate [flags]")
 
 
 def _soft_sigint():
@@ -250,8 +251,23 @@ def _checkpoint_path(st, cfg):
     return ckpt_path, resuming
 
 
+def cmd_raw28ntsc(argv, device: torch.device):
+    """Software composite-signal decoder (ffmpeg_raw28ntsc)."""
+    from cvsim_tpu_torch.cli.tools import run_raw28ntsc
+
+    return run_raw28ntsc(argv, device)
+
+
+def cmd_scanimate(argv, device: torch.device):
+    """CRT phosphor-dot re-render (ffmpeg_scanimate)."""
+    from cvsim_tpu_torch.cli.tools import run_scanimate
+
+    return run_scanimate(argv, device)
+
+
 COMMANDS = {"ntsc": cmd_ntsc, "to-composite": cmd_to_composite,
-            "cassette": cmd_cassette}
+            "cassette": cmd_cassette, "raw28ntsc": cmd_raw28ntsc,
+            "scanimate": cmd_scanimate}
 
 
 def _split_device(argv):

@@ -2,8 +2,8 @@
 
 The chain has no weights. Its state is the configuration, the PRNG key
 (collapsed to one u32 stream seed), the IIR constant tables and, for the
-audio chains, the carried filter registers; the tests feed both packages
-through these functions. Nothing here imports the JAX
+audio chains and the raw decoder, the state carried from chunk to chunk;
+the tests feed both packages through these functions. Nothing here imports the JAX
 package: a reference object is read by its field names.
 """
 
@@ -18,6 +18,7 @@ from cvsim_tpu_torch.audio.cassette import CassetteConfig, CassetteState
 from cvsim_tpu_torch.audio.chains import AudioState
 from cvsim_tpu_torch.config import AudioConfig, CompositeConfig, VHSSpeed
 from cvsim_tpu_torch.models.fused_yiq import _alpha_consts
+from cvsim_tpu_torch.models.raw28 import AGCState, Raw28State
 from cvsim_tpu_torch.ops.noise import MASK32, key32
 
 
@@ -93,3 +94,15 @@ def cassette_state_from_reference(state, device="cpu",
     """The port's CassetteState from the JAX package's (see
     audio_state_from_reference)."""
     return _state_from_reference(state, CassetteState, device, dtype)
+
+
+def raw28_state_from_reference(decoder, device="cpu") -> Raw28State:
+    """The port's Raw28State from a JAX package Raw28Decoder (its AGC
+    levels and int32[16] chroma-tail carry), the carry on `device`: a
+    port decoder built with it continues where the JAX one stands."""
+    tail = decoder._chroma_tail
+    return Raw28State(
+        AGCState(float(decoder.agc.blank_level),
+                 float(decoder.agc.white_level)),
+        None if tail is None else torch.tensor(
+            np.asarray(tail), dtype=torch.int32, device=device))

@@ -126,6 +126,10 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_int] * n_args
                 fn.restype = ctypes.c_int
+            # the raw decoder's line-tail chain: six pointers, the line
+            # count, the stream
+            lib.cvsim_raw28_tails.argtypes = [ptr] * 6 + [ctypes.c_int, ptr]
+            lib.cvsim_raw28_tails.restype = ctypes.c_int
             lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p
             _lib = lib

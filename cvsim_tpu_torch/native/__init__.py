@@ -1,5 +1,6 @@
 """Native host code of the port: the container-I/O tool `cvsim-av`
-(avio.cpp + hostpix.cpp) and the frame scaler binding (hostpix.py).
+(avio.cpp + hostpix.cpp), the frame scaler binding (hostpix.py) and the
+raw decoder's hsync DC tracker (hostio.cpp, `HsyncDcTracker`).
 
 The port's copies of cvsim_tpu/native's sources, built from this
 directory with g++ on first use (the outputs are listed in .gitignore).
@@ -7,7 +8,9 @@ directory with g++ on first use (the outputs are listed in .gitignore).
 
 from __future__ import annotations
 
+import ctypes
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -66,3 +69,147 @@ def build_av_tool() -> str | None:
             path = None
         _av_state.append(path)
         return path
+
+
+# ------------------------------------------------ hsync DC tracker (hostio)
+
+_IO_SRC = os.path.join(_DIR, "hostio.cpp")
+# in a directory of its own, as libhostpix.so
+_IO_LIB = os.path.join(_DIR, "_build", "libhostio.so")
+_io_lock = threading.Lock()
+_io_lib = None
+
+
+class _HsyncDcStateStruct(ctypes.Structure):
+    _fields_ = [
+        ("filt_prev", ctypes.c_double * 3),
+        ("alpha", ctypes.c_double),
+        ("dc_level", ctypes.c_double),
+        ("a_fast", ctypes.c_double),
+        ("a_slow", ctypes.c_double),
+        ("delay_len", ctypes.c_int),
+        ("delay_pos", ctypes.c_int),
+        ("delay", ctypes.c_uint8 * 4096),
+    ]
+
+
+def _load():
+    """libhostio, built with g++ at first use; raises FileNotFoundError
+    without g++, CalledProcessError if the build fails, OSError if the
+    library does not load."""
+    global _io_lib
+    with _io_lock:
+        if _io_lib is not None:
+            return _io_lib
+        if (not os.path.exists(_IO_LIB)
+                or os.path.getmtime(_IO_LIB) < os.path.getmtime(_IO_SRC)):
+            # private temp name + atomic rename: concurrent processes
+            # must never dlopen a half-linked library
+            os.makedirs(os.path.dirname(_IO_LIB), exist_ok=True)
+            tmp = f"{_IO_LIB}.tmp.{os.getpid()}"
+            subprocess.run(
+                ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _IO_SRC],
+                check=True, capture_output=True)
+            os.replace(tmp, _IO_LIB)
+        lib = ctypes.CDLL(_IO_LIB)
+        lib.hsync_dc_init.argtypes = [
+            ctypes.POINTER(_HsyncDcStateStruct), ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+            ctypes.c_double, ctypes.c_long]
+        lib.hsync_dc_process.argtypes = [
+            ctypes.POINTER(_HsyncDcStateStruct), ctypes.c_void_p,
+            ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
+        _io_lib = lib
+        return lib
+
+
+class HsyncDcTracker:
+    """Streaming hsync DC normalizer (ffmpeg_raw28ntsc.cpp:556-598): the
+    native library, or its numpy twin where g++ is missing (slower, same
+    results; a warning on stderr says so). A build or load of the library
+    that fails for any other reason raises."""
+
+    def __init__(self, sample_rate: float, one_scanline_time: float,
+                 one_frame_time: float):
+        cutoff = sample_rate / (one_scanline_time * 0.075 * 0.75)
+        self._native = None
+        self._params = (sample_rate, cutoff,
+                        1.0 / (one_scanline_time * 0.07 * 0.75),
+                        1.0 / (one_frame_time * 0.6),
+                        int((one_scanline_time * 0.075 * 0.75) * 0.5),
+                        128.0, int(one_frame_time))
+        try:
+            lib = _load()
+        except FileNotFoundError:
+            # g++ is missing (a build or load that fails otherwise raises)
+            if shutil.which("g++") is not None:
+                raise
+            print("cvsim: g++ not found: the hsync DC tracker runs its "
+                  "numpy twin (far slower)", file=sys.stderr)
+            self._init_python()
+            return
+        st = _HsyncDcStateStruct()
+        lib.hsync_dc_init(ctypes.byref(st), *[
+            ctypes.c_double(self._params[0]),
+            ctypes.c_double(self._params[1]),
+            ctypes.c_double(self._params[2]),
+            ctypes.c_double(self._params[3]),
+            ctypes.c_int(self._params[4]),
+            ctypes.c_double(self._params[5]),
+            ctypes.c_long(self._params[6]),
+        ])
+        self._native = (lib, st)
+
+    # ---------------------------------------------------------------- python
+    def _init_python(self):
+        import math
+
+        import numpy as np
+        rate, cutoff, a_fast, a_slow, dlen, pre, pre_n = self._params
+        dt = 1.0 / rate
+        tau = 1.0 / (cutoff * 2 * math.pi)
+        self._alpha = dt / (tau + dt)
+        self._prev = [0.0, 0.0, 0.0]
+        for _ in range(pre_n):
+            lv = pre
+            for i in range(3):
+                self._prev[i] = lv * self._alpha + (
+                    self._prev[i] - self._prev[i] * self._alpha)
+                lv = self._prev[i]
+        self._dc = 128.0
+        self._af, self._as = a_fast, a_slow
+        self._delay = np.zeros(dlen, np.uint8)
+        self._dpos = 0
+
+    def process(self, raw):
+        """raw: uint8 [N]. Returns (delayed_raw uint8 [N], dc uint8 [N])."""
+        import numpy as np
+
+        raw = np.ascontiguousarray(raw, np.uint8)
+        n = len(raw)
+        out_raw = np.empty(n, np.uint8)
+        out_dc = np.empty(n, np.uint8)
+        if self._native is not None:
+            lib, st = self._native
+            lib.hsync_dc_process(
+                ctypes.byref(st), raw.ctypes.data, ctypes.c_long(n),
+                out_raw.ctypes.data, out_dc.ctypes.data)
+            return out_raw, out_dc
+        # slow path
+        a = self._alpha
+        dlen = len(self._delay)
+        for k in range(n):
+            lv = float(raw[k])
+            for i in range(3):
+                self._prev[i] = lv * a + (self._prev[i] - self._prev[i] * a)
+                lv = self._prev[i]
+            r = self._af if self._dc > lv else self._as
+            self._dc = self._dc * (1 - r) + lv * r
+            if dlen:
+                out_raw[k] = self._delay[self._dpos]
+                self._delay[self._dpos] = raw[k]
+                self._dpos = (self._dpos + 1) % dlen
+            else:
+                out_raw[k] = raw[k]
+            out_dc[k] = min(255, max(0, int(lv - self._dc)))
+        return out_raw, out_dc

@@ -1,11 +1,13 @@
 """ctypes binding for the native host frame scaler (libhostpix).
 
 The port's copy of cvsim_tpu/native/hostpix.py, cut to what the port
-calls: `scale_frame_to`, the gen-2 pipeline's per-frame ingest. The C++
-kernel (hostpix.cpp, a copy of the reference package's) is bit-exact
-with colorconv.scale_frame_to_np (same float32 operation order, numpy
-rounding); it is built with g++ on first use into _build/ here, and
-the wrapper falls back to the numpy twin when g++ is unavailable.
+calls: `scale_frame_to`, the per-frame ingest of the pipelines and the
+sibling tools, and `rgb_to_yuv_planes`, the sibling tools' output
+conversion. The C++ kernels (hostpix.cpp, a copy of the reference
+package's) are bit-exact with colorconv.scale_frame_to_np and
+rgb_to_yuv601_np (same float32 operation order, numpy rounding); they are
+built with g++ on first use into _build/ here, and each wrapper falls
+back to its numpy twin when g++ is unavailable.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ def _load():
                 _i64p, _i64p, _f32p, ctypes.c_int,
                 _i64p, _i64p, _f32p, ctypes.c_int,
                 _i64p, _i64p, _f32p, ctypes.c_int, _i32p]
+            lib.cvsim_rgb_to_yuv.argtypes = [_i32p, _L, _L, _u8p, _u8p, _u8p]
         except Exception:
             lib = None
         _state.append(lib)
@@ -127,3 +130,20 @@ def scale_frame_to(y, u, v, width: int, height: int,
     else:
         lib.cvsim_scale_frame(*common, out)
     return out
+
+
+def rgb_to_yuv_planes(rgb):
+    """(y, u, v) full-resolution uint8 planes from an int32 RGB frame
+    (colorconv.rgb_to_yuv601_np + uint8 cast), native when available."""
+    lib = _load()
+    rgb = np.ascontiguousarray(rgb, np.int32)
+    h, w = rgb.shape[:2]
+    if lib is None:
+        from cvsim_tpu_torch.host.colorconv import rgb_to_yuv601_np
+        y, u, v = rgb_to_yuv601_np(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+        return (y.astype(np.uint8), u.astype(np.uint8), v.astype(np.uint8))
+    y = np.empty((h, w), np.uint8)
+    u = np.empty((h, w), np.uint8)
+    v = np.empty((h, w), np.uint8)
+    lib.cvsim_rgb_to_yuv(rgb, h, w, y, u, v)
+    return y, u, v

@@ -20,6 +20,16 @@ def c_div(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="trunc")
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded on every device, as XLA's
+    and the CPU's are: torch.sqrt of float32 on the card is one ULP off
+    for some inputs (about 0.7% of a scanimate stamp's distances on an
+    H100). The float64 root is correctly rounded, and rounding it once
+    more to float32 gives the correctly rounded float32 root, because 53
+    bits are at least 2 * 24 + 2."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def clips16(x: torch.Tensor) -> torch.Tensor:
     """clips16 (ffmpeg_to_composite.cpp:344-351): truncate a float toward
     zero, then clamp to the int16 range."""

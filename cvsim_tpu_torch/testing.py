@@ -524,3 +524,79 @@ def check_split_kernels(cfg: CompositeConfig, rgb, prep,
                  if planes else chain_diff(got, want))
         out[name] = {"plane": plane, "rgb": chain_diff(got, want)}
     return out
+
+
+# raw composite captures for the raw28ntsc decoder: the levels of
+# tests/test_raw28.py's synthetic captures
+RAW28_SYNC_TIP, RAW28_BLANK, RAW28_WHITE = 10, 70, 230
+
+
+def raw28_capture(n_fields: int, raw_len: int, color: bool = False,
+                  u0: float = 20.0, v0: float = -12.0,
+                  burst_amp: float = 15.0) -> np.ndarray:
+    """A synthetic raw 8x-fsc composite capture, uint8: per field, 12
+    serration pulses (equalization-length half lines) then 262 scanlines
+    of hsync and a luma ramp, or (color) a colourburst on the -U axis and
+    a constant (u0, v0) colour over mid luma. The structure of
+    tests/test_raw28.py's synth_capture and synth_color_capture, which it
+    equals at the same arguments; pulses are wider than broadcast spec,
+    because the detector lowpass erodes them by ~30 samples."""
+    rl = raw_len
+    hsync_len = int(rl * 0.09)
+    half = np.full(rl // 2, RAW28_BLANK, np.float64)
+    half[: int(rl * 0.05)] = RAW28_SYNC_TIP
+    row = np.full(rl, RAW28_BLANK, np.float64)
+    row[:hsync_len] = RAW28_SYNC_TIP
+    if color:
+        p = np.arange(rl)
+        cu = np.cos(2 * np.pi * p / 8)
+        sv = np.sin(2 * np.pi * p / 8)
+        bs, be = int(rl * 0.095), int(rl * 0.14)
+        a0 = int(rl * 0.18)
+        row[bs:be] += -burst_amp * cu[bs:be]
+        row[a0:rl - 8] = (RAW28_BLANK + 80 + u0 * cu[a0:rl - 8]
+                          + v0 * sv[a0:rl - 8])
+        row = np.clip(row, 0, 255)
+    else:
+        active0 = hsync_len + int(rl * 0.06)
+        n_active = rl - active0 - 8
+        row[active0:active0 + n_active] = np.linspace(
+            RAW28_BLANK + 10, RAW28_WHITE, n_active).astype(np.uint8)
+    field = np.concatenate([half] * 12 + [row] * 262)
+    return np.tile(field.astype(np.uint8), n_fields)
+
+
+def raw28_capture_jittery(n_fields: int, raw_len: int,
+                          seed: int = 3) -> np.ndarray:
+    """A synthetic raw capture with a real capture's faults, uint8: per
+    field, 12 serration pulses then 262 scanlines whose lengths jitter by
+    up to 6 samples, over a slow DC drift (8 levels, a period of two
+    fields), with gaussian noise (sigma 2) and a chroma-like ripple of 8
+    samples whose phase moves from line to line. It stresses what the
+    clean capture leaves idle: the per-line hsync re-lock, the fractional
+    line pacing, the DC tracker and the AGC. The capture of
+    tests/test_ref_crosscheck.py's `_raw28_capture_jittery`, which it
+    equals at the same arguments (raw_len of the ntsc28 preset)."""
+    rl = raw_len
+    rng = np.random.default_rng(seed)
+    out = []
+    hsync_len = int(rl * 0.09)
+    half = np.full(rl // 2, RAW28_BLANK, np.uint8)
+    half[: int(rl * 0.05)] = RAW28_SYNC_TIP
+    t = 0
+    for _ in range(n_fields):
+        out += [half] * 12
+        for line in range(262):
+            ll = rl + int(rng.integers(-6, 7))
+            drift = 8.0 * np.sin(2 * np.pi * (t / (rl * 262 * 2.0)))
+            t += ll
+            row = np.full(ll, RAW28_BLANK, np.float64)
+            row[:hsync_len] = RAW28_SYNC_TIP
+            a0 = hsync_len + int(rl * 0.06)
+            n = ll - a0 - 8
+            x = np.arange(n)
+            row[a0:a0 + n] = (80 + 110 * x / n
+                              + 14 * np.sin(2 * np.pi * x / 8 + 0.3 * line))
+            row += drift + rng.normal(0, 2.0, ll)
+            out.append(np.clip(row, 0, 255).astype(np.uint8))
+    return np.concatenate(out)

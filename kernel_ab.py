@@ -1,7 +1,7 @@
 """Bits and times of one tree's CUDA kernels, for comparing two trees on
 one card.
 
-    python3 kernel_ab.py [--root DIR] [--rows-per-cta R] [--lines]
+    python3 kernel_ab.py [--root DIR] [--rows-per-cta R] [--lines | --raw28]
 
 Builds the kernels of the tree at DIR (default: this checkout), prints the
 CRC32 of kernels #1 and #5 on every case of testing.PINNED_CHAIN_CRC32 and
@@ -29,6 +29,13 @@ shards on card 0 and one shard on each visible card, beside kernel #1's
 path (prepare() and kernel #1), each output held to kernel #1's with
 assert_chain_equal (a difference raises). Its last line is {"root",
 "card", "cards", "ms"}.
+
+--raw28 times the raw decoder's line-tail kernel (raw28_tails) in place
+of the others: on one field (262 lines of 1820 samples) of each of
+testing.raw28_capture and testing.raw28_capture_jittery and on a random
+field with a random carry, each first held exactly to the tree's plain
+loop (tail_chain_reference; a difference raises). Its last line is
+{"root", "card", "ms", "ms_back_to_back"}.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ def main() -> int:
                     "choice)")
     ap.add_argument("--lines", action="store_true",
                     help="time the line-sharded program instead")
+    ap.add_argument("--raw28", action="store_true",
+                    help="time the raw decoder's raw28_tails instead")
     args = ap.parse_args()
     sys.modules["jax"] = None
     sys.modules["cvsim_tpu"] = None
@@ -92,6 +101,11 @@ def main() -> int:
     print(f"kernel_ab: {root} on {card}, rows a CTA "
           f"{args.rows_per_cta or 'chosen by each kernel'}")
     T = _testing()
+    if args.raw28:
+        ms, b2b = raw28_ms(T, dev)
+        print(json.dumps({"root": root, "card": card, "ms": ms,
+                          "ms_back_to_back": b2b}))
+        return 0
     if args.lines:
         ms = lines_ms(T, dev)
         print(json.dumps({"root": root, "card": card,
@@ -161,6 +175,43 @@ def lines_ms(T, dev) -> dict:
             print(f"{label}: {ms[label]:.3f} ms = "
                   f"{b / ms[label] * 1e3:.1f} fields/s")
     return ms
+
+
+def raw28_ms(T, dev) -> tuple[dict, dict]:
+    """--raw28: ({label: CUDA-event ms}, {label: ms back to back}) of
+    raw28_tails, each case checked against the plain loop first."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import raw28
+
+    rl = raw28.RawTiming(raw28.rate_preset("ntsc28")).raw_length
+    lut = torch.from_numpy(raw28.equalize_lut(T.RAW28_BLANK,
+                                              T.RAW28_WHITE)).to(dev)
+    idx = 6 * rl + np.arange(262)[:, None] * rl + np.arange(rl + 24)[None, :]
+    rng = np.random.default_rng(28)
+    fields = {"capture": T.raw28_capture(1, rl),
+              "jittery capture": T.raw28_capture_jittery(1, rl),
+              "random": rng.integers(0, 256, 262 * rl + 6 * rl + 24)
+              .astype(np.uint8)}
+    ms, b2b = {}, {}
+    for label, cap in fields.items():
+        lines = torch.from_numpy(cap[np.minimum(idx, len(cap) - 1)]).to(dev)
+        c3t, st = raw28.tail_inputs(*raw28.split_lines(
+            torch.take(lut, lines.long()), rl))
+        carry = torch.from_numpy(rng.integers(-300, 300, 16)
+                                 .astype(np.int32)).to(dev)
+        for g, w in zip(raw28.raw28_tails(c3t, st, carry),
+                        raw28.tail_chain_reference(c3t, st, carry)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"raw28_tails {label}: kernel != plain "
+                                     "loop")
+        kern = lambda: raw28.raw28_tails(c3t, st, carry)
+        ms[label] = T.time_ms(kern)
+        b2b[label] = T.time_ms(kern, calls=10)
+        print(f"raw28_tails {label}, 262 lines: {ms[label] * 1e3:.1f} us, "
+              f"back to back {b2b[label] * 1e3:.1f} us (== plain loop)")
+    return ms, b2b
 
 
 if __name__ == "__main__":

@@ -3,7 +3,10 @@ chain, #2-#4 its split stage groups for row shards), of the gen-1 chain
 (csrc/yuv_chain.cu: #5 the whole chain, #6-#8 its split stage groups for
 rasters above the reference's single-tile budget) and the standalone pole
 cascade (csrc/fused_iir.cu, #9) against their plain PyTorch versions, and
-the wrappers' contracts; #1 and #5 also against the CRC32s of their
+the wrappers' contracts; the raw decoder's line-tail chain
+(csrc/raw28.cu, raw28_tails) exactly against its plain loop, with
+decode_lines, scanimate_field and cmath.sqrt_rn on the card exactly
+against the CPU; #1 and #5 also against the CRC32s of their
 outputs pinned in testing.PINNED_CHAIN_CRC32, and #2, #3, #9, #6, #7 and
 #8 (several rows a CTA) against those in testing.PINNED_CASE_CRC32 and
 against themselves at other rows a CTA.
@@ -31,8 +34,8 @@ import torch
 
 from cvsim_tpu_torch import kernels
 from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
-from cvsim_tpu_torch.models import fused_yiq, fused_yuv, yuv422
-from cvsim_tpu_torch.ops import fused_iir
+from cvsim_tpu_torch.models import fused_yiq, fused_yuv, raw28, tools, yuv422
+from cvsim_tpu_torch.ops import cmath, fused_iir
 from cvsim_tpu_torch.parallel import run_fused_lines_local
 from cvsim_tpu_torch.testing import (BENCH_CONFIGS, BENCH_GEN1_EP,
                                      BENCH_VHS_EP, CHAIN_CONFIGS,
@@ -562,3 +565,68 @@ def test_yiq_b2_keeps_pinned_bits_at_any_rows_per_cta(timed, rows_per_cta):
     finally:
         override.value = 0
     assert crcs == {k: PINNED_CASE_CRC32[k] for k in labels}
+
+
+def _raw28_tail_inputs(n: int, device):
+    rng = np.random.default_rng(n)
+    as_t = lambda a: torch.from_numpy(a.astype(np.int32)).to(device)
+    return (as_t(rng.integers(-255, 256, (n, raw28.TAIL_COLS))),
+            as_t(rng.integers(-300, 300, (n, raw28.OUT_COLS))),
+            as_t(rng.integers(-200, 200, raw28.CARRY)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 262, 300])
+def test_raw28_tails_matches_plain(cuda_device, n):
+    """raw28_tails == tail_chain_reference exactly (integers only), one
+    launch for all lines: none, one (the kernel's two-line prefetch past
+    the last line), a field and more."""
+    args = _raw28_tail_inputs(n, cuda_device)
+    before = raw28.KERNEL_LAUNCHES
+    got = raw28.raw28_tails(*args)
+    torch.cuda.synchronize()
+    assert raw28.KERNEL_LAUNCHES == before + 1
+    want = raw28.tail_chain_reference(*(a.cpu() for a in args))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [{}, {"show_subcarrier": True},
+                                   {"equalize": False, "full_chroma": True}])
+def test_decode_lines_card_equals_cpu(cuda_device, flags):
+    rng = np.random.default_rng(len(flags))
+    rl = 1820
+    lines = torch.from_numpy(
+        rng.integers(0, 256, (262, rl + 24)).astype(np.uint8))
+    carry = torch.from_numpy(rng.integers(-90, 90, 16).astype(np.int32))
+    kw = dict(raw_len=rl, width=rl, **flags)
+    got = raw28.decode_lines(lines.to(cuda_device), 21.0, 199.5,
+                             chroma_carry=carry.to(cuda_device), **kw)
+    want = raw28.decode_lines(lines, 21.0, 199.5, chroma_carry=carry, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ntsc", [False, True])
+def test_scanimate_field_card_equals_cpu(cuda_device, ntsc):
+    rng = np.random.default_rng(int(ntsc))
+    fns = [e * 180 + p for e in range(4) for p in (1, 41, 141)]
+    src = torch.from_numpy(
+        rng.integers(0, 256, (len(fns), 64, 96, 3)).astype(np.uint8))
+    got = tools.scanimate_field(src.to(cuda_device), 144, 192, 1, fns,
+                                input_ntsc=ntsc)
+    want = tools.scanimate_field(src, 144, 192, 1, fns, input_ntsc=ntsc)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_sqrt_rn_card_equals_cpu(cuda_device):
+    """cmath.sqrt_rn on the card == numpy's correctly rounded float32
+    root, where torch.sqrt on the card is one ULP off for some inputs."""
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0, 32, 1 << 20).astype(np.float32)
+    got = cmath.sqrt_rn(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.sqrt(x).view(np.int32))

@@ -44,6 +44,24 @@ def test_cmath_exact():
             np.asarray(jcmath.c_div(jnp.asarray(i), d)))
 
 
+def test_sqrt_rn_correctly_rounded():
+    """cmath.sqrt_rn == the correctly rounded float32 root (numpy's and
+    XLA's), over a wide range of normal magnitudes and the scanimate
+    stamp's (XLA flushes subnormals to zero, so none is drawn)."""
+    rng = np.random.default_rng(2)
+    x = np.concatenate([
+        np.float32(2.0) ** rng.uniform(-60, 60, 20000).astype(np.float32),
+        rng.uniform(0, 32, 20000).astype(np.float32),
+        [0.0, 1.0, 2.0, 4.0, np.finfo(np.float32).tiny, 3.4e38]]
+    ).astype(np.float32)
+    got = cmath.sqrt_rn(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.sqrt(x).view(np.int32))
+    np.testing.assert_array_equal(
+        got.view(np.int32), np.asarray(jnp.sqrt(jnp.asarray(x))).view(np.int32))
+
+
 def _u32(t):
     return np.asarray(t).astype(np.int64) & 0xFFFFFFFF
 

@@ -6,12 +6,16 @@ native frame scaler) behave byte for byte as the originals.
 - An AST scan of every source file for `jax` / `cvsim_tpu` imports.
 - A subprocess with sys.modules["cvsim_tpu"] = sys.modules["jax"] = None
   imports every module of the port and runs its CLI with --device cpu:
-  both video tools, `cassette` and `to-composite -audio-in`.
+  both video tools, `cassette`, `to-composite -audio-in`, `raw28ntsc`
+  and `scanimate`.
 - The copies against the originals on the same inputs: flag parsing,
   config reprs and checkpoint hashes, Y4M bytes, the frame scaler, the
   render and hscale tables, the field-row math and the colour matrices,
   the audio host helpers (buzz counts, pad fill, resamplers, remix), the
-  cassette presets and `cassette`'s flag parser. All exact.
+  cassette presets and `cassette`'s flag parser, the raw decoder's host
+  half and DC tracker (native/hostio.cpp byte for byte), the sibling
+  tools' flag parser and frame loops, and the RGB->YUV output
+  conversion. All exact.
 """
 
 import ast
@@ -30,6 +34,7 @@ from cvsim_tpu import config as jconfig
 from cvsim_tpu import presets as jpresets
 from cvsim_tpu.audio import cassette as jcassette
 from cvsim_tpu.audio import chains as jchains
+from cvsim_tpu.cli import toolargs as jtoolargs
 from cvsim_tpu.cli import tools as jtools
 from cvsim_tpu.host import batching as jbatching
 from cvsim_tpu.host import checkpoint as jcheckpoint
@@ -39,12 +44,15 @@ from cvsim_tpu.host import pipeline as jpipeline
 from cvsim_tpu.host import timing as jtiming
 from cvsim_tpu.host import y4m as jy4m
 from cvsim_tpu.host import wavio as jwavio
+from cvsim_tpu.models import raw28 as jraw28
+from cvsim_tpu import native as jnative
 from cvsim_tpu.native import hostpix as jhostpix
-from cvsim_tpu_torch import config, interop, presets
+from cvsim_tpu_torch import config, interop, native, presets
 from cvsim_tpu_torch.audio import cassette, chains
-from cvsim_tpu_torch.cli import tools
+from cvsim_tpu_torch.cli import toolargs, tools
 from cvsim_tpu_torch.host import (batching, checkpoint, colorconv, fieldops,
                                   pipeline, timing, y4m)
+from cvsim_tpu_torch.models import raw28
 from cvsim_tpu_torch.native import hostpix
 from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
                                      reference_config)
@@ -76,11 +84,15 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_runs_with_jax_package_unimportable(tmp_path):
     """Every module imports, and the CLI runs (gen-1 through the split-
-    route raster check and the debug-tap route, `cassette`, and
-    `to-composite -audio-in` beside its video), with jax and cvsim_tpu
-    made unimportable."""
+    route raster check and the debug-tap route, `cassette`,
+    `to-composite -audio-in` beside its video, `raw28ntsc` and
+    `scanimate -inntsc`), with jax and cvsim_tpu made unimportable."""
+    from tests.test_raw28 import synth_capture
+
     src = make_clip(str(tmp_path / "in.y4m"))
-    outs = [str(tmp_path / f"out{k}.y4m") for k in range(4)]
+    raw = str(tmp_path / "cap.raw")
+    synth_capture(2).tofile(raw)
+    outs = [str(tmp_path / f"out{k}.y4m") for k in range(6)]
     wavs = [str(tmp_path / f"{name}.wav") for name in ("in", "cas", "vhs")]
     tone = (9000 * np.sin(np.arange(3000) * 0.06)).astype(np.int16)
     jwavio.write_wav(wavs[0], np.stack([tone, tone], -1), 44100)
@@ -106,7 +118,11 @@ rcs = [main(["--device", "cpu", "ntsc", *common, "-o", {outs[0]!r}]),
        main(["--device", "cpu", "cassette", "-i", {wavs[0]!r}, "-o",
              {wavs[1]!r}, "-preset", "2"]),
        main(["--device", "cpu", "to-composite", *common, "-o", {outs[3]!r},
-             "-vhs", "-audio-in", {wavs[0]!r}, "-audio-out", {wavs[2]!r}])]
+             "-vhs", "-audio-in", {wavs[0]!r}, "-audio-out", {wavs[2]!r}]),
+       main(["--device", "cpu", "raw28ntsc", "-i", {raw!r}, "-o",
+             {outs[4]!r}, "-color"]),
+       main(["--device", "cpu", "scanimate", "-i", {src!r}, "-o",
+             {outs[5]!r}, "-width", "32", "-inntsc"])]
 assert sys.modules["jax"] is None and sys.modules["cvsim_tpu"] is None
 print("MODULES", len(names), "RCS", rcs)
 sys.exit(max(rcs))
@@ -114,7 +130,7 @@ sys.exit(max(rcs))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "RCS [0, 0, 0, 0, 0]" in proc.stdout
+    assert "RCS [0, 0, 0, 0, 0, 0, 0]" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= len([s for s in SOURCES if s.endswith(".py")]) - 2
     for out in outs:
@@ -418,3 +434,101 @@ def test_cassette_flag_parser_equals_original(argv, capsys):
             rc = f"KeyError {e}"
         results.append((rc, capsys.readouterr().err))
     assert results[0] == results[1]
+
+
+def test_import_scan_covers_the_raw28_and_scanimate_slice():
+    for path in ("cvsim_tpu_torch/models/raw28.py",
+                 "cvsim_tpu_torch/models/tools.py",
+                 "cvsim_tpu_torch/cli/raw28.py",
+                 "cvsim_tpu_torch/cli/toolargs.py",
+                 "cvsim_tpu_torch/native/__init__.py"):
+        assert path in SOURCES
+
+
+def test_hostio_source_equals_original():
+    for name in ("hostio.cpp",):
+        assert ((ROOT / "cvsim_tpu_torch" / "native" / name).read_bytes()
+                == (ROOT / "cvsim_tpu" / "native" / name).read_bytes())
+
+
+def test_dc_tracker_equals_original():
+    """The port's HsyncDcTracker (its own build of hostio.cpp) against
+    the original on one field of capture fed in two chunks."""
+    from tests.test_raw28 import RL, synth_capture
+
+    t = raw28.RawTiming(raw28.rate_preset("ntsc28"))
+    args = (t.sample_rate, t.one_scanline_time, t.one_frame_time)
+    port, orig = native.HsyncDcTracker(*args), jnative.HsyncDcTracker(*args)
+    assert port._native is not None
+    sig = synth_capture(1)
+    for part in (sig[:RL * 100], sig[RL * 100:]):
+        for a, b in zip(port.process(part), orig.process(part)):
+            np.testing.assert_array_equal(a, b)
+
+
+# the raw decoder's host half, copied from the JAX package (numpy)
+RAW28_COPIES = ["RawTiming", "rate_preset", "runs_below", "AGCState",
+                "hunt_vsync", "relock_hsync", "equalize_lut"]
+
+
+@pytest.mark.parametrize("name", RAW28_COPIES)
+def test_raw28_host_sources_equal_originals(name):
+    assert (inspect.getsource(getattr(raw28, name))
+            == inspect.getsource(getattr(jraw28, name)))
+
+
+# the sibling tools' scaffold, copied from cvsim_tpu/cli/tools.py
+TOOL_COPIES = ["_AsyncWriter", "_finalizing", "_advance_fields",
+               "_open_tool_writer", "_frame_loop_batched", "_last_frame",
+               "_scale_underscan", "_write_rgb"]
+
+
+@pytest.mark.parametrize("name", TOOL_COPIES)
+def test_tool_scaffold_sources_equal_originals(name):
+    assert (inspect.getsource(getattr(tools, name))
+            == inspect.getsource(getattr(jtools, name)))
+
+
+TOOL_ARGVS = [
+    [],
+    ["-i", "a.y4m", "-o", "b.y4m", "-width", "64", "-422"],
+    ["-i", "a.y4m", "-inntsc", "-tvstd", "1080p60", "-o", "b.mp4"],
+    ["-tvstd", "720p60", "-i", "a", "-i", "b", "-d", "3", "-420"],
+    ["-tvstd", "pal", "-width", "640", "-i", "x"],
+    ["-i", "a", "-bogus"],
+    ["-d", "0"],
+    ["-tvstd", "secam"],
+    ["-h"],
+    ["positional"],
+]
+
+
+@pytest.mark.parametrize("argv", TOOL_ARGVS,
+                         ids=[" ".join(a) or "none" for a in TOOL_ARGVS])
+def test_tool_args_parse_like_original(argv):
+    """ToolArgs (with scanimate's -inntsc) parses, or refuses, every
+    command line as the original does; parse_gamma and parse_rate too."""
+    extra = {"inntsc": ("flag", "inntsc")}
+    results = []
+    for mod in (toolargs, jtoolargs):
+        try:
+            a = mod.ToolArgs(list(argv), extra=extra)
+            results.append(("ok", a.inputs, a.output, a.width, a.height,
+                            a.width_set, a.height_set, a.field_rate,
+                            a.use_422, a.delay, a.per_input, a.extra))
+        except (ValueError, IndexError) as e:
+            results.append((type(e).__name__, str(e)))
+    assert results[0] == results[1]
+    for v in ("vga", "1.8"):
+        assert toolargs.parse_gamma(v) == jtoolargs.parse_gamma(v)
+    for v in ("30000:1001", "24/1", "2", "59.94"):
+        assert toolargs.parse_rate(v) == jtoolargs.parse_rate(v)
+
+
+def test_rgb_to_yuv_planes_equals_original():
+    rng = np.random.default_rng(4)
+    rgb = rng.integers(0, 256, (31, 45, 3)).astype(np.int32)
+    for a, b in zip(hostpix.rgb_to_yuv_planes(rgb),
+                    jhostpix.rgb_to_yuv_planes(rgb)):
+        assert a.dtype == b.dtype == np.uint8
+        np.testing.assert_array_equal(a, b)
