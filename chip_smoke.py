@@ -67,6 +67,19 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      against its first fields through `--device cpu`, and
      scanimate_field at 1080p in each warp effect, card against CPU,
      all identical;
+     then `serve -socket <tmp> -prime` in this process on the card (its
+     prime launches kernel #5 on a dummy 480x704 GOP), `-via
+     to-composite -vhs` (from a `python -S` thin client) and `-via ntsc`
+     on the 128-field clip, each byte-identical to the direct run above
+     with #5's and #1's launches read around it, and the same
+     to-composite as a fresh process; each host-only command once on
+     the 8-frame clip (posterize, colormap, colorkey, average-delay,
+     frameblend, filmac and vhsled through the native cvsim-av loop,
+     normalize-ts, vaporwave, the repo tools on a temporary git repo)
+     with the card's allocated memory unchanged across it; the host
+     tools' device twins on a [16, 480, 720, 3] batch, card against CPU,
+     identical; one to-composite under CVSIM_PROFILE, its Chrome trace
+     written and its device busy share read from it;
   5. times, each taken in turns in this run: each kernel vs its plain
      version on the cases of testing.timed_cases, which kernel_ab.py times
      too (#1-#4 at 240x704 B=64 and 540x1888 B=16; #5 at 240x720 B=64,
@@ -84,7 +97,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      both captures), scanimate_field per call at each raster, both CLIs'
      device busy share (torch.profiler), and raw28ntsc's host stages a
      field on both captures (the re-lock scans, the vsync hunt, the DC
-     tracker, decode_lines' launches, the rest). raw28_tails' bound counts its bytes and its
+     tracker, decode_lines' launches, the rest); the first served
+     to-composite's wall beside the fresh process's. raw28_tails' bound counts its bytes and its
      int32 operations at the H100's 64 INT32 lanes an SM; the chain's
      serial latency sets its time.
 Each kernel's bound is the larger of two times at the H100 SXM data
@@ -1320,6 +1334,301 @@ def raw28_scanimate_times(dev, card: str, cli_main, raw28_runs: dict,
     return (k_ms, p_ms, *bound)
 
 
+# ---- the host-only tools, serve/-via, the device twins and CVSIM_PROFILE
+
+def serve_paths(cli_main, src: str, outs: dict, flags: list,
+                tmp: str) -> dict:
+    """[4] `serve -socket <tmp> -prime` in this process on the card (the
+    gen-1 GOP step on a dummy 480x704 GOP: kernel #5 launches during the
+    prime), then `-via to-composite -vhs` (through `python -S -m
+    cvsim_tpu_torch -via`, the thin client) and `-via ntsc` (in-process
+    client) on the 128-field bars clip, each byte-identical to the direct
+    run of [4] with kernel #5's and #1's launches read around it; then
+    the same to-composite as a fresh process (the kernels loaded from
+    _build/, CVSIM_PHASES=1). Returns the walls."""
+    import threading
+
+    from cvsim_tpu_torch.cli import serve
+    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
+
+    counters = {"yuv_chain": (fused_yuv, "KERNEL_LAUNCHES"),
+                "yiq_chain": (fused_yiq, "KERNEL_LAUNCHES")}
+
+    def zero():
+        for module, attr in counters.values():
+            setattr(module, attr, 0)
+
+    def read():
+        return {name: getattr(module, attr)
+                for name, (module, attr) in counters.items()}
+
+    sock = os.path.join(tmp, "serve.sock")
+    ready, stop, box = threading.Event(), threading.Event(), {}
+
+    def run():
+        box["rc"] = serve.run_serve(["-socket", sock, "-prime"], "cuda",
+                                    ready, stop)
+        ready.set()
+
+    zero()
+    t0 = time.perf_counter()
+    server = threading.Thread(target=run, name="smoke-serve", daemon=True)
+    server.start()
+    if not ready.wait(600) or "rc" in box:
+        raise AssertionError(f"serve -prime did not come up: {box}")
+    prime_s = time.perf_counter() - t0
+    primed = read()
+    print(f"[4] serve -prime --device cuda: ready in {prime_s:.3f} s; "
+          f"launches during the prime {primed}")
+    if primed["yuv_chain"] < 1:
+        raise AssertionError("serve -prime launched no yuv_chain")
+    walls = {"prime_s": prime_s}
+    runs = (("to-composite", ["-vhs"], "yuv_chain", True),
+            ("ntsc", [], "yiq_chain", False))
+    try:
+        for tool, extra, kernel, thin in runs:
+            out = os.path.join(tmp, f"served-{tool}.y4m")
+            argv = [tool, "-i", src, "-o", out, *extra, *flags]
+            zero()
+            t0 = time.perf_counter()
+            if thin:
+                r = subprocess.run([sys.executable, "-S", "-m",
+                                    "cvsim_tpu_torch", "-via", sock, *argv],
+                                   cwd=ROOT, capture_output=True, text=True,
+                                   timeout=600)
+                rc = r.returncode
+            else:
+                rc = cli_main(["-via", sock, *argv])
+            secs = time.perf_counter() - t0
+            counts = read()
+            if rc != 0:
+                raise AssertionError(f"-via {tool}: rc {rc}")
+            if not same_bytes(out, outs[tool]):
+                raise AssertionError(f"-via {tool}: output differs from the "
+                                     "direct run")
+            gops = -(-len(read_y4m(out)[1]) // 64)
+            if counts[kernel] != gops:
+                raise AssertionError(f"-via {tool}: launches {counts}, "
+                                     f"expected {gops} of {kernel}")
+            walls[tool] = secs
+            client = ("python -S -m cvsim_tpu_torch -via" if thin
+                      else "in-process -via")
+            print(f"[4] served {tool} ({client}): {gops} GOPs byte-identical "
+                  f"to the direct run in {secs:.3f} s; launches {counts}")
+    finally:
+        stop.set()
+        server.join(timeout=60)
+    if box.get("rc") != 0 or server.is_alive():
+        raise AssertionError(f"serve ended with {box}")
+
+    # the same command as a fresh process: interpreter, torch import, CUDA
+    # context and the kernels' load from _build/ are all in its wall
+    out = os.path.join(tmp, "fresh-to-composite.y4m")
+    env = dict(os.environ, CVSIM_PHASES="1")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cvsim_tpu_torch",
+                        "to-composite", "-i", src, "-o", out, "-vhs", *flags],
+                       cwd=ROOT, capture_output=True, text=True, env=env,
+                       timeout=600)
+    walls["fresh"] = time.perf_counter() - t0
+    if r.returncode != 0 or not same_bytes(out, outs["to-composite"]):
+        raise AssertionError(f"fresh to-composite: rc {r.returncode}, "
+                             f"{r.stderr[-2000:]}")
+    phases = [line.split()[1] + "@" + line.split("proc_age=")[1].split()[0]
+              for line in r.stderr.splitlines() if line.startswith("[phase]")]
+    print(f"[4] fresh process to-composite: byte-identical in "
+          f"{walls['fresh']:.3f} s; phases (seconds since exec): "
+          + ", ".join(phases))
+    return walls
+
+
+HOST_TOOLS = [
+    ("posterize", ["-threshhold", "3"]),
+    ("colormap", []),
+    ("colorkey", ["-color", "0x101010", "-threshhold", "40", "-noise",
+                  "500", "-xd", "3", "-d", "2"]),
+    ("average-delay", ["-d", "2", "-n", "64"]),
+    ("frameblend", ["-or", "24"]),
+    ("filmac", ["-gamma", "vga"]),
+    ("vhsled", []),
+    ("normalize-ts", []),
+]
+RESTORE_TOOLS = ("frameblend", "filmac", "vhsled")
+
+
+def host_tool_paths(cli_main, src8: str, tmp: str) -> None:
+    """[4] each host-only command once on the 8-frame bars clip (the
+    repo tools on a temporary git repo), torch.cuda.memory_allocated()
+    unchanged across each, and the restore tools through the native
+    cvsim-av loop (toolargs.fast_restore returns its exit code) where
+    this host can build cvsim-av (g++ and the libav* libraries); where it
+    cannot, the line says so and the restore tools run their Python loop
+    (the CPU tests hold both loops to the same bytes)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from cvsim_tpu_torch import native as native_mod
+    from cvsim_tpu_torch.cli import toolargs
+
+    have_av = native_mod.build_av_tool() is not None
+
+    native = {}
+    fast = toolargs.fast_restore
+
+    def recorded(tool, argv):
+        native[tool] = fast(tool, argv)
+        return native[tool]
+
+    toolargs.fast_restore = recorded
+    lines = []
+    try:
+        repo = os.path.join(tmp, "repo")
+        os.makedirs(repo)
+        with open(os.path.join(repo, "a.txt"), "w") as f:
+            f.write("a\n")
+        for argv in (["init", "-q"], ["config", "user.email", "s@x"],
+                     ["config", "user.name", "s"], ["add", "-A"],
+                     ["commit", "-qm", "c0"]):
+            subprocess.run(["git", "-C", repo, *argv], check=True,
+                           capture_output=True)
+        with open(os.path.join(repo, "b.txt"), "w") as f:
+            f.write("b\n")
+        runs = [(tool, [tool, *(["-i", src8] if tool == "colormap" else []),
+                        "-i", src8, "-o", os.path.join(tmp, f"{tool}.y4m"),
+                        *flags]) for tool, flags in HOST_TOOLS]
+        runs += [("vaporwave", ["vaporwave", "cvsim"]),
+                 ("repo-update-all", ["repo-update-all", "-no-push", "-C",
+                                      repo])]
+        if shutil.which("xz"):
+            runs.append(("repo-source-pickup", ["repo-source-pickup", "-C",
+                                                repo, "-o", tmp]))
+        else:
+            lines.append("repo-source-pickup not run: no xz on this host")
+        for tool, argv in runs:
+            before = torch.cuda.memory_allocated()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(argv)
+            secs = time.perf_counter() - t0
+            after = torch.cuda.memory_allocated()
+            if rc != 0 or before != after:
+                raise AssertionError(f"{tool}: rc {rc}, device memory "
+                                     f"{before} -> {after} bytes")
+            if tool in RESTORE_TOOLS and (native.get(tool) is None) == have_av:
+                raise AssertionError(f"{tool}: cvsim-av built {have_av}, "
+                                     f"fast path rc {native.get(tool)}")
+            what = (f"{len(read_y4m(argv[argv.index('-o') + 1])[1])} frames"
+                    if "-o" in argv and argv[argv.index("-o") + 1].endswith(
+                        ".y4m") else out.getvalue().strip()[:40])
+            loop = ((", cvsim-av" if have_av else ", Python loop")
+                    if tool in RESTORE_TOOLS else "")
+            lines.append(f"{tool} {secs:.3f} s ({what}{loop})")
+    finally:
+        toolargs.fast_restore = fast
+    if not have_av:
+        lines.append("cvsim-av not built on this host (g++ or the libav* "
+                     "libraries missing): the restore tools ran their "
+                     "Python loop")
+    print(f"[4] host-only commands, rc 0, device memory unchanged "
+          f"({torch.cuda.memory_allocated()} bytes allocated): "
+          + "; ".join(lines))
+
+
+def device_twin_checks(dev) -> None:
+    """[4] the host tools' device twins (models/tools.py, models/restore.py,
+    ops/noise.randint_stream) on a [16, 480, 720, 3] batch of colour bars
+    with noise and jittered left margins, the card against the CPU:
+    identical (integers only)."""
+    import numpy as np
+    import torch
+
+    from cvsim_tpu_torch.models import restore, tools
+    from cvsim_tpu_torch.ops import noise
+
+    rng = np.random.default_rng(12)
+    bars, _ = colour_bars(720, 480)
+    batch = np.repeat(bars[None].astype(np.int32), 16, axis=0)
+    batch = np.clip(batch + rng.integers(-20, 21, batch.shape), 0, 255)
+    for k in range(16):
+        for y, m in enumerate(8 + (6 * np.sin(np.arange(480) / 7 + k))
+                              .astype(int)):
+            batch[k, y, :m] = 0
+    batch = batch.astype(np.int32)
+    other = np.roll(batch, 5, axis=0)
+    lut = rng.integers(0, 256, (256, 3)).astype(np.int32)
+    gdec, genc = restore.gamma_tables(2.2)
+    w16 = [(k, 0x1000) for k in range(16)]
+    levels = restore.FilmacState()
+    restore.filmac_update_levels(levels, 3 << 22, 200 << 16)
+    twins = {
+        "randint_stream": lambda d: noise.randint_stream(
+            77, (16, 480, 720), 0, 20001, d),
+        "posterize": lambda d: tools.posterize(batch, 3, d),
+        "colormap_apply": lambda d: tools.colormap_apply(batch, lut, d),
+        "colorkey_apply": lambda d: tools.colorkey_apply(
+            other, batch, 77, color=(192, 0, 192), threshhold=90,
+            invert=True, noisekey=3000, fade=64, xdivr=3, device=d),
+        "average_delay_blend": lambda d: tools.average_delay_blend(
+            other, batch, list(range(16)), newlevel=100, delay=3, device=d),
+        "frameblend_mix": lambda d: restore.frameblend_mix(
+            batch, w16, gdec, genc, device=d),
+        "filmac_measure": lambda d: torch.tensor(restore.filmac_measure(
+            batch, gdec, device=d)),
+        "filmac_rescale": lambda d: restore.filmac_rescale(
+            batch, levels, 0x10000 * 8192, gdec, genc, device=d),
+        "vhsled_dejitter": lambda d: restore.vhsled_dejitter(batch, d),
+    }
+    shifted = 0
+    for name, fn in twins.items():
+        got, want = fn(dev).cpu(), fn("cpu")
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{name}: card != CPU")
+        if name == "vhsled_dejitter":
+            shifted = int((got != torch.from_numpy(batch)).any(-1).any(-1)
+                          .sum())
+    print(f"[4] device twins on [16, 480, 720, 3], card == CPU exactly: "
+          f"{', '.join(twins)} (vhsled shifted {shifted} of 7680 rows)")
+
+
+def profile_check(cli_main, src8: str, flags: list, tmp: str) -> str:
+    """[4] one `to-composite -vhs` on the 8-frame clip under
+    CVSIM_PROFILE=<tmp dir>: the Chrome trace is written and not empty;
+    returns the device busy share read from it (kernel, copy and set
+    events' summed durations over the traced span)."""
+    trace_dir = os.path.join(tmp, "profile")
+    os.environ["CVSIM_PROFILE"] = trace_dir
+    try:
+        rc = cli_main(["--device", "cuda", "to-composite", "-i", src8, "-o",
+                       os.path.join(tmp, "profiled.y4m"), "-vhs", *flags])
+    finally:
+        del os.environ["CVSIM_PROFILE"]
+    files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    if rc != 0 or len(files) != 1:
+        raise AssertionError(f"CVSIM_PROFILE run: rc {rc}, files {files}")
+    path = os.path.join(trace_dir, files[0])
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X"]
+    if size == 0 or not events:
+        raise AssertionError(f"CVSIM_PROFILE trace {path}: {size} bytes")
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    span = (max(e["ts"] + e.get("dur", 0) for e in events)
+            - min(e["ts"] for e in events))
+    busy = sum(e.get("dur", 0) for e in device)
+    share = (f"{len(device)} device events, {busy / 1e3:.3f} ms of "
+             f"{span / 1e3:.3f} ms traced = {100 * busy / span:.1f}% busy"
+             if device else "no device events in the trace")
+    print(f"[4] CVSIM_PROFILE to-composite -vhs (16 fields): trace "
+          f"{files[0]} ({size} bytes, {len(events)} events); {share}")
+    return share
+
+
 def main() -> int:
     import torch
 
@@ -1546,6 +1855,14 @@ def main() -> int:
     scan_runs = scanimate_cli_paths(cli_main, tmp)
     scanimate_field_effects(dev)
 
+    # serve/-via with the kernels resident (#5 in the prime and
+    # to-composite, #1 in ntsc), the host-only commands, the device twins,
+    # and a CVSIM_PROFILE trace
+    serve_walls = serve_paths(cli_main, src, outs, flags, tmp)
+    host_tool_paths(cli_main, src8, tmp)
+    device_twin_checks(dev)
+    profile_check(cli_main, src8, flags, tmp)
+
     # ---- 5. times
     # every kernel vs its plain version on the cases of testing.timed_cases
     # (kernel_ab.py times the same); the first case of each kernel is its
@@ -1615,6 +1932,13 @@ def main() -> int:
     for tool, (_, rate) in paths.items():
         print(f"[5] {tool} CLI end to end on {card}: {rate:.2f} fields/s "
               f"(128 fields, 720x480, build excluded, start-up included)")
+    print(f"[5] to-composite -vhs, 128 fields, on {card}: first served "
+          f"command {serve_walls['to-composite']:.3f} s (python -S -m "
+          f"cvsim_tpu_torch -via, a server primed in "
+          f"{serve_walls['prime_s']:.3f} s) against a fresh process "
+          f"{serve_walls['fresh']:.3f} s (interpreter, torch import, CUDA "
+          f"context, kernels loaded from _build/); served ntsc "
+          f"{serve_walls['ntsc']:.3f} s")
 
     audio_times(dev, card)
     r_ms, r_plain, r_bound, r_by = raw28_scanimate_times(

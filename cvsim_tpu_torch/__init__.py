@@ -24,12 +24,15 @@ reader expects it:
 - native/    the host frame scaler and the cvsim-av container tool
              (C++, built with g++ at first use)
 - config.py, presets.py   the configuration dataclasses and flag parsing
-- cli/       `python -m cvsim_tpu_torch [--device cuda|cpu]
-             ntsc|to-composite|cassette ...`
+- utils/     logging, phase lines, the CVSIM_PROFILE trace, and the
+             vaporwave and repo tools
+- cli/       `python -m cvsim_tpu_torch [--device cuda|cpu] <command>`,
+             all 17 of the JAX CLI's commands, `serve` and `-via`
 
 The package imports torch and numpy, and neither jax nor cvsim_tpu: where
 it needs a module of the JAX package that has no device code (config,
-presets, host I/O, native), it keeps its own copy under the same name.
+presets, host I/O, native, the host tools), it keeps its own copy under
+the same name. The host-only commands never import torch.
 """
 
 __version__ = "0.1.0"

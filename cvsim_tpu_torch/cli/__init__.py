@@ -1,1 +1,2 @@
-"""Command line (twin of cvsim_tpu.cli.main: ntsc and to-composite)."""
+"""Command line (twin of cvsim_tpu.cli): all 17 commands, `serve` and
+the `-via` client."""

@@ -1,32 +1,42 @@
 """cvsim_tpu_torch command line: `python -m cvsim_tpu_torch [--device
-cuda|cpu] ntsc|to-composite|cassette|raw28ntsc|scanimate <flags>`.
+cuda|cpu] <command> <flags>`, or `python -m cvsim_tpu_torch -via <socket>
+<command> <flags>` to run it in a resident `serve` process.
 
-The twin of cvsim_tpu.cli.main's `ntsc` tool (the gen-2 engine), its
-`to-composite` tool (the gen-1 engine), and its `cassette`, `raw28ntsc`
-(the software TV set) and `scanimate` tools. Flags are the reference's,
-parsed by the port's copies of cvsim_tpu.presets and the tools' parsers.
-Both video tools take `-audio-in`: the audio runs first
-(audio/chains.py), and its WAV goes to `-audio-out` or is muxed into a
-container `-o`. The device defaults to cuda; without a GPU the command
-fails unless `--device cpu` is given, and it never carries on on the CPU
-quietly. `-devices n` splits each GOP's fields over n devices of that
-kind: n GPUs (fewer visible is an error), or n shards on the CPU. The
-other 12 tools of the JAX CLI are not ported yet.
+The twin of cvsim_tpu.cli.main, with all 17 of its commands. Flags are
+the reference's, parsed by the port's copies of cvsim_tpu.presets and the
+tools' parsers. The device commands (DEVICE_COMMANDS: the gen-2 `ntsc`
+and gen-1 `to-composite` engines, `cassette`, `raw28ntsc`, `scanimate`,
+and `serve`, whose `-prime` runs the gen-1 engine) run on the device
+that `--device` names, cuda by default; without a GPU they fail unless
+`--device cpu` is given, and never carry on on the CPU quietly. Both
+video tools take `-audio-in`: the audio runs first (audio/chains.py), and
+its WAV goes to `-audio-out` or is muxed into a container `-o`.
+`-devices n` splits each GOP's fields over n devices of that kind: n
+GPUs (fewer visible is an error), or n shards on the CPU.
+
+The other eleven commands (the pixel tools `posterize`, `colormap`,
+`colorkey`, `average-delay`, the restore tools `frameblend`, `filmac`,
+`vhsled`, and `normalize-ts`, `vaporwave`, `repo-update-all`,
+`repo-source-pickup`) do no device work, in the JAX package either:
+they parse `--device` and ignore it, and never import torch.
+CVSIM_PROFILE=<dir> writes a torch.profiler trace of the whole command
+there (utils/log.profile_trace); CVSIM_PHASES=1 prints phase lines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import sys
 import tempfile
-
-import torch
+from typing import TYPE_CHECKING
 
 from cvsim_tpu_torch import presets
+from cvsim_tpu_torch.utils.log import phase, profile_trace
 
-USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] "
-         "ntsc|to-composite|cassette|raw28ntsc|scanimate [flags]")
+if TYPE_CHECKING:   # device commands import torch when they run
+    import torch
 
 
 def _soft_sigint():
@@ -265,9 +275,84 @@ def cmd_scanimate(argv, device: torch.device):
     return run_scanimate(argv, device)
 
 
-COMMANDS = {"ntsc": cmd_ntsc, "to-composite": cmd_to_composite,
-            "cassette": cmd_cassette, "raw28ntsc": cmd_raw28ntsc,
-            "scanimate": cmd_scanimate}
+def _tool(name):
+    def run(argv):
+        from cvsim_tpu_torch.cli import tools
+        return getattr(tools, f"run_{name}")(argv)
+    return run
+
+
+def _restore_tool(name):
+    """vhsled/frameblend/filmac: the numpy-free native fast path first
+    (cli/toolargs.fast_restore: the whole loop runs inside cvsim-av);
+    the full cli/tools loop for anything it declines."""
+    def run(argv):
+        from cvsim_tpu_torch.cli import toolargs
+        rc = toolargs.fast_restore(name, argv)
+        if rc is not None:
+            return rc
+        from cvsim_tpu_torch.cli import tools
+        return getattr(tools, f"run_{name}")(argv)
+    return run
+
+
+def _cmd_vaporwave(argv):
+    """text2vaporwave.pl: ASCII -> fullwidth unicode (args or stdin)."""
+    from cvsim_tpu_torch.utils import vaporwave
+
+    return vaporwave.main(argv)
+
+
+def _cmd_repo_update_all(argv):
+    """git-update-all[-wo-push]: commit the whole tree, push + fetch."""
+    from cvsim_tpu_torch.utils import repo_maint
+
+    return repo_maint.main_update_all(argv)
+
+
+def _cmd_repo_source_pickup(argv):
+    """git-source-pickup.pl: dated commit-stamped source .tar.xz."""
+    from cvsim_tpu_torch.utils import repo_maint
+
+    return repo_maint.main_source_pickup(argv)
+
+
+def cmd_serve(argv, device):
+    """Daemon mode (cli/serve.py): a resident process that keeps the CUDA
+    context and the built kernels loaded across commands."""
+    from cvsim_tpu_torch.cli import serve
+
+    return serve.run_serve(argv, device)
+
+
+COMMANDS = {
+    "to-composite": cmd_to_composite,
+    "ntsc": cmd_ntsc,
+    "cassette": cmd_cassette,
+    "colorkey": _tool("colorkey"),
+    "colormap": _tool("colormap"),
+    "posterize": _tool("posterize"),
+    "scanimate": cmd_scanimate,
+    "average-delay": _tool("average_delay"),
+    "frameblend": _restore_tool("frameblend"),
+    "filmac": _restore_tool("filmac"),
+    "vhsled": _restore_tool("vhsled"),
+    "raw28ntsc": cmd_raw28ntsc,
+    "normalize-ts": _tool("normalize_ts"),
+    "vaporwave": _cmd_vaporwave,
+    "repo-update-all": _cmd_repo_update_all,
+    "repo-source-pickup": _cmd_repo_source_pickup,
+    "serve": cmd_serve,
+}
+
+# Commands whose work runs on the device: they take (argv, device). The
+# rest run on the host alone, take (argv), and never import torch.
+DEVICE_COMMANDS = {"to-composite", "ntsc", "cassette", "scanimate",
+                   "raw28ntsc", "serve"}
+
+USAGE = ("usage: python -m cvsim_tpu_torch [--device cuda|cpu] "
+         "[-via <socket>] <command> [flags]\ncommands: "
+         + " ".join(sorted(COMMANDS)))
 
 
 def _split_device(argv):
@@ -279,8 +364,33 @@ def _split_device(argv):
     return "cuda", argv
 
 
+def _device(name: str):
+    """The torch device of a device command (phase lines
+    `torch_imported`, `backend_ready`); None, with the reason on stderr,
+    when there is no such device."""
+    import torch
+
+    phase("torch_imported")
+    if name == "cuda" and not torch.cuda.is_available():
+        print("cvsim_tpu_torch: no CUDA device; pass --device cpu to run "
+              "the plain PyTorch path on the CPU", file=sys.stderr)
+        return None
+    device = torch.device(name)
+    if device.type == "cuda" and os.environ.get("CVSIM_PHASES") == "1":
+        # the stamp marks the first round trip; without phase lines the
+        # command's own first copy makes it
+        torch.zeros(1, device=device).cpu()
+    phase("backend_ready")
+    return device
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    if len(argv) >= 2 and argv[0] == "-via":
+        # forward to a running `serve` (no torch in this process)
+        from cvsim_tpu_torch.cli import serve
+
+        return serve.run_via(argv[1], argv[2:])
     try:
         device_name, argv = _split_device(argv)
     except ValueError as e:
@@ -293,20 +403,24 @@ def main(argv=None):
         print(f"cvsim_tpu_torch: unknown device '{device_name}'",
               file=sys.stderr)
         return 1
-    if device_name == "cuda" and not torch.cuda.is_available():
-        print("cvsim_tpu_torch: no CUDA device; pass --device cpu to run "
-              "the plain PyTorch path on the CPU", file=sys.stderr)
-        return 1
     cmd = argv[0]
     if cmd not in COMMANDS:
-        print(f"cvsim_tpu_torch: '{cmd}' is not ported yet (ported: "
-              f"{', '.join(COMMANDS)})", file=sys.stderr)
+        print(f"cvsim_tpu_torch: unknown command '{cmd}'", file=sys.stderr)
         return 1
-    try:
-        return COMMANDS[cmd](argv[1:], torch.device(device_name))
-    except ValueError as e:
-        print(f"cvsim_tpu_torch {cmd}: {e}", file=sys.stderr)
-        return 1
+    # a server's commands each come through here and trace themselves
+    trace = profile_trace() if cmd != "serve" else contextlib.nullcontext()
+    with trace:
+        try:
+            if cmd not in DEVICE_COMMANDS:
+                return COMMANDS[cmd](argv[1:])
+            phase("cli_entry")
+            device = _device(device_name)
+            if device is None:
+                return 1
+            return COMMANDS[cmd](argv[1:], device)
+        except ValueError as e:
+            print(f"cvsim_tpu_torch {cmd}: {e}", file=sys.stderr)
+            return 1
 
 
 if __name__ == "__main__":

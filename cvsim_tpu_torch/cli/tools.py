@@ -1,26 +1,51 @@
-"""The port's sibling tools: `cassette`, `scanimate` and `raw28ntsc`
-(twins of cvsim_tpu.cli.tools.run_cassette, run_scanimate and
-run_raw28ntsc), and the shared Y4M-in/Y4M-out scaffold of the sibling
-tools, copied from cvsim_tpu/cli/tools.py: frames -> RGB at the output
-field rate -> device op -> RGB -> Y4M. The other sibling tools are not
-ported yet.
+"""CLI runners for the sibling tools (the twin of cvsim_tpu.cli.tools).
+
+Each mirrors its reference tool's flags (cited per function) over the shared
+Y4M-in/Y4M-out scaffold: frames -> RGB -> pixel op (vs a delay-ring canvas
+where the tool is stateful) -> RGB -> Y4M at field rate.
+
+The host-only tools (posterize, colormap, colorkey, average-delay,
+frameblend, filmac, vhsled, normalize-ts) are copied from the JAX package:
+numpy on the host, the restore tools' pixel maps in native/hostpix.cpp,
+their whole loop inside cvsim-av when it is built. They never import
+torch. The device tools (cassette, scanimate, raw28ntsc) run on the
+`device` they are given and import torch inside.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
+from fractions import Fraction
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
-from cvsim_tpu_torch.cli.toolargs import ToolArgs as _ToolArgs
 from cvsim_tpu_torch.host import timing, wavio, y4m
+from cvsim_tpu_torch.models import tools_np
 from cvsim_tpu_torch.native import hostpix
+from cvsim_tpu_torch.ops import noise_np
 
-# frame scaling dispatches to the native library (bit-exact numpy
-# fallback inside hostpix)
+if TYPE_CHECKING:   # the device tools import torch when they run
+    import torch
+
+# frame scaling and the restore-tool pixel kernels dispatch to the native
+# library (bit-exact numpy fallback inside hostpix)
 _scale_frame_to = hostpix.scale_frame_to
+
+# the flag parser, -or/-gamma parsers, encoder profiles and the native
+# in-process delegation live in cli/toolargs.py (numpy-free: cli/main.py
+# dispatches the restore tools there BEFORE this module's imports load)
+from cvsim_tpu_torch.cli.toolargs import (          # noqa: E402
+    ENC_FRAMEBLEND as _ENC_FRAMEBLEND,
+    ENC_RESTORE as _ENC_RESTORE,
+    RESTORE_EXTRA as _RESTORE_EXTRA,
+    ToolArgs as _ToolArgs,
+    parse_gamma as _parse_gamma,
+    parse_rate as _parse_rate,
+    try_native_restore as _try_native_restore,
+)
 
 
 def _open_video_inputs(paths):
@@ -175,6 +200,61 @@ def _open_tool_writer(args: _ToolArgs):
     return y4m.Y4MWriter(out_stream, out_hdr), out_finalize
 
 
+def _frame_loop(args: _ToolArgs, per_field, multi: bool = False):
+    """Drive input frames at the output field rate; per_field(frame(s),
+    fieldno) -> RGB [H, W, 3] output frame."""
+    writer, out_finalize = _open_tool_writer(args)
+    with _finalizing(out_finalize), _AsyncWriter(writer) as aw:
+        for frames, current in _advance_fields(args, multi):
+            frame = frames if multi else frames[0]
+            _write_rgb(aw, np.asarray(per_field(frame, current)),
+                       args.use_422)
+            print(f"\x0dOutput field {current} ", end="", file=sys.stderr)
+        print("", file=sys.stderr)
+    return 0
+
+
+def _frame_loop_1to1(args: _ToolArgs, per_frame, enc: dict | None = None):
+    """One output frame per decoded input frame — the restore tools' loop
+    shape (ffmpeg_vhsled.cpp:851-861, filmac.cpp:842-851: a frame is
+    processed and encoded only when next_packet() decodes one; the output
+    field rate only sets the pts *units* via video_frame_rgb_to_output_f,
+    it never duplicates frames). The output stream therefore carries the
+    input cadence: header fps is the input rate; -or is accepted for flag
+    parity but has no observable effect on a CFR output."""
+    (reader,), (in_cleanup,) = _open_video_inputs(args.inputs[:1])
+    try:
+        # restore-tool default: output dims follow the input unless -width/
+        # -height were given (ffmpeg_vhsled.cpp:706-714, filmac.cpp same)
+        if not args.width_set:
+            args.width = reader.header.width
+        if not args.height_set and "height_flag" not in args.extra:
+            args.height = reader.header.height
+        out_hdr = y4m.Y4MHeader(
+            width=args.width, height=args.height, fps=reader.header.fps,
+            interlacing="p", aspect="4:3",
+            colorspace="422" if args.use_422 else "420jpeg")
+        out_stream, out_finalize = _open_video_output(args.output, enc)
+        writer = y4m.Y4MWriter(out_stream, out_hdr)
+        with _finalizing(out_finalize), _AsyncWriter(writer) as aw:
+            n = 0
+            for yf, uf, vf in reader:
+                if uf is None:
+                    uf = np.full_like(yf, 128)
+                    vf = uf
+                frame = _scale_underscan(
+                    yf, uf, vf, args.width, args.height,
+                    args.extra.get("underscan", 0), chroma="bilinear")
+                _write_rgb(aw, np.asarray(per_frame(frame, n)),
+                           args.use_422)
+                print(f"\x0dOutput frame {n} ", end="", file=sys.stderr)
+                n += 1
+            print("", file=sys.stderr)
+    finally:
+        in_cleanup()
+    return 0
+
+
 def _frame_loop_batched(args: _ToolArgs, per_batch, batch: int,
                         multi: bool = False):
     """Like _frame_loop, but fields are collected into batches of up to
@@ -215,6 +295,110 @@ def _last_frame(frames):
             return f
     return frames[0]
 
+
+def run_posterize(argv):
+    """ffmpeg_posterize flags (:630-660): -threshhold <n> bit truncation.
+
+    Host-numpy hot path (tools_np): an AND mask has no TPU win and the
+    per-field device round-trip was the whole tool's cost (VERDICT r2)."""
+    args = _ToolArgs(argv, extra={"threshhold": (int, "threshhold")})
+    thr = args.extra.get("threshhold", 3)   # InputFile default (ffmpeg_posterize.cpp:71)
+    return _frame_loop(args, lambda frames, fieldno: tools_np.posterize(
+        _last_frame(frames), thr), multi=True)
+
+
+def run_colormap(argv):
+    """ffmpeg_colormap: first -i is the map image, second the video
+    (take_colormap from the middle scanline, :785-799)."""
+    args = _ToolArgs(argv)
+    if len(args.inputs) < 2:
+        print("colormap needs -i <map.y4m> -i <video.y4m>", file=sys.stderr)
+        return 1
+    map_readers, map_cleanups = _open_video_inputs(args.inputs[:1])
+    my, mu, mv = next(iter(map_readers[0]))
+    for c in map_cleanups:
+        c()
+    if mu is None:
+        mu = np.full_like(my, 128)
+        mv = mu
+    map_rgb = np.asarray(_scale_frame_to(my, mu, mv, args.width, args.height))
+    lut = tools_np.take_colormap(map_rgb)
+    args.inputs = args.inputs[1:]
+    return _frame_loop(args, lambda frames, fieldno: tools_np.colormap_apply(
+        _last_frame(frames), lut), multi=True)
+
+
+def run_colorkey(argv):
+    """ffmpeg_colorkey flags (:639-698): -color <argb> -threshhold -inv
+    -noise <n> -f <fade> -xd <n> -d <ring>. Multiple -i inputs layer in
+    order, each keyed with ITS OWN settings (flags apply to the most recent
+    -i, and a new -i inherits the previous one's settings — the reference's
+    InputFile copy semantics)."""
+    args = _ToolArgs(argv, extra={
+        "color": (lambda v: int(v, 0), "color"),
+        "threshhold": (int, "threshhold"),
+        "inv": (lambda v: int(v, 0) > 0, "invert"),
+        "noise": (int, "noisekey"),
+        "f": (int, "fade"),
+        "xd": (int, "xdivr"),
+    })
+
+    def layer_fn(cfg):
+        color_int = cfg.get("color", 0)
+        color = ((color_int >> 16) & 0xFF, (color_int >> 8) & 0xFF,
+                 color_int & 0xFF)
+        return lambda dst, src, k: tools_np.colorkey_apply(
+            dst, src, k, color=color,
+            threshhold=cfg.get("threshhold", 0),
+            invert=bool(cfg.get("invert", False)),
+            noisekey=cfg.get("noisekey", 0),
+            fade=cfg.get("fade", 0),
+            xdivr=cfg.get("xdivr", 1))
+
+    fns = [layer_fn(c) for c in (args.per_input or [args.extra])]
+    ring = [np.zeros((args.height, args.width, 3), np.int32)
+            for _ in range(args.delay)]
+    idx = {"i": 0}
+
+    def per_field(frames, fieldno):
+        canvas = ring[idx["i"]]
+        for layer, (fn, frame) in enumerate(zip(fns, frames)):
+            # noise streams content-addressed by (fieldno, layer) — same
+            # design as the engine noise: restart/batch-invariant
+            canvas = fn(canvas, frame,
+                        int(noise_np.field_stage_key(0, fieldno, layer)))
+        ring[idx["i"]] = canvas
+        idx["i"] = (idx["i"] + 1) % args.delay
+        return canvas
+
+    return _frame_loop(args, per_field, multi=True)
+
+
+def run_average_delay(argv):
+    """ffmpeg_average_delay flags (:619-655): -d <ring> -n <newlevel>.
+    Multiple -i inputs blend into the ring canvas in order, each with its
+    own -n level (reference InputFile semantics)."""
+    args = _ToolArgs(argv, extra={"n": (int, "newlevel")})
+    cfgs = args.per_input or [args.extra]
+    fns = [lambda dst, src, fld, nl=c.get("newlevel", 128):
+           tools_np.average_delay_blend(dst, src, fld, newlevel=nl,
+                                        delay=args.delay)
+           for c in cfgs]
+    ring = [np.zeros((args.height, args.width, 3), np.int32)
+            for _ in range(args.delay)]
+    idx = {"i": 0}
+
+    def per_field(frames, fieldno):
+        canvas = ring[idx["i"]]
+        for fn, frame in zip(fns, frames):
+            canvas = fn(canvas, frame, fieldno)
+        ring[idx["i"]] = canvas
+        idx["i"] = (idx["i"] + 1) % args.delay
+        return canvas
+
+    return _frame_loop(args, per_field, multi=True)
+
+
 def run_scanimate(argv, device: torch.device, batch: int = 16):
     """ffmpeg_scanimate flags (:653-698): -inntsc (source is interlaced NTSC),
     plus raster presets 720p60/1080p60 set width/height.
@@ -224,10 +408,12 @@ def run_scanimate(argv, device: torch.device, batch: int = 16):
     `device` (models/tools.scanimate_field); the frames cross as uint8
     RGB and only the uint8 gray raster crosses back (the RGB expansion is
     a host stack)."""
-    args = _ToolArgs(argv, extra={"inntsc": ("flag", "inntsc")})
-    input_ntsc = bool(args.extra.get("inntsc", False))
+    import torch
 
     from cvsim_tpu_torch.models import tools as ops
+
+    args = _ToolArgs(argv, extra={"inntsc": ("flag", "inntsc")})
+    input_ntsc = bool(args.extra.get("inntsc", False))
 
     def gray_of(frames, fieldnos, fld):
         src = torch.from_numpy(frames.astype(np.uint8)).to(device)
@@ -264,8 +450,6 @@ def run_scanimate(argv, device: torch.device, batch: int = 16):
         return outs
 
     return _frame_loop_batched(args, per_batch, batch, multi=True)
-
-
 
 
 def run_cassette(argv, device: torch.device):
@@ -367,6 +551,8 @@ def cassette_chain(samples: np.ndarray, cfg, key32: int,
     """The cassette chain over a whole stream [N, C] (int16 range), in
     `chunk`-sample steps on `device` with a carried state (float32);
     returns int32 [N, C]."""
+    import torch
+
     from cvsim_tpu_torch.audio.cassette import (cassette_audio_process,
                                                 init_cassette_state)
 
@@ -396,6 +582,260 @@ def _scale_underscan(yf, uf, vf, w, h, underscan, chroma="repeat"):
     x0, y0 = (w - fw) // 2, (h - fh) // 2
     canvas[y0:y0 + fh, x0:x0 + fw] = img
     return canvas
+
+
+def run_frameblend(argv):
+    """frameblend flags (:522-568): -or <rate> output rate, -sqnr squelch,
+    -fa <n> alternate-frame step, -ffa full-frame-alt, -gamma <x|vga|ntsc>."""
+    from cvsim_tpu_torch.models import restore
+
+    args = _ToolArgs(argv, extra=_RESTORE_EXTRA["frameblend"])
+    if "height_flag" in args.extra:
+        args.height = args.extra["height_flag"]
+    out_rate = args.extra.get("out_rate", args.field_rate)
+    framealt = max(1, min(8, args.extra.get("fa", 1)))
+    fullframealt = bool(args.extra.get("ffa", False))
+    squelch = bool(args.extra.get("sqnr", False))
+    gamma = args.extra.get("gamma", -1.0)
+    gdec = genc = None
+    if gamma > 1:
+        gdec, genc = restore.gamma_tables(gamma)
+
+    # the frame_t products must stay < 2^53 for the native loop's double
+    # division to be the identical correctly-rounded value (exotic -or
+    # fractions from Fraction(float) fall back to the Python loop)
+    if (out_rate.numerator <= 10**6 and out_rate.denominator <= 10**6):
+        fb_flags = ["-or-num", out_rate.numerator,
+                    "-or-den", out_rate.denominator, "-fa", framealt]
+        if fullframealt:
+            fb_flags += ["-ffa"]
+        if squelch:
+            fb_flags += ["-sqnr"]
+        if gamma > 1:
+            fb_flags += ["-gamma", repr(float(gamma))]
+        rc = _try_native_restore("frameblend", args, _ENC_FRAMEBLEND,
+                                 fb_flags)
+        if rc is not None:
+            return rc
+
+    (reader,), (in_cleanup,) = _open_video_inputs(args.inputs[:1])
+    fps = reader.header.fps
+    # output dims follow the input unless given (frameblend.cpp:751-752)
+    if not args.width_set:
+        args.width = reader.header.width
+    if not args.height_set and "height_flag" not in args.extra:
+        args.height = reader.header.height
+    out_hdr = y4m.Y4MHeader(
+        width=args.width, height=args.height, fps=Fraction(out_rate),
+        interlacing="p", aspect="4:3",
+        colorspace="422" if args.use_422 else "420jpeg")
+    out_stream, out_finalize = _open_video_output(args.output,
+                                                  _ENC_FRAMEBLEND)
+    writer = y4m.Y4MWriter(out_stream, out_hdr)
+
+    try:
+        with _finalizing(out_finalize), _AsyncWriter(writer) as aw:
+            _run_frameblend_loop(args, reader, aw, out_rate, fps,
+                                 framealt, fullframealt, squelch, gdec, genc)
+    finally:
+        in_cleanup()
+    return 0
+
+
+def _run_frameblend_loop(args, reader, writer, out_rate, fps, framealt,
+                         fullframealt, squelch, gdec, genc):
+    from cvsim_tpu_torch.models import restore
+
+    it = iter(reader)
+    frames = []        # RGB numpy frames
+    frame_t = []       # in output-frame units
+    src_idx = 0
+    eof = False
+    current = 0
+    while True:
+        while not eof and (not frame_t or frame_t[-1] < current + 30):
+            try:
+                yf, uf, vf = next(it)
+            except StopIteration:
+                eof = True
+                break
+            if uf is None:
+                uf = np.full_like(yf, 128)
+                vf = uf
+            frames.append(np.asarray(_scale_underscan(
+                yf, uf, vf, args.width, args.height,
+                args.extra.get("underscan", 0), chroma="bilinear")))
+            frame_t.append(float(src_idx * out_rate / fps))
+            src_idx += 1
+        if not frames or (eof and frame_t and current > np.ceil(frame_t[-1])):
+            break
+        w16, cutoff = restore.frameblend_weights(
+            frame_t, current, framealt, fullframealt, squelch)
+        used = [frames[i] for i, _ in w16]
+        out_rgb = hostpix.frameblend_mix(used, w16, gdec, genc)
+        _write_rgb(writer, out_rgb, args.use_422)
+        print(f"\x0dOutput frame {current} ", end="", file=sys.stderr)
+        current += 1
+        if cutoff > 0:
+            frames = frames[cutoff:]
+            frame_t = frame_t[cutoff:]
+        if eof and current > (frame_t[-1] if frame_t else 0) + 1:
+            break
+    print("", file=sys.stderr)
+
+
+def run_filmac(argv):
+    """filmac flags (:486-560): -gamma <x|vga|ntsc>, 1:1 frame AGC."""
+    from cvsim_tpu_torch.models import restore
+
+    args = _ToolArgs(argv, extra=_RESTORE_EXTRA["filmac"])
+    if "height_flag" in args.extra:
+        args.height = args.extra["height_flag"]
+    if "out_rate" in args.extra:
+        args.field_rate = args.extra["out_rate"]
+    gamma = args.extra.get("gamma", -1.0)
+    rc = _try_native_restore(
+        "filmac", args, _ENC_RESTORE,
+        ["-gamma", repr(float(gamma))] if gamma > 1 else [])
+    if rc is not None:
+        return rc
+    gdec = genc = None
+    if gamma > 1:
+        gdec, genc = restore.gamma_tables(gamma)
+    state = restore.FilmacState()
+
+    def per_frame(frame, n):
+        # 1:1 with input frames (filmac.cpp:842-851) — the temporal level
+        # IIR (:927-942) must advance once per decoded frame, not once per
+        # output field, or AGC converges at double speed
+        minv, maxv, scaleto = hostpix.filmac_measure(frame, gdec)
+        restore.filmac_update_levels(state, minv, maxv)
+        return hostpix.filmac_rescale(frame, state, scaleto, gdec, genc)
+
+    return _frame_loop_1to1(args, per_frame, enc=_ENC_RESTORE)
+
+
+def run_vhsled(argv):
+    """vhsled: per-scanline left-edge de-jitter, one output frame per
+    input frame (ffmpeg_vhsled.cpp:851-861). Flags (:476-567): -or <rate>
+    (pts units only in the reference — no cadence effect), -underscan
+    <pct>; -gamma is parsed for parity but the reference's gamma tables
+    have no callers in this tool (dead flag), so it is accepted and
+    ignored here too."""
+    args = _ToolArgs(argv, extra=_RESTORE_EXTRA["vhsled"])
+    if "height_flag" in args.extra:
+        args.height = args.extra["height_flag"]
+    if "out_rate" in args.extra:
+        args.field_rate = args.extra["out_rate"]
+    rc = _try_native_restore("vhsled", args, _ENC_RESTORE, [])
+    if rc is not None:
+        return rc
+    return _frame_loop_1to1(
+        args, lambda frame, n: hostpix.vhsled_dejitter(frame),
+        enc=_ENC_RESTORE)
+
+
+def run_normalize_ts(argv):
+    """normalize_ts: monotonic PTS rewrite (normalize_ts.cpp:171-188,
+    438-467 per-stream tracking).
+
+    Y4M carries no timestamps, so the container timestamps ride a sidecar
+    packet log: `-pts-in <file>` lines are `<stream_index> <pts|none>` (or
+    bare `<pts>` for stream 0), one per packet in mux order — the shape an
+    `ffmpeg -copyts`/ffprobe packet dump reduces to. Each stream's PTS run
+    is rewritten monotonic by timing.StreamTsState (backward jumps lifted,
+    forward jumps clamped to -maxfwd ticks) and written to `-pts-out`.
+    Video frames (stream 0 packets) copy through unchanged. Without
+    -pts-in, a container input's OWN packet timestamps are demuxed
+    directly (cvsim-av decode -pkt-log — the reference reads them off
+    av_read_frame, normalize_ts.cpp:430-436); a Y4M input's frames are
+    implicitly monotonic and this is a remux/validation pass."""
+    import tempfile
+
+    from cvsim_tpu_torch.host import ffmpeg_pipe
+
+    args = _ToolArgs(argv, extra={"program": (int, "program"),
+                                  "maxfwd": (int, "maxfwd"),
+                                  "pts-in": (str, "pts_in"),
+                                  "pts-out": (str, "pts_out")})
+    maxfwd = args.extra.get("maxfwd", 0)
+
+    def read_pkt_log(path):
+        pkts = []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                sidx, pts = (("0", parts[0]) if len(parts) == 1
+                             else (parts[0], parts[1]))
+                pkts.append((int(sidx),
+                             None if pts == "none" else int(pts)))
+        return pkts
+
+    packets = None
+    if "pts_in" in args.extra:
+        packets = read_pkt_log(args.extra["pts_in"])
+
+    if not args.inputs or not args.output:
+        raise ValueError("normalize-ts needs -i <in> -o <out>")
+    in_path = args.inputs[0]
+    auto_log = None
+    if (packets is None and not in_path.endswith(".y4m")
+            and ffmpeg_pipe.av_tool() is not None):
+        fd, auto_log = tempfile.mkstemp(prefix="cvsim_pts_", suffix=".log")
+        os.close(fd)
+
+    n = 0
+    out, out_finalize = _open_video_output(args.output)
+    with _finalizing(out_finalize):
+        if auto_log is not None:
+            reader, proc = ffmpeg_pipe.open_video_reader(
+                in_path, pkt_log=auto_log)
+            w = y4m.Y4MWriter(out, reader.header)
+            try:
+                for yf, uf, vf in reader:
+                    w.write(yf, uf, vf)
+                    n += 1
+                proc.stdout.close()
+                rc = proc.wait()
+                if rc != 0:
+                    # a decoder that died mid-stream looks like clean EOF
+                    # to the Y4M reader — don't report a truncated remux
+                    # as success
+                    raise RuntimeError(
+                        f"demuxer exited with rc {rc} after {n} frames")
+                packets = read_pkt_log(auto_log)
+            finally:
+                if os.path.exists(auto_log):
+                    os.unlink(auto_log)
+            if "pts_out" not in args.extra:
+                args.extra["pts_out"] = args.output + ".pts"
+        else:
+            reader, cleanup = ffmpeg_pipe.resolve_video_input(in_path)
+            w = y4m.Y4MWriter(out, reader.header)
+            for yf, uf, vf in reader:
+                w.write(yf, uf, vf)
+                n += 1
+            cleanup()
+
+    if packets is not None:
+        states: dict[int, timing.StreamTsState] = {}
+        lines = []
+        for sidx, pts in packets:
+            st = states.setdefault(
+                sidx, timing.StreamTsState(max_forward=maxfwd))
+            p = st.rewrite(pts)
+            lines.append(f"{sidx} {'none' if p is None else p}")
+        out_path = (args.extra["pts_out"] if "pts_out" in args.extra
+                    else args.extra["pts_in"] + ".norm")
+        with open(out_path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        print(f"{n} frames remuxed; {len(packets)} packet timestamps "
+              f"normalized across {len(states)} stream(s)", file=sys.stderr)
+    else:
+        print(f"{n} frames remuxed (monotonic)", file=sys.stderr)
+    return 0
 
 
 def _write_rgb(writer, rgb, use_422: bool):

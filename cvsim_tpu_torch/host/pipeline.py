@@ -55,6 +55,7 @@ from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yuv422
 from cvsim_tpu_torch.parallel import make_mesh, map_fields
+from cvsim_tpu_torch.utils.log import phase
 
 
 def _interleave_np(top: np.ndarray, bottom: np.ndarray) -> np.ndarray:
@@ -210,6 +211,43 @@ class CompositePipeline:
 
         self._programs[cache_key] = gop_step
         return gop_step
+
+    def _dummy_batch(self, src_h: int, src_w: int, chroma_h: int,
+                     chroma_w: int):
+        """One all-zeros GOP with the real wire layout (for priming)."""
+        b = FieldBatcher(gop=self.gop, src_height=src_h,
+                         chroma_height=chroma_h, luma_w=src_w,
+                         chroma_w=chroma_w)
+        z = np.zeros((src_h, src_w), np.uint8)
+        zc = np.zeros((chroma_h, chroma_w), np.uint8)
+        fld, batch = 0, None
+        while batch is None:
+            b.add_frame(z, zc, zc)
+            for _ in range(2):
+                r = b.add_field(fld, (fld & 1) ^ 1, 0)
+                if r is not None:
+                    batch = r
+                fld += 1
+        return batch
+
+    def prime(self, src_h: int, src_w: int, chroma_h: int, chroma_w: int,
+              src_interlaced: bool = False, src_tff: bool = True):
+        """Run the GOP step once on a dummy GOP of this source geometry on
+        the pipeline's device and wait for it: the kernels are built or
+        loaded, the CUDA context and the allocator warmed, before the
+        first real GOP. The carried black-key planes are left as they
+        were. Unlike the JAX package's best-effort priming, a failure
+        raises: a kernel that cannot build or launch must not pass
+        unseen."""
+        gop_step = self._gop_program(src_h, src_w, chroma_h, chroma_w,
+                                     src_interlaced, src_tff)
+        b = self._dummy_batch(src_h, src_w, chroma_h, chroma_w)
+        gop = self.gop
+        packed, _ = gop_step(torch.from_numpy(b.pix).to(self.device),
+                             torch.from_numpy(b.meta).to(self.device),
+                             b.meta[4 * gop:5 * gop].tolist(),
+                             self._filter_planes)
+        packed.cpu()
 
     # ------------------------------------------------------------- emit side
 
@@ -398,6 +436,7 @@ class CompositePipeline:
         errors: list[BaseException] = []
         fields_done = {"n": 0}
         base_idx_box = {"v": ckpt_base_idx}
+        phase("run_video_start")
 
         def put_batch(b):
             # each GOP gets its own pinned host tensor, so that a refill
@@ -457,6 +496,7 @@ class CompositePipeline:
         wrote = {"gops": 0}
 
         def write_loop():
+            first_fetch = True
             try:
                 while True:
                     item = q_out.get()
@@ -466,6 +506,9 @@ class CompositePipeline:
                     if done is not None:
                         done.synchronize()
                     buf = packed.numpy()
+                    if first_fetch:
+                        first_fetch = False
+                        phase("first_fetch_done", fields=n_real)
                     for k in range(n_real):
                         row = buf[k]
                         self._emit_field(
@@ -497,11 +540,15 @@ class CompositePipeline:
         wt = threading.Thread(target=write_loop, name="cvsim-write", daemon=True)
         rt.start()
         wt.start()
+        first_dispatch = True
         try:
             while True:
                 b = q_in.get()
                 if b is None:
                     break
+                if first_dispatch:
+                    first_dispatch = False
+                    phase("first_dispatch")
                 gop = self.gop
                 valid = b.meta[4 * gop:5 * gop].tolist()
                 pix = b.pix.to(dev, non_blocking=True)
@@ -540,6 +587,7 @@ class CompositePipeline:
             raise errors[0]
         if ckpt_path:
             checkpoint.clear(ckpt_path)
+        phase("run_video_done", fields=fields_done["n"])
         if self.progress:
             print("", file=sys.stderr)
         return fields_done["n"]

@@ -81,7 +81,7 @@ def _state_from_reference(state, state_cls, device, dtype):
     return state_cls(**kw)
 
 
-def audio_state_from_reference(state, device="cpu",
+def audio_state_from_reference(state, device="cuda",
                                dtype=torch.float32) -> AudioState:
     """The port's AudioState from the JAX package's (its fields as numpy
     arrays, e.g. after `jax.device_get`), so a port chain can continue a
@@ -89,14 +89,14 @@ def audio_state_from_reference(state, device="cpu",
     return _state_from_reference(state, AudioState, device, dtype)
 
 
-def cassette_state_from_reference(state, device="cpu",
+def cassette_state_from_reference(state, device="cuda",
                                   dtype=torch.float32) -> CassetteState:
     """The port's CassetteState from the JAX package's (see
     audio_state_from_reference)."""
     return _state_from_reference(state, CassetteState, device, dtype)
 
 
-def raw28_state_from_reference(decoder, device="cpu") -> Raw28State:
+def raw28_state_from_reference(decoder, device="cuda") -> Raw28State:
     """The port's Raw28State from a JAX package Raw28Decoder (its AGC
     levels and int32[16] chroma-tail carry), the carry on `device`: a
     port decoder built with it continues where the JAX one stands."""

@@ -1,13 +1,15 @@
-"""ctypes binding for the native host frame scaler (libhostpix).
+"""ctypes binding for the native host-pixel kernels (libhostpix).
 
-The port's copy of cvsim_tpu/native/hostpix.py, cut to what the port
-calls: `scale_frame_to`, the per-frame ingest of the pipelines and the
-sibling tools, and `rgb_to_yuv_planes`, the sibling tools' output
-conversion. The C++ kernels (hostpix.cpp, a copy of the reference
-package's) are bit-exact with colorconv.scale_frame_to_np and
-rgb_to_yuv601_np (same float32 operation order, numpy rounding); they are
-built with g++ on first use into _build/ here, and each wrapper falls
-back to its numpy twin when g++ is unavailable.
+The port's copy of cvsim_tpu/native/hostpix.py: `scale_frame_to`, the
+per-frame ingest of the pipelines and the sibling tools,
+`rgb_to_yuv_planes`, the sibling tools' output conversion, and the
+restore tools' pixel maps (`vhsled_dejitter`, `frameblend_mix`,
+`filmac_measure`, `filmac_rescale`). The C++ kernels (hostpix.cpp, the
+reference package's with the lerp clamped to 0..255) are bit-exact with
+colorconv.scale_frame_to_np, rgb_to_yuv601_np and models/tools_np.py
+(same float32 operation order, numpy rounding and floor division); they
+are built with g++ on first use into _build/ here, and each wrapper
+falls back to its numpy twin when g++ is unavailable.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _L = ctypes.c_long
+_i64 = ctypes.c_int64
 
 
 def _load():
@@ -74,6 +77,16 @@ def _load():
                 _i64p, _i64p, _f32p, ctypes.c_int,
                 _i64p, _i64p, _f32p, ctypes.c_int, _i32p]
             lib.cvsim_rgb_to_yuv.argtypes = [_i32p, _L, _L, _u8p, _u8p, _u8p]
+            lib.cvsim_vhsled_dejitter.argtypes = [_i32p, _L, _L, _i32p]
+            lib.cvsim_frameblend_mix.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), _L, _L, _L, _i64p,
+                ctypes.c_void_p, ctypes.c_void_p, _i32p]
+            lib.cvsim_filmac_measure.argtypes = [
+                _i32p, _L, _L, ctypes.c_void_p,
+                ctypes.POINTER(_i64), ctypes.POINTER(_i64)]
+            lib.cvsim_filmac_rescale.argtypes = [
+                _i32p, _L, _L, _i64, _i64, _i64, ctypes.c_void_p,
+                ctypes.c_void_p, _i32p]
         except Exception:
             lib = None
         _state.append(lib)
@@ -147,3 +160,85 @@ def rgb_to_yuv_planes(rgb):
     v = np.empty((h, w), np.uint8)
     lib.cvsim_rgb_to_yuv(rgb, h, w, y, u, v)
     return y, u, v
+
+
+def vhsled_dejitter(rgb):
+    """tools_np.vhsled_dejitter, native when available."""
+    lib = _load()
+    if lib is None:
+        from cvsim_tpu_torch.models import tools_np
+        return tools_np.vhsled_dejitter(rgb)
+    f = np.ascontiguousarray(rgb, np.int32)
+    h, w = f.shape[:2]
+    out = np.empty_like(f)
+    lib.cvsim_vhsled_dejitter(f, h, w, out)
+    return out
+
+
+def frameblend_mix(frames, w16, gamma_dec=None, gamma_enc=None):
+    """tools_np.frameblend_mix, native when available. `frames` may be a
+    stacked [K, H, W, 3] array or a list of [H, W, 3] frames — the list
+    form avoids the per-output-frame stacked copy (a ~10-frame lookahead
+    at SD is ~40 MB of memcpy per blend)."""
+    lib = _load()
+    if lib is None:
+        from cvsim_tpu_torch.models import tools_np
+        return tools_np.frameblend_mix(np.stack([np.asarray(f)
+                                                 for f in frames])
+                                       if isinstance(frames, (list, tuple))
+                                       else frames,
+                                       w16, gamma_dec, gamma_enc)
+    fl = [np.ascontiguousarray(f, np.int32) for f in frames]
+    k = len(fl)
+    h, w = fl[0].shape[:2]
+    ptrs = (ctypes.c_void_p * k)(*[f.ctypes.data for f in fl])
+    wv = np.ascontiguousarray([wt for _, wt in w16], np.int64)
+    gd = None if gamma_dec is None else np.ascontiguousarray(gamma_dec,
+                                                             np.int64)
+    ge = None if gamma_enc is None else np.ascontiguousarray(gamma_enc,
+                                                             np.int64)
+    out = np.empty((h, w, 3), np.int32)
+    lib.cvsim_frameblend_mix(
+        ptrs, k, h, w, wv,
+        None if gd is None else gd.ctypes.data,
+        None if ge is None else ge.ctypes.data, out)
+    return out
+
+
+def filmac_measure(rgb, gamma_dec=None):
+    """tools_np.filmac_measure, native when available."""
+    lib = _load()
+    if lib is None:
+        from cvsim_tpu_torch.models import tools_np
+        return tools_np.filmac_measure(rgb, gamma_dec)
+    f = np.ascontiguousarray(rgb, np.int32)
+    h, w = f.shape[:2]
+    gd = None if gamma_dec is None else np.ascontiguousarray(gamma_dec,
+                                                             np.int64)
+    scaleto = 0x10000 * (8192 if gamma_dec is not None else 256)
+    mn, mx = _i64(), _i64()
+    lib.cvsim_filmac_measure(
+        f, h, w, None if gd is None else gd.ctypes.data,
+        ctypes.byref(mn), ctypes.byref(mx))
+    return int(mn.value), int(mx.value), scaleto
+
+
+def filmac_rescale(rgb, state, scaleto: int, gamma_dec=None, gamma_enc=None):
+    """tools_np.filmac_rescale, native when available."""
+    lib = _load()
+    if lib is None:
+        from cvsim_tpu_torch.models import tools_np
+        return tools_np.filmac_rescale(rgb, state, scaleto, gamma_dec,
+                                       gamma_enc)
+    f = np.ascontiguousarray(rgb, np.int32)
+    h, w = f.shape[:2]
+    gd = None if gamma_dec is None else np.ascontiguousarray(gamma_dec,
+                                                             np.int64)
+    ge = None if gamma_enc is None else np.ascontiguousarray(gamma_enc,
+                                                             np.int64)
+    out = np.empty_like(f)
+    lib.cvsim_filmac_rescale(
+        f, h, w, int(state.minv), int(state.maxv), int(scaleto),
+        None if gd is None else gd.ctypes.data,
+        None if ge is None else ge.ctypes.data, out)
+    return out

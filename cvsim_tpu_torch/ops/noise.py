@@ -15,6 +15,9 @@ alpha 0.5, so it runs on the blocked-matmul IIR.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from cvsim_tpu_torch.ops.iir import iir_lowpass
@@ -54,6 +57,22 @@ def _bits(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _randint_bits(bits: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
     """bits % span + lo (the reference's rand() % span idiom), int32."""
     return ((bits % (hi - lo)) + lo).to(torch.int32)
+
+
+def stream_key32(key) -> int:
+    """The u32 stream id of a tool seed (the JAX package's noise._key32 of
+    it): an int seed, or a PRNG key's raw u32 words."""
+    return key32([int(k) for k in np.asarray(key).reshape(-1)])
+
+
+def randint_stream(key, shape, lo: int, hi: int,
+                   device: torch.device | str = "cuda") -> torch.Tensor:
+    """[shape] int32 in [lo, hi) from stream `key` (an int seed or raw key
+    words), word i for flat element i: bit-equal to the JAX package's
+    noise.randint_stream and to ops/noise_np.randint_stream."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    return _randint_bits(_bits(stream_key32(key), idx), lo,
+                         hi).reshape(tuple(shape))
 
 
 def field_stage_keys(key: int, fieldno: torch.Tensor,

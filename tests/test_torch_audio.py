@@ -374,14 +374,16 @@ def test_second_chunk_from_jax_state(chain):
         _, st_j = _run_jax(cfg_j, first, jnp.float32, key=5)
         want, _ = _run_jax(cfg_j, second, jnp.float32, st_j, key=5,
                            start=3000)
-        st = interop.audio_state_from_reference(jax.device_get(st_j))
+        st = interop.audio_state_from_reference(jax.device_get(st_j),
+                                                 "cpu")
         got, st2 = _run_port(cfg, second, torch.float32, st, key=5,
                              start=3000)
         assert int(st2.sample_count) == 6000
     else:
         kw = dict(jcassette.CASSETTE_PRESETS[2], hiss_db=-50.0)
         _, _, _, st_j = _cassette_run(kw, first, "float32")
-        st = interop.cassette_state_from_reference(jax.device_get(st_j))
+        st = interop.cassette_state_from_reference(
+            jax.device_get(st_j), "cpu")
         assert st.history.shape == (cassette.CassetteConfig(**kw).kernel_len
                                     - 1, 2)
         got, _, want, _ = _cassette_run(kw, second, "float32", st, st_j)

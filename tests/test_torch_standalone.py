@@ -6,8 +6,11 @@ native frame scaler) behave byte for byte as the originals.
 - An AST scan of every source file for `jax` / `cvsim_tpu` imports.
 - A subprocess with sys.modules["cvsim_tpu"] = sys.modules["jax"] = None
   imports every module of the port and runs its CLI with --device cpu:
-  both video tools, `cassette`, `to-composite -audio-in`, `raw28ntsc`
-  and `scanimate`.
+  both video tools, `cassette`, `to-composite -audio-in`, `raw28ntsc`,
+  `scanimate`, `posterize`, `frameblend`, `normalize-ts`, and a command
+  served by `serve -prime`.
+- A subprocess with sys.modules["torch"] = None runs every host-only
+  command (the JAX package's own split: those tools do no device work).
 - The copies against the originals on the same inputs: flag parsing,
   config reprs and checkpoint hashes, Y4M bytes, the frame scaler, the
   render and hscale tables, the field-row math and the colour matrices,
@@ -15,7 +18,11 @@ native frame scaler) behave byte for byte as the originals.
   cassette presets and `cassette`'s flag parser, the raw decoder's host
   half and DC tracker (native/hostio.cpp byte for byte), the sibling
   tools' flag parser and frame loops, and the RGB->YUV output
-  conversion. All exact.
+  conversion; the host tools' modules (ops/noise_np, models/tools_np,
+  the numpy half of models/restore, utils/vaporwave, utils/repo_maint,
+  utils/log's host half, the rest of cli/tools.py, hostpix's four
+  restore wrappers), function by function with the package name
+  normalized. All exact.
 """
 
 import ast
@@ -85,14 +92,17 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
 def test_port_runs_with_jax_package_unimportable(tmp_path):
     """Every module imports, and the CLI runs (gen-1 through the split-
     route raster check and the debug-tap route, `cassette`,
-    `to-composite -audio-in` beside its video, `raw28ntsc` and
-    `scanimate -inntsc`), with jax and cvsim_tpu made unimportable."""
+    `to-composite -audio-in` beside its video, `raw28ntsc`,
+    `scanimate -inntsc`, `posterize`, `frameblend`, `normalize-ts`, and
+    `to-composite` served by `serve -prime`), with jax and cvsim_tpu made
+    unimportable."""
     from tests.test_raw28 import synth_capture
 
     src = make_clip(str(tmp_path / "in.y4m"))
     raw = str(tmp_path / "cap.raw")
     synth_capture(2).tofile(raw)
-    outs = [str(tmp_path / f"out{k}.y4m") for k in range(6)]
+    outs = [str(tmp_path / f"out{k}.y4m") for k in range(10)]
+    sock = str(tmp_path / "cvsim.sock")
     wavs = [str(tmp_path / f"{name}.wav") for name in ("in", "cas", "vhs")]
     tone = (9000 * np.sin(np.arange(3000) * 0.06)).astype(np.int16)
     jwavio.write_wav(wavs[0], np.stack([tone, tone], -1), 44100)
@@ -122,7 +132,21 @@ rcs = [main(["--device", "cpu", "ntsc", *common, "-o", {outs[0]!r}]),
        main(["--device", "cpu", "raw28ntsc", "-i", {raw!r}, "-o",
              {outs[4]!r}, "-color"]),
        main(["--device", "cpu", "scanimate", "-i", {src!r}, "-o",
-             {outs[5]!r}, "-width", "32", "-inntsc"])]
+             {outs[5]!r}, "-width", "32", "-inntsc"]),
+       main(["--device", "cpu", "posterize", "-i", {src!r}, "-o",
+             {outs[6]!r}, "-width", "64"]),
+       main(["frameblend", "-i", {src!r}, "-o", {outs[7]!r}, "-or", "24"]),
+       main(["normalize-ts", "-i", {src!r}, "-o", {outs[8]!r}])]
+import threading
+from cvsim_tpu_torch.cli import serve
+ready = threading.Event()
+t = threading.Thread(target=serve.run_serve, args=(
+    ["-socket", {sock!r}, "-one-shot", "-prime"], "cpu", ready))
+t.start()
+ready.wait(300)
+rcs.append(main(["-via", {sock!r}, "--device", "cpu", "to-composite",
+                 *common, "-o", {outs[9]!r}, "-vhs"]))
+t.join()
 assert sys.modules["jax"] is None and sys.modules["cvsim_tpu"] is None
 print("MODULES", len(names), "RCS", rcs)
 sys.exit(max(rcs))
@@ -130,7 +154,7 @@ sys.exit(max(rcs))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "RCS [0, 0, 0, 0, 0, 0, 0]" in proc.stdout
+    assert "RCS [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]" in proc.stdout
     n_modules = int(proc.stdout.split("MODULES")[1].split()[0])
     assert n_modules >= len([s for s in SOURCES if s.endswith(".py")]) - 2
     for out in outs:
@@ -532,3 +556,137 @@ def test_rgb_to_yuv_planes_equals_original():
                     jhostpix.rgb_to_yuv_planes(rgb)):
         assert a.dtype == b.dtype == np.uint8
         np.testing.assert_array_equal(a, b)
+
+
+def test_import_scan_covers_the_host_tools_slice():
+    for path in ("cvsim_tpu_torch/ops/noise_np.py",
+                 "cvsim_tpu_torch/models/tools_np.py",
+                 "cvsim_tpu_torch/models/restore.py",
+                 "cvsim_tpu_torch/cli/serve.py",
+                 "cvsim_tpu_torch/utils/log.py",
+                 "cvsim_tpu_torch/utils/vaporwave.py",
+                 "cvsim_tpu_torch/utils/repo_maint.py",
+                 "cvsim_tpu_torch/__main__.py"):
+        assert path in SOURCES
+
+
+def test_host_commands_run_with_torch_unimportable(tmp_path):
+    """Every host-only command, with torch made unimportable (and jax and
+    cvsim_tpu too), `--device cuda` given and ignored: the restore tools
+    through cvsim-av and through the Python loops."""
+    from tests.test_repo_maint import _make_repo
+
+    src = make_clip(str(tmp_path / "in.y4m"), frames=2)
+    repo = _make_repo(tmp_path)
+    (repo / "new.txt").write_text("x\n")
+    out = lambda k: str(tmp_path / f"o{k}.y4m")
+    code = f"""
+import os, sys
+for name in [m for m in sys.modules
+             if m.split(".")[0] in ("jax", "cvsim_tpu", "torch")]:
+    del sys.modules[name]
+sys.modules["jax"] = sys.modules["cvsim_tpu"] = sys.modules["torch"] = None
+from cvsim_tpu_torch.cli.main import main
+src = {src!r}
+tools = [
+    ["posterize", "-i", src, "-o", {out(1)!r}],
+    ["colormap", "-i", src, "-i", src, "-o", {out(2)!r}],
+    ["colorkey", "-i", src, "-o", {out(3)!r}, "-color", "0x101010",
+     "-noise", "500"],
+    ["average-delay", "-i", src, "-o", {out(4)!r}, "-d", "2"],
+    ["frameblend", "-i", src, "-o", {out(5)!r}, "-or", "24"],
+    ["filmac", "-i", src, "-o", {out(6)!r}, "-gamma", "vga"],
+    ["vhsled", "-i", src, "-o", {out(7)!r}],
+    ["normalize-ts", "-i", src, "-o", {out(8)!r}],
+    ["vaporwave", "abc"],
+    ["repo-update-all", "-no-push", "-C", {str(repo)!r}],
+    ["repo-source-pickup", "-C", {str(repo)!r}, "-o", {str(tmp_path)!r}],
+]
+rcs = [main(["--device", "cuda", *argv]) for argv in tools]
+os.environ["CVSIM_NO_NATIVE_TOOL"] = "1"
+rcs += [main(["--device", "cuda", *argv]) for argv in tools[4:7]]
+assert sys.modules["torch"] is None
+print("RCS", rcs)
+sys.exit(max(rcs))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RCS " + str([0] * 14) in proc.stdout
+    for k in range(1, 9):
+        assert len(read_all(out(k))[1]) > 0
+
+
+def _normalized_source(obj):
+    """The source of obj with the port's package name written as the
+    original's."""
+    return inspect.getsource(obj).replace("cvsim_tpu_torch", "cvsim_tpu")
+
+
+def _code_of(fn):
+    """fn's source parsed, its docstring dropped (the copies keep the
+    code and say what they are in their own words)."""
+    tree = ast.parse(_normalized_source(fn)).body[0]
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+from cvsim_tpu.cli import serve as jserve  # noqa: E402
+from cvsim_tpu.models import restore as jrestore  # noqa: E402
+from cvsim_tpu.models import tools_np as jtools_np  # noqa: E402
+from cvsim_tpu.ops import noise_np as jnoise_np  # noqa: E402
+from cvsim_tpu.utils import log as jlog  # noqa: E402
+from cvsim_tpu.utils import repo_maint as jrepo_maint  # noqa: E402
+from cvsim_tpu.utils import vaporwave as jvaporwave  # noqa: E402
+from cvsim_tpu_torch.cli import serve as serve_mod  # noqa: E402
+from cvsim_tpu_torch.models import restore, tools_np  # noqa: E402
+from cvsim_tpu_torch.ops import noise_np  # noqa: E402
+from cvsim_tpu_torch.utils import log, repo_maint, vaporwave  # noqa: E402
+
+HOST_COPIES = (
+    [(noise_np, jnoise_np, n) for n in ("mix32", "bits", "randint_bits",
+                                        "randint_stream",
+                                        "field_stage_key")]
+    + [(tools_np, jtools_np, n) for n in (
+        "posterize", "take_colormap", "colormap_apply", "colorkey_apply",
+        "average_delay_blend", "frameblend_mix", "filmac_measure",
+        "filmac_rescale", "vhsled_dejitter")]
+    + [(restore, jrestore, n) for n in ("gamma_tables",
+                                        "frameblend_weights", "FilmacState",
+                                        "filmac_update_levels")]
+    + [(vaporwave, jvaporwave, n) for n in ("to_vaporwave", "main")]
+    + [(repo_maint, jrepo_maint, n) for n in (
+        "_git", "current_branch", "_clean_build_tree", "update_all",
+        "source_pickup", "main_update_all", "main_source_pickup")]
+    + [(log, jlog, n) for n in ("get_logger", "Progress")]
+    + [(tools, jtools, n) for n in (
+        "_frame_loop", "_frame_loop_1to1", "run_posterize", "run_colormap",
+        "run_colorkey", "run_average_delay", "run_frameblend",
+        "_run_frameblend_loop", "run_filmac", "run_vhsled",
+        "run_normalize_ts", "_open_video_inputs", "_open_video_output")]
+    + [(hostpix, jhostpix, n) for n in (
+        "vhsled_dejitter", "frameblend_mix", "filmac_measure",
+        "filmac_rescale")]
+    + [(serve_mod, jserve, "_TeeErr")])
+
+
+@pytest.mark.parametrize("copy,original,name", HOST_COPIES,
+                         ids=[f"{c.__name__.split('.')[-1]}.{n}"
+                              for c, _, n in HOST_COPIES])
+def test_host_tool_sources_equal_originals(copy, original, name):
+    assert (_normalized_source(getattr(copy, name))
+            == _normalized_source(getattr(original, name)))
+
+
+@pytest.mark.parametrize("name", ["proc_age", "phase", "stream_id"])
+def test_host_tool_code_equals_original_but_for_docstrings(name):
+    copy, original = ((noise_np, jnoise_np) if name == "stream_id"
+                      else (log, jlog))
+    if name == "stream_id":
+        # the copy takes raw key words only: no jax key to unwrap
+        for key in (7, np.asarray([3, 11], np.uint32), np.uint32(2**32 - 1)):
+            assert copy.stream_id(key) == original.stream_id(key)
+        return
+    assert _code_of(getattr(copy, name)) == _code_of(getattr(original,
+                                                             name))
