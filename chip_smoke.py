@@ -645,20 +645,25 @@ def case_bound(case) -> tuple[float, str, float]:
             floor(case.cfg, case.kernel, *case.shape))
 
 
-def run_cli(cli_main, counters, args):
-    """One in-process CLI run with the launch counts `counters` ({name:
-    (module, attribute)}) set to 0 just before it; returns (seconds,
-    {name: launches}, header, frames)."""
+def launch_counts(kernels: dict) -> dict:
+    """{label: launches so far} of `kernels` ({label: kernel name})."""
+    from cvsim_tpu_torch.testing import launches
+
+    return {label: launches(kernel) for label, kernel in kernels.items()}
+
+
+def run_cli(cli_main, kernels, args):
+    """One in-process CLI run; returns (seconds, {label: launches during
+    it} of `kernels` ({label: kernel name}), header, frames)."""
     import torch
 
-    for module, attr in counters.values():
-        setattr(module, attr, 0)
+    before = launch_counts(kernels)
     t0 = time.perf_counter()
     rc = cli_main(args)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: getattr(module, attr)
-                for name, (module, attr) in counters.items()}
+    launches = {label: n - before[label]
+                for label, n in launch_counts(kernels).items()}
     if rc != 0:
         raise AssertionError(f"CLI {args[:3]} rc {rc}")
     hdr, frames = read_y4m(args[args.index("-o") + 1])
@@ -719,7 +724,8 @@ def line_sharded_paths(shapes, key) -> dict:
     mesh = make_mesh(count, "cuda", dp=1)
     want = [fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=BENCH_VHS_EP)
             .cpu().numpy() for _, rgb, _, _, prep in shapes]
-    fused_yiq.A_LAUNCHES = fused_yiq.B1_LAUNCHES = fused_yiq.B2_LAUNCHES = 0
+    split = {k: k for k in ("yiq_a", "yiq_b1", "yiq_b2")}
+    before = launch_counts(split)
     results = []
     for (label, rgb, fn, par, _), ref in zip(shapes, want):
         got = run_fused_lines_local(BENCH_VHS_EP, rgb, fn, par, key, sp=4)
@@ -729,9 +735,7 @@ def line_sharded_paths(shapes, key) -> dict:
                                                 par, key)
             results.append((f"{label} over {count} card(s)", got, ref))
     torch.cuda.synchronize()
-    launches = {"yiq_a": fused_yiq.A_LAUNCHES,
-                "yiq_b1": fused_yiq.B1_LAUNCHES,
-                "yiq_b2": fused_yiq.B2_LAUNCHES}
+    launches = {k: n - before[k] for k, n in launch_counts(split).items()}
     for what, got, ref in results:
         got = got.cpu().numpy()
         dmax, frac = chain_diff(got, ref)
@@ -800,20 +804,19 @@ def audio_cli_paths(cli_main, src: str, outs: dict, flags: list,
     beside their video, whose bytes must equal the runs without audio;
     then `cassette -preset 2`."""
     from cvsim_tpu_torch.host import wavio
-    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
 
     seconds = 128 * 1001 / 60000
     wav48 = os.path.join(tmp, "tone48.wav")
     wav44 = os.path.join(tmp, "tone44.wav")
     write_tone_wav(wav48, seconds, 48000, 1)
     write_tone_wav(wav44, seconds, 44100, 2)
-    for tool, module, extra, wav in (
-            ("to-composite", fused_yuv, ["-vhs"], wav48),
-            ("ntsc", fused_yiq, [], wav44)):
+    for tool, kernel, extra, wav in (
+            ("to-composite", "yuv_chain", ["-vhs"], wav48),
+            ("ntsc", "yiq_chain", [], wav44)):
         out = os.path.join(tmp, f"out-{tool}-audio.y4m")
         aout = os.path.join(tmp, f"{tool}-cuda.wav")
         cli_s, counts, _, frames = run_cli(
-            cli_main, {"kernel": (module, "KERNEL_LAUNCHES")},
+            cli_main, {"kernel": kernel},
             ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags,
              "-audio-in", wav, "-audio-out", aout])
         gops = -(-len(frames) // 64)
@@ -1082,7 +1085,7 @@ def raw28_cli_paths(cli_main, tmp: str) -> dict:
                               ("jittery -color", ["-color"], "jittery")):
         out = os.path.join(tmp, f"raw28{mode.replace(' ', '')}.y4m")
         secs, counts, hdr, frames = run_cli(
-            cli_main, {"raw28_tails": (raw28, "KERNEL_LAUNCHES")},
+            cli_main, {"raw28_tails": "raw28_tails"},
             ["--device", "cuda", "raw28ntsc", "-i", paths[kind], "-o", out,
              *flags])
         n = len(frames)
@@ -1349,18 +1352,15 @@ def serve_paths(cli_main, src: str, outs: dict, flags: list,
     import threading
 
     from cvsim_tpu_torch.cli import serve
-    from cvsim_tpu_torch.models import fused_yiq, fused_yuv
 
-    counters = {"yuv_chain": (fused_yuv, "KERNEL_LAUNCHES"),
-                "yiq_chain": (fused_yiq, "KERNEL_LAUNCHES")}
+    kernels = {"yuv_chain": "yuv_chain", "yiq_chain": "yiq_chain"}
+    base = {}
 
     def zero():
-        for module, attr in counters.values():
-            setattr(module, attr, 0)
+        base.update(launch_counts(kernels))
 
     def read():
-        return {name: getattr(module, attr)
-                for name, (module, attr) in counters.items()}
+        return {k: n - base[k] for k, n in launch_counts(kernels).items()}
 
     sock = os.path.join(tmp, "serve.sock")
     ready, stop, box = threading.Event(), threading.Event(), {}
@@ -1713,18 +1713,18 @@ def main() -> int:
     outs = {}
 
     paths = {}
-    for tool, module, extra, bar_limit in (
+    for tool, kernel, extra, bar_limit in (
             # the VHS-EP chroma bandlimit alone moves the magenta bar's
             # mean U by 9-10 LSB in gen-2 (the CPU path shows the same)
-            ("ntsc", fused_yiq, [], 12.0),
+            ("ntsc", "yiq_chain", [], 12.0),
             # gen-1's 8-bit composite clips the blue bar (low luma, high
             # chroma): the JAX package's CPU path moves its mean U by 25
             # LSB without VHS and 32 at VHS-EP, while a lost or swapped
             # decode moves the saturated bars' U/V by ~100
-            ("to-composite", fused_yuv, ["-vhs"], 40.0)):
+            ("to-composite", "yuv_chain", ["-vhs"], 40.0)):
         out = outs[tool] = os.path.join(tmp, f"out-{tool}.y4m")
         cli_s, counts, hdr, frames = run_cli(
-            cli_main, {"kernel": (module, "KERNEL_LAUNCHES")},
+            cli_main, {"kernel": kernel},
             ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags])
         launches = counts["kernel"]
         n_fields = len(frames)
@@ -1752,7 +1752,7 @@ def main() -> int:
 
     bkey = ["-vhs", "-bkey-feedback", "20", "-seed", "3"]
     _, bk_counts, _, frames = run_cli(
-        cli_main, {"yuv_chain": (fused_yuv, "KERNEL_LAUNCHES")},
+        cli_main, {"yuv_chain": "yuv_chain"},
         ["--device", "cuda", "to-composite", "-i", dark, "-o",
          os.path.join(tmp, "out-bkey.y4m"), *bkey])
     cli_main(["--device", "cpu", "to-composite", "-i", dark, "-o", out_cpu,
@@ -1769,11 +1769,8 @@ def main() -> int:
     src_pal8 = os.path.join(tmp, "bars576-8.y4m")
     pal_in = write_bars_y4m(src_pal, 64, 720, 576)
     write_bars_y4m(src_pal8, 8, 720, 576)
-    gen1_counters = {"yuv_chain": (fused_yuv, "KERNEL_LAUNCHES"),
-                     "yuv_a": (fused_yuv, "A_LAUNCHES"),
-                     "yuv_b1": (fused_yuv, "B1_LAUNCHES"),
-                     "yuv_b2": (fused_yuv, "B2_LAUNCHES"),
-                     "fused_iir": (fused_iir, "KERNEL_LAUNCHES")}
+    gen1_counters = {k: k for k in ("yuv_chain", "yuv_a", "yuv_b1",
+                                    "yuv_b2", "fused_iir")}
     route_launches = {}
     for what, source, source8, extra, expect, bars in (
             ("to-composite -tvstd pal -vhs", src_pal, src_pal8,
@@ -1826,11 +1823,11 @@ def main() -> int:
     count = torch.cuda.device_count()
     runs = [1] + ([count] if count > 1 and 64 % count == 0 else [])
     for n in runs:
-        for tool, module, extra in (("ntsc", fused_yiq, []),
-                                    ("to-composite", fused_yuv, ["-vhs"])):
+        for tool, kernel, extra in (("ntsc", "yiq_chain", []),
+                                    ("to-composite", "yuv_chain", ["-vhs"])):
             out_n = os.path.join(tmp, f"out-{tool}-{n}.y4m")
             _, counts, _, _ = run_cli(
-                cli_main, {"kernel": (module, "KERNEL_LAUNCHES")},
+                cli_main, {"kernel": kernel},
                 ["--device", "cuda", tool, "-i", src, "-o", out_n, *extra,
                  *flags, "-devices", str(n)])
             if not same_bytes(out_n, outs[tool]):

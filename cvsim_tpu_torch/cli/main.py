@@ -20,7 +20,11 @@ The other eleven commands (the pixel tools `posterize`, `colormap`,
 `repo-source-pickup`) do no device work, in the JAX package either:
 they parse `--device` and ignore it, and never import torch.
 CVSIM_PROFILE=<dir> writes a torch.profiler trace of the whole command
-there (utils/log.profile_trace); CVSIM_PHASES=1 prints phase lines.
+there (utils/log.profile_trace); CVSIM_PHASES=1 prints phase lines;
+CVSIM_TRACE=<dir> writes the program's spans and counters of the command
+there (`spans-<pid>-<n>.json`: spans by GOP and call, each thread's
+busy, blocked and idle shares, counter totals; utils/log.py). A `serve`
+writes one of each file per command it runs.
 """
 
 from __future__ import annotations
@@ -408,6 +412,7 @@ def main(argv=None):
         print(f"cvsim_tpu_torch: unknown command '{cmd}'", file=sys.stderr)
         return 1
     # a server's commands each come through here and trace themselves
+    # (CVSIM_PROFILE, CVSIM_TRACE)
     trace = profile_trace() if cmd != "serve" else contextlib.nullcontext()
     with trace:
         try:

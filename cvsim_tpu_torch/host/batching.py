@@ -43,6 +43,7 @@ class GopBatch:
     fieldno: np.ndarray    # [B] int32 (host copy for the emit side)
     parity: np.ndarray     # [B] int32
     n_real: int            # fields to emit (rest is padding)
+    gop: int = 0           # its index among the batcher's batches
 
 
 class FieldBatcher:
@@ -71,6 +72,7 @@ class FieldBatcher:
         self._fields: list[tuple[int, int, int, int]] = []
         self._cur_frame = None
         self._cur_slot = None
+        self.formed = 0    # batches returned so far: the next one's index
 
     # ------------------------------------------------------------- feeding
 
@@ -137,7 +139,8 @@ class FieldBatcher:
             pix=pix, meta=meta,
             fieldno=np.asarray([f[2] for f in fields], np.int32),
             parity=np.asarray([f[3] for f in fields], np.int32),
-            n_real=n_real)
+            n_real=n_real, gop=self.formed)
+        self.formed += 1
 
         self._frames = []
         self._fields = []

@@ -55,7 +55,7 @@ from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yuv422
 from cvsim_tpu_torch.parallel import make_mesh, map_fields
-from cvsim_tpu_torch.utils.log import phase
+from cvsim_tpu_torch.utils import log
 
 
 def _interleave_np(top: np.ndarray, bottom: np.ndarray) -> np.ndarray:
@@ -134,7 +134,8 @@ class CompositePipeline:
         gop = self.gop
         dev = self.device
         max_frames = gop // 2 + 2
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        t = lambda a: log.to_device(torch.from_numpy(np.ascontiguousarray(a)),
+                                    dev)
 
         def consts(src, dst):
             c = hscale_consts(src, dst)
@@ -243,11 +244,13 @@ class CompositePipeline:
                                      src_interlaced, src_tff)
         b = self._dummy_batch(src_h, src_w, chroma_h, chroma_w)
         gop = self.gop
-        packed, _ = gop_step(torch.from_numpy(b.pix).to(self.device),
-                             torch.from_numpy(b.meta).to(self.device),
+        packed, _ = gop_step(log.to_device(torch.from_numpy(b.pix),
+                                           self.device),
+                             log.to_device(torch.from_numpy(b.meta),
+                                           self.device),
                              b.meta[4 * gop:5 * gop].tolist(),
                              self._filter_planes)
-        packed.cpu()
+        log.to_host(packed)
 
     # ------------------------------------------------------------- emit side
 
@@ -436,7 +439,7 @@ class CompositePipeline:
         errors: list[BaseException] = []
         fields_done = {"n": 0}
         base_idx_box = {"v": ckpt_base_idx}
-        phase("run_video_start")
+        log.phase("run_video_start")
 
         def put_batch(b):
             # each GOP gets its own pinned host tensor, so that a refill
@@ -444,43 +447,56 @@ class CompositePipeline:
             b.pix = torch.from_numpy(b.pix)
             b.meta = torch.from_numpy(b.meta)
             if on_gpu:
-                b.pix = b.pix.pin_memory()
-                b.meta = b.meta.pin_memory()
-            q_in.put(b)
+                with log.span("gen1.pin", gop=b.gop):
+                    b.pix = log.pin(b.pix)
+                    b.meta = log.pin(b.meta)
+            with log.span("gen1.put.wait", gop=b.gop):
+                q_in.put(b)
 
         def read_loop():
             video_field = resume_field
             # the first accepted frame rebases the clock to zero (the
             # reference's adj_time, :2264-2265)
             base_idx = ckpt_base_idx if resume_field else None
+            frames = enumerate(reader)
             try:
-                for local_idx, (ysrc, usrc, vsrc) in enumerate(reader):
-                    if self.die["die"]:
-                        # soft stop: finish queued batches, write the
-                        # trailer (reference soft-SIGINT, :62-66,2120-2124)
-                        break
-                    if use_inband_ts:
-                        push_inband_ts(reader.frame_params)
-                    frame_idx = local_idx + skip_n
-                    t = clock.seconds(frame_idx)
-                    if cfg.transcode_end >= 0 and t >= cfg.transcode_end:
-                        break
-                    if t < cfg.transcode_start:
-                        continue
-                    if base_idx is None:
-                        base_idx = frame_idx
-                        base_idx_box["v"] = base_idx
-                    frame_pts, tgt = clock.fields(frame_idx, base_idx)
-                    tgt = timing.video_target_field(tgt, video_field)
-                    batcher.add_frame(ysrc, usrc, vsrc)
-                    while video_field < tgt:
-                        parity = (video_field & 1) ^ 1   # bottom first :1784
-                        b = batcher.add_field(
-                            video_field, parity,
-                            max(0, video_field - frame_pts))
-                        if b is not None:
-                            put_batch(b)
-                        video_field += 1
+                while True:
+                    # one source frame: its demux, and its fields into the
+                    # GOP being formed (packing it when it fills)
+                    with log.span("gen1.read", gop=batcher.formed):
+                        nxt = next(frames, None)
+                        if nxt is None:
+                            break
+                        local_idx, (ysrc, usrc, vsrc) = nxt
+                        if self.die["die"]:
+                            # soft stop: finish queued batches, write the
+                            # trailer (reference soft-SIGINT,
+                            # :62-66,2120-2124)
+                            break
+                        if use_inband_ts:
+                            push_inband_ts(reader.frame_params)
+                        frame_idx = local_idx + skip_n
+                        t = clock.seconds(frame_idx)
+                        if (cfg.transcode_end >= 0
+                                and t >= cfg.transcode_end):
+                            break
+                        if t < cfg.transcode_start:
+                            continue
+                        if base_idx is None:
+                            base_idx = frame_idx
+                            base_idx_box["v"] = base_idx
+                        frame_pts, tgt = clock.fields(frame_idx, base_idx)
+                        tgt = timing.video_target_field(tgt, video_field)
+                        batcher.add_frame(ysrc, usrc, vsrc)
+                        while video_field < tgt:
+                            # bottom field first (:1784)
+                            parity = (video_field & 1) ^ 1
+                            b = batcher.add_field(
+                                video_field, parity,
+                                max(0, video_field - frame_pts))
+                            if b is not None:
+                                put_batch(b)
+                            video_field += 1
                 b = batcher.finish()
                 if b is not None:
                     put_batch(b)
@@ -499,35 +515,42 @@ class CompositePipeline:
             first_fetch = True
             try:
                 while True:
-                    item = q_out.get()
+                    # the GOPs arrive in order: the next is the
+                    # wrote["gops"]-th
+                    with log.span("gen1.fetch.wait", gop=wrote["gops"]):
+                        item = q_out.get()
+                        if item is not None and item[1] is not None:
+                            item[1].synchronize()
+                            log.count("syncs")
                     if item is None:
                         return
-                    packed, done, fieldnos, parities, n_real, planes = item
-                    if done is not None:
-                        done.synchronize()
+                    packed, _, fieldnos, parities, n_real, planes = item
                     buf = packed.numpy()
                     if first_fetch:
                         first_fetch = False
-                        phase("first_fetch_done", fields=n_real)
+                        log.phase("first_fetch_done", fields=n_real)
                     for k in range(n_real):
                         row = buf[k]
-                        self._emit_field(
-                            row[:, :w], row[:, w:w + wc], row[:, w + wc:],
-                            int(fieldnos[k]), int(parities[k]),
-                            writer, pending)
+                        with log.span("gen1.emit", gop=wrote["gops"]):
+                            self._emit_field(
+                                row[:, :w], row[:, w:w + wc],
+                                row[:, w + wc:], int(fieldnos[k]),
+                                int(parities[k]), writer, pending)
                     wrote["gops"] += 1
                     if (ckpt_path and not pending
                             and wrote["gops"] % ckpt_every == 0):
-                        resume.sync_output(out_stream)
-                        fy, fu, fv = (p.numpy() for p in planes)
-                        checkpoint.save(
-                            ckpt_path,
-                            {"hash": run_hash,
-                             "cfg_hash": checkpoint.config_hash(cfg),
-                             "next_field": int(fieldnos[n_real - 1]) + 1,
-                             "frames_written": writer.frames_written,
-                             "base_idx": base_idx_box["v"]},
-                            {"fy": fy, "fu": fu, "fv": fv})
+                        with log.span("gen1.checkpoint",
+                                      gop=wrote["gops"] - 1):
+                            resume.sync_output(out_stream)
+                            fy, fu, fv = (p.numpy() for p in planes)
+                            checkpoint.save(
+                                ckpt_path,
+                                {"hash": run_hash,
+                                 "cfg_hash": checkpoint.config_hash(cfg),
+                                 "next_field": int(fieldnos[n_real - 1]) + 1,
+                                 "frames_written": writer.frames_written,
+                                 "base_idx": base_idx_box["v"]},
+                                {"fy": fy, "fu": fu, "fv": fv})
                     if (_fail_after_gops is not None
                             and wrote["gops"] >= _fail_after_gops):
                         raise RuntimeError("injected checkpoint-test crash")
@@ -541,35 +564,42 @@ class CompositePipeline:
         rt.start()
         wt.start()
         first_dispatch = True
+        stepped = 0     # GOPs taken: the batches arrive in order
         try:
             while True:
-                b = q_in.get()
+                with log.span("gen1.get.wait", gop=stepped):
+                    b = q_in.get()
                 if b is None:
                     break
+                stepped += 1
                 if first_dispatch:
                     first_dispatch = False
-                    phase("first_dispatch")
+                    log.phase("first_dispatch")
                 gop = self.gop
                 valid = b.meta[4 * gop:5 * gop].tolist()
-                pix = b.pix.to(dev, non_blocking=True)
-                meta = b.meta.to(dev, non_blocking=True)
+                with log.span("gen1.h2d", gop=b.gop):
+                    pix = log.to_device(b.pix, dev, non_blocking=True)
+                    meta = log.to_device(b.meta, dev, non_blocking=True)
                 # noise is content-addressed per (seed, fieldno, stage): the
                 # base key passes straight through, so output is GOP- and
                 # restart-invariant
-                packed, self._filter_planes = gop_step(
-                    pix, meta, valid, self._filter_planes)
+                with log.span("gen1.step", gop=b.gop):
+                    packed, self._filter_planes = gop_step(
+                        pix, meta, valid, self._filter_planes)
                 done = None
                 if on_gpu:
-                    # D2H into pinned memory; the writer waits on `done`
-                    packed = packed.to("cpu", non_blocking=True)
-                    planes = tuple(p.to("cpu", non_blocking=True)
-                                   for p in self._filter_planes)
-                    done = torch.cuda.Event()
-                    done.record()
+                    with log.span("gen1.d2h", gop=b.gop):
+                        # D2H into pinned memory; the writer waits on `done`
+                        packed = log.to_host(packed, non_blocking=True)
+                        planes = tuple(log.to_host(p, non_blocking=True)
+                                       for p in self._filter_planes)
+                        done = torch.cuda.Event()
+                        done.record()
                 else:
                     planes = self._filter_planes
-                q_out.put((packed, done, b.fieldno, b.parity, b.n_real,
-                           planes))
+                with log.span("gen1.out.wait", gop=b.gop):
+                    q_out.put((packed, done, b.fieldno, b.parity, b.n_real,
+                               planes))
         finally:
             # always unwind the threads, also when gop_step raised: the
             # writer needs its sentinel, and the reader may be blocked on a
@@ -587,7 +617,7 @@ class CompositePipeline:
             raise errors[0]
         if ckpt_path:
             checkpoint.clear(ckpt_path)
-        phase("run_video_done", fields=fields_done["n"])
+        log.phase("run_video_done", fields=fields_done["n"])
         if self.progress:
             print("", file=sys.stderr)
         return fields_done["n"]

@@ -30,6 +30,7 @@ from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yiq
 from cvsim_tpu_torch.parallel import make_mesh, run_sharded_chain_fused
+from cvsim_tpu_torch.utils import log
 
 
 class YIQPipeline:
@@ -62,7 +63,8 @@ class YIQPipeline:
             return rgb_fields
         rgb = torch.from_numpy(rgb_fields)
         if self.device.type == "cuda":
-            rgb = rgb.pin_memory()
+            with log.span("gen2.pin"):
+                rgb = log.pin(rgb)
         fn = torch.tensor(fieldnos, dtype=torch.int32)
         pa = torch.tensor(parities, dtype=torch.int32)
         if self.mesh is not None:
@@ -70,47 +72,65 @@ class YIQPipeline:
             out = run_sharded_chain_fused(self.mesh, self.cfg.composite, rgb,
                                           fn, pa, self.key)
             return out.numpy()
-        rgb = rgb.to(self.device, non_blocking=True)
-        out = yiq.composite_layer_rgb_auto(rgb, fn.to(self.device),
-                                           pa.to(self.device), self.key,
+        dev = self.device
+        rgb = log.to_device(rgb, dev, non_blocking=True)
+        out = yiq.composite_layer_rgb_auto(rgb, log.to_device(fn, dev),
+                                           log.to_device(pa, dev), self.key,
                                            cfg=self.cfg.composite)
-        return out.cpu().numpy()
+        # waits for the chain and the copy
+        with log.span("gen2.wait"):
+            return log.to_host(out).numpy()
 
-    def _flush(self, batch, writer, snapshot=None):
-        """Run one GOP and write its fields. `snapshot` is the resume
-        cursor captured when `batch` was formed (host/checkpoint.py): it is
-        saved only after that batch's fields are written, so a crash
-        resumes exactly at the batch boundary the output file reached."""
+    def _flush(self, batch, writer, gop: int, snapshot=None):
+        """Run one GOP (the run's `gop`-th) and write its fields.
+        `snapshot` is the resume cursor captured when `batch` was formed
+        (host/checkpoint.py): it is saved only after that batch's fields
+        are written, so a crash resumes exactly at the batch boundary the
+        output file reached."""
         if not batch:
             return
-        # pad short (final) batches to the GOP size
-        padded = batch + [batch[-1]] * (self.gop - len(batch))
-        out = self.process_batch(
-            np.stack([b[0] for b in padded]).astype(np.uint8),
-            [b[1] for b in padded], [b[2] for b in padded])
-        for k, b in enumerate(batch):
-            self._emit(out[k], int(b[1]), writer)
-        if snapshot is not None and self._ckpt_save is not None:
-            self._ckpt_save(snapshot, writer)
+        with log.span("gen2.flush", gop=gop):
+            # pad short (final) batches to the GOP size
+            padded = batch + [batch[-1]] * (self.gop - len(batch))
+            out = self.process_batch(self._stack(padded),
+                                     [b[1] for b in padded],
+                                     [b[2] for b in padded])
+            for k, b in enumerate(batch):
+                self._emit(out[k], int(b[1]), writer)
+            if snapshot is not None and self._ckpt_save is not None:
+                with log.span("gen2.checkpoint"):
+                    self._ckpt_save(snapshot, writer)
+
+    @staticmethod
+    def _stack(fields) -> np.ndarray:
+        """The GOP's fields as one uint8 [gop, L, W, 3] array. The caller
+        passes it straight to process_batch, so that it is freed before
+        the fields are emitted."""
+        with log.span("gen2.stack"):
+            return np.stack([f[0] for f in fields]).astype(np.uint8)
 
     def _emit(self, rgb_field, fieldno, writer):
         out = self.cfg.output
-        # bob the field to a full progressive frame, then RGB -> YUV
-        # (numpy: per-field host work, no eager device dispatches)
-        h, w = out.height, out.width
-        frame = np.repeat(rgb_field, 2, axis=0)[:h]
-        y, u, v = rgb_to_yuv601_np(frame[..., 0].astype(np.int32),
-                                   frame[..., 1].astype(np.int32),
-                                   frame[..., 2].astype(np.int32))
-        y = y.astype(np.uint8)
-        u = u.astype(np.uint8)
-        v = v.astype(np.uint8)
-        if out.use_422_colorspace:
-            writer.write(y, u[:, 0::2], v[:, 0::2])
-        else:
-            writer.write(y, u[0::2, 0::2], v[0::2, 0::2])
-        if self.progress:
-            print(f"\x0dOutput field {fieldno} ", end="", file=sys.stderr)
+        with log.span("gen2.emit"):
+            with log.span("gen2.emit.convert"):
+                # bob the field to a full progressive frame, then RGB -> YUV
+                # (numpy: per-field host work, no eager device dispatches)
+                h = out.height
+                frame = np.repeat(rgb_field, 2, axis=0)[:h]
+                y, u, v = rgb_to_yuv601_np(frame[..., 0].astype(np.int32),
+                                           frame[..., 1].astype(np.int32),
+                                           frame[..., 2].astype(np.int32))
+                y = y.astype(np.uint8)
+                u = u.astype(np.uint8)
+                v = v.astype(np.uint8)
+            with log.span("gen2.emit.write"):
+                if out.use_422_colorspace:
+                    writer.write(y, u[:, 0::2], v[:, 0::2])
+                else:
+                    writer.write(y, u[0::2, 0::2], v[0::2, 0::2])
+            if self.progress:
+                print(f"\x0dOutput field {fieldno} ", end="",
+                      file=sys.stderr)
 
     def run_video(self, readers: list, out_stream,
                   ckpt_path: str | None = None, ckpt_every: int = 4,
@@ -250,6 +270,7 @@ class YIQPipeline:
 
         current = resume_field
         batch = []
+        gops = 0        # GOPs flushed: the span unit of this run's work
         while True:
             if self.die["die"]:
                 break
@@ -258,15 +279,18 @@ class YIQPipeline:
             # advance inputs whose next frame is due
             for k in range(len(readers)):
                 while not eof[k] and next_at[k] <= current:
-                    try:
-                        yf, uf, vf = next(iters[k])
-                    except StopIteration:
-                        eof[k] = True
-                        break
-                    if uf is None:
-                        uf = np.full((yf.shape[0], yf.shape[1]), 128, np.uint8)
-                        vf = uf
-                    frames[k] = _scale_frame_to(yf, uf, vf, out.width, out.height)
+                    with log.span("gen2.read", gop=gops):
+                        try:
+                            yf, uf, vf = next(iters[k])
+                        except StopIteration:
+                            eof[k] = True
+                            break
+                        if uf is None:
+                            uf = np.full((yf.shape[0], yf.shape[1]), 128,
+                                         np.uint8)
+                            vf = uf
+                        frames[k] = _scale_frame_to(yf, uf, vf, out.width,
+                                                    out.height)
                     frame_idx[k] += 1
                     next_at[k] = due_field(k)
             if all(eof) and all(next_at[k] <= current for k in range(len(readers))):
@@ -287,13 +311,15 @@ class YIQPipeline:
             current += 1
             if len(batch) >= self.gop:
                 snap = snapshot()
-                self._flush(batch, writer, snapshot=snap)
+                self._flush(batch, writer, gops, snapshot=snap)
+                gops += 1
                 batch = []
             if all(eof):
                 # drain remaining scheduled fields up to the last frame's due
                 if current >= max(next_at):
                     break
-        self._flush(batch, writer, snapshot=snapshot() if batch else None)
+        self._flush(batch, writer, gops,
+                    snapshot=snapshot() if batch else None)
         self._ckpt_save = None
         if ckpt_path and not self.die["die"]:
             checkpoint.clear(ckpt_path)

@@ -35,14 +35,8 @@ from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.models import yiq
 from cvsim_tpu_torch.ops.blocked_iir import (BLOCK, _cascade3_consts, _decay_consts,
                                              full_float32)
+from cvsim_tpu_torch.utils import log
 
-# counts of kernel launches (one per wrapper call on a CUDA tensor), read
-# by tests and chip_smoke.py to prove that a path ran through the kernels:
-# #1 (composite_layer_rgb_fused) and #2-#4 (stage_a, stage_b1, stage_b2)
-KERNEL_LAUNCHES = 0
-A_LAUNCHES = 0
-B1_LAUNCHES = 0
-B2_LAUNCHES = 0
 
 
 # ------------------------------------------------------------ IIR tables
@@ -120,10 +114,18 @@ def prepare(cfg: CompositeConfig, rgb: torch.Tensor, fieldno: torch.Tensor,
         raise ValueError(f"rows {row0}..{row0 + l - 1} outside a field of "
                          f"{l_glob} lines")
     dev = rgb.device
-    s = yiq.field_streams(cfg, fieldno.to(dev), field_parity.to(dev),
-                          l_glob, w, key)
+    with log.span("gen2.prepare"):
+        with log.span("gen2.prepare.copy"):
+            fieldno = log.to_device(fieldno, dev)
+            field_parity = log.to_device(field_parity, dev)
+        with log.span("gen2.prepare.streams"):
+            s = yiq.field_streams(cfg, fieldno, field_parity, l_glob, w, key)
+        with log.span("gen2.prepare.tables"):
+            consts = _alpha_consts(cfg)
+        with log.span("gen2.prepare.copy"):
+            tables = tuple(log.to_device(torch.from_numpy(t), dev)
+                           for t in consts)
     rows = slice(row0, row0 + l)
-    tables = tuple(torch.from_numpy(t).to(dev) for t in _alpha_consts(cfg))
     return Prepared(s.xi[:, rows].contiguous(), s.keys_ab,
                     s.sincos[:, rows].contiguous(),
                     s.keep[:, rows].contiguous(),
@@ -336,7 +338,6 @@ def composite_layer_rgb_fused(rgb: torch.Tensor, prep: Prepared, *,
     A CPU tensor runs chain_reference. A CUDA tensor launches the kernel
     of csrc/yiq_chain.cu (built at first use) or raises; there is no
     fallback."""
-    global KERNEL_LAUNCHES
     dev = _cuda_device(rgb, "yiq_chain")
     if dev is None:
         return chain_reference(rgb, prep, cfg=cfg)
@@ -362,7 +363,7 @@ def composite_layer_rgb_fused(rgb: torch.Tensor, prep: Prepared, *,
             prep.sincos.data_ptr(), prep.keep.data_ptr(),
             prep.shifts.data_ptr(), *(t.data_ptr() for t in prep.tables),
             scratch.data_ptr(), out.data_ptr(), ctypes.addressof(params))
-    KERNEL_LAUNCHES += 1
+    log.count("launches.yiq_chain")
     return out
 
 
@@ -377,7 +378,6 @@ def stage_a(rgb: torch.Tensor, prep: Prepared, *,
     """Kernel #2 (yiq_a) on uint8 [B, L, W, 3] rows of a field: the encoded
     luma, f32 [B, L, Wp]. CPU tensor: stage_a_reference; CUDA tensor: the
     kernel (several rows a CTA at 480i and 576i widths) or raise."""
-    global A_LAUNCHES
     dev = _cuda_device(rgb, "yiq_a")
     if dev is None:
         return stage_a_reference(rgb, prep, cfg=cfg)
@@ -394,7 +394,7 @@ def stage_a(rgb: torch.Tensor, prep: Prepared, *,
             rgb.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
             *(t.data_ptr() for t in prep.tables), y.data_ptr(),
             ctypes.addressof(params))
-    A_LAUNCHES += 1
+    log.count("launches.yiq_a")
     return y
 
 
@@ -404,7 +404,6 @@ def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig,
     active samples: y, i, q f32 [B, L, Wp]. CPU tensor:
     stage_b1_reference; CUDA tensor: the kernel (several rows a CTA at
     480i and 576i widths) or raise."""
-    global B1_LAUNCHES
     dev = _cuda_device(y, "yiq_b1")
     if dev is None:
         return stage_b1_reference(y, prep, cfg=cfg, w=w)
@@ -421,7 +420,7 @@ def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig,
             y.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
             prep.sincos.data_ptr(), *(t.data_ptr() for t in prep.tables),
             *(p.data_ptr() for p in out), ctypes.addressof(params))
-    B1_LAUNCHES += 1
+    log.count("launches.yiq_b1")
     return tuple(out)
 
 
@@ -431,7 +430,6 @@ def stage_b2(y: torch.Tensor, i: torch.Tensor, q: torch.Tensor,
     active samples: uint8 RGB [B, L, w, 3]. CPU tensor:
     stage_b2_reference; CUDA tensor: the kernel (several rows a CTA at
     480i and 576i widths) or raise."""
-    global B2_LAUNCHES
     dev = _cuda_device(y, "yiq_b2")
     if dev is None:
         return stage_b2_reference(y, i, q, prep, cfg=cfg, w=w)
@@ -448,5 +446,5 @@ def stage_b2(y: torch.Tensor, i: torch.Tensor, q: torch.Tensor,
             y.data_ptr(), i.data_ptr(), q.data_ptr(), prep.xi.data_ptr(),
             prep.keep.data_ptr(), *(t.data_ptr() for t in prep.tables),
             out.data_ptr(), ctypes.addressof(params))
-    B2_LAUNCHES += 1
+    log.count("launches.yiq_b2")
     return out

@@ -40,15 +40,8 @@ from cvsim_tpu_torch.models.fused_yiq import (Prepared, _check, _cuda_device,
                                               _launch, _stack_alpha_consts,
                                               _u32_as_i32)
 from cvsim_tpu_torch.ops.blocked_iir import BLOCK, full_float32
+from cvsim_tpu_torch.utils import log
 
-# counts of kernel launches (one per wrapper call on a CUDA tensor), read
-# by tests and chip_smoke.py to prove that a path ran through the kernels:
-# #5 (composite_video_process_merged) and #6-#8 (stage_a, stage_b1,
-# stage_b2)
-KERNEL_LAUNCHES = 0
-A_LAUNCHES = 0
-B1_LAUNCHES = 0
-B2_LAUNCHES = 0
 N_TABLES = 11
 
 # The JAX dispatcher's route (cvsim_tpu/models/fused_yuv.py:57-59,
@@ -100,10 +93,18 @@ def prepare(cfg: CompositeConfig, y: torch.Tensor, fieldno: torch.Tensor,
     key: the u32 stream seed (interop.key32_from_seed)."""
     _, l, w = y.shape
     dev = y.device
-    s = yiq.field_streams(cfg, fieldno.to(dev), field_parity.to(dev), l, w,
-                          key, gen1=True)
-    tables = tuple(torch.from_numpy(t).to(dev)
-                   for t in _alpha_consts_gen1(cfg))
+    with log.span("gen1.prepare"):
+        with log.span("gen1.prepare.copy"):
+            fieldno = log.to_device(fieldno, dev)
+            field_parity = log.to_device(field_parity, dev)
+        with log.span("gen1.prepare.streams"):
+            s = yiq.field_streams(cfg, fieldno, field_parity, l, w, key,
+                                  gen1=True)
+        with log.span("gen1.prepare.tables"):
+            consts = _alpha_consts_gen1(cfg)
+        with log.span("gen1.prepare.copy"):
+            tables = tuple(log.to_device(torch.from_numpy(t), dev)
+                           for t in consts)
     return Prepared(s.xi, s.keys_ab, s.sincos, s.keep, s.shifts, tables)
 
 
@@ -271,7 +272,6 @@ def composite_video_process_merged(y: torch.Tensor, u: torch.Tensor,
     [B, L, W], u, v [B, L, W//2]; uint8 out. A CPU tensor runs
     chain_reference; a CUDA tensor launches the kernel of
     csrc/yuv_chain.cu (built at first use) or raises."""
-    global KERNEL_LAUNCHES
     _no_taps(cfg)
     dev = _cuda_device(y, "yuv_chain")
     if dev is None:
@@ -291,7 +291,7 @@ def composite_video_process_merged(y: torch.Tensor, u: torch.Tensor,
             prep.shifts.data_ptr(), *(t.data_ptr() for t in prep.tables),
             scratch.data_ptr(), y_out.data_ptr(), u_out.data_ptr(),
             v_out.data_ptr(), ctypes.addressof(params))
-    KERNEL_LAUNCHES += 1
+    log.count("launches.yuv_chain")
     return y_out, u_out, v_out
 
 
@@ -300,7 +300,6 @@ def stage_a(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Kernel #6 (yuv_a): uint8 planes -> the encoded luma, uint8
     [B, L, W]. CPU tensor: stage_a_reference; CUDA tensor: the kernel or
     raise."""
-    global A_LAUNCHES
     _no_taps(cfg)
     dev = _cuda_device(y, "yuv_a")
     if dev is None:
@@ -315,7 +314,7 @@ def stage_a(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
             keys.data_ptr(), *(t.data_ptr() for t in prep.tables),
             y_out.data_ptr(), ctypes.addressof(params))
-    A_LAUNCHES += 1
+    log.count("launches.yuv_a")
     return y_out
 
 
@@ -323,7 +322,6 @@ def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig):
     """Kernel #7 (yuv_b1): the head-switched uint8 luma [B, L, W] -> y, u,
     v uint8. CPU tensor: stage_b1_reference; CUDA tensor: the kernel or
     raise."""
-    global B1_LAUNCHES
     _no_taps(cfg)
     dev = _cuda_device(y, "yuv_b1")
     if dev is None:
@@ -341,7 +339,7 @@ def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig):
             prep.sincos.data_ptr(), *(t.data_ptr() for t in prep.tables),
             y_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
             ctypes.addressof(params))
-    B1_LAUNCHES += 1
+    log.count("launches.yuv_b1")
     return y_out, u_out, v_out
 
 
@@ -350,7 +348,6 @@ def stage_b2(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     """Kernel #8 (yuv_b2): the blended uint8 y, u, v -> the chain's output,
     uint8. CPU tensor: stage_b2_reference; CUDA tensor: the kernel or
     raise."""
-    global B2_LAUNCHES
     _no_taps(cfg)
     dev = _cuda_device(y, "yuv_b2")
     if dev is None:
@@ -365,7 +362,7 @@ def stage_b2(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
             prep.keep.data_ptr(), *(t.data_ptr() for t in prep.tables),
             y_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
             ctypes.addressof(params))
-    B2_LAUNCHES += 1
+    log.count("launches.yuv_b2")
     return y_out, u_out, v_out
 
 

@@ -33,12 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from cvsim_tpu_torch.ops.cmath import c_div, sqrt_rn
+from cvsim_tpu_torch.utils import log
 
 SYNC_THRESHOLD = int(192 * 0.25 * 0.5)  # :552
 
-# count of raw28_tails kernel launches (one per call on a CUDA tensor);
-# read by tests and chip_smoke.py to prove that a path ran through it
-KERNEL_LAUNCHES = 0
 # columns of each line that depend on the previous line's chroma tail:
 # the burst enhancement reads the tail at x >= L-12 and each of the 4
 # denoise passes widens that by 4 columns
@@ -298,7 +296,6 @@ def raw28_tails(c3_tail: torch.Tensor, scan_tail: torch.Tensor,
     arguments and results. A CPU tensor runs tail_chain_reference. A CUDA
     tensor launches the kernel of csrc/raw28.cu (built at first use),
     one launch for all N lines, or raises; there is no fallback."""
-    global KERNEL_LAUNCHES
     if c3_tail.device.type == "cpu":
         return tail_chain_reference(c3_tail, scan_tail, carry)
     if c3_tail.device.type != "cuda":
@@ -322,7 +319,7 @@ def raw28_tails(c3_tail: torch.Tensor, scan_tail: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"raw28_tails launch failed: {kernels.error_string(rc)}")
-    KERNEL_LAUNCHES += 1
+    log.count("launches.raw28_tails")
     return chroma, luma, carry_out
 
 

@@ -43,6 +43,7 @@ from cvsim_tpu_torch.ops.noise import (
     uniform_pm1_per_field,
 )
 from cvsim_tpu_torch.ops.phase import scanline_phase_xi
+from cvsim_tpu_torch.utils import log
 
 F32 = torch.float32
 _UMULT_NP = np.array([1, 0, -1, 0], np.int32)
@@ -537,5 +538,7 @@ def composite_layer_rgb_auto(rgb, fieldno, field_parity, key: int, *,
     CPU tensor (composite_layer_rgb_fused decides; it never falls back)."""
     from cvsim_tpu_torch.models import fused_yiq
 
-    prep = fused_yiq.prepare(cfg, rgb, fieldno, field_parity, key)
-    return fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)
+    with log.span("gen2.call", entry=True):
+        prep = fused_yiq.prepare(cfg, rgb, fieldno, field_parity, key)
+        with log.span("gen2.launch"):
+            return fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)

@@ -40,6 +40,7 @@ from cvsim_tpu_torch.ops.noise import (
     chroma_noise_walk_rows,
     smoothed_noise_walk_rows,
 )
+from cvsim_tpu_torch.utils import log
 
 F32 = torch.float32
 I32 = torch.int32
@@ -351,18 +352,22 @@ def composite_video_process_auto(y, u, v, fieldno, field_parity, key: int, *,
     (ops/fused_iir.CASCADES: the kernel on a CUDA tensor, its plain
     version on a CPU one), as the JAX package's CVSIM_PALLAS=1 setting
     does. uint8 planes out."""
-    if cfg.nocolor_subcarrier or cfg.nocolor_subcarrier_after_yc_sep:
-        from cvsim_tpu_torch.ops import fused_iir
+    with log.span("gen1.call", entry=True):
+        if cfg.nocolor_subcarrier or cfg.nocolor_subcarrier_after_yc_sep:
+            from cvsim_tpu_torch.ops import fused_iir
 
-        out = composite_video_process(
-            y, u, v, fieldno.to(y.device), field_parity.to(y.device), key,
-            cfg=cfg, cascades=fused_iir.CASCADES)
-        return tuple(p.to(torch.uint8) for p in out)
-    from cvsim_tpu_torch.models import fused_yuv
+            out = composite_video_process(
+                y, u, v, log.to_device(fieldno, y.device),
+                log.to_device(field_parity, y.device), key,
+                cfg=cfg, cascades=fused_iir.CASCADES)
+            return tuple(p.to(torch.uint8) for p in out)
+        from cvsim_tpu_torch.models import fused_yuv
 
-    y, u, v = (p.to(torch.uint8) for p in (y, u, v))
-    prep = fused_yuv.prepare(cfg, y, fieldno, field_parity, key)
-    return fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
+        y, u, v = (p.to(torch.uint8) for p in (y, u, v))
+        prep = fused_yuv.prepare(cfg, y, fieldno, field_parity, key)
+        with log.span("gen1.launch"):
+            return fused_yuv.composite_video_process_fused(y, u, v, prep,
+                                                           cfg=cfg)
 
 
 # ---------------------------------------------------------- black key stage

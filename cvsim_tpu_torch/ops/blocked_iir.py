@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from cvsim_tpu_torch.utils import log
+
 BLOCK = 128
 
 
@@ -125,7 +127,8 @@ def iir_lowpass3_blocked(x: torch.Tensor, alpha, y0,
         return y
 
     consts = _cascade3_consts(float(alpha), block, _dtype_name(dtype))
-    T3, dc1, dc2, d, v12 = (torch.from_numpy(c).to(dev) for c in consts)
+    T3, dc1, dc2, d, v12 = (log.to_device(torch.from_numpy(c), dev)
+                            for c in consts)
     dl = d[-1]
     s2 = dc2[-1]
     q1 = dc1[-1]
@@ -165,14 +168,15 @@ def iir_lowpass_blocked(x: torch.Tensor, alpha, y0,
     dtype, dev = x.dtype, x.device
     w = x.shape[-1]
     T_np, d_np, pk = _decay_consts(float(alpha), block, _dtype_name(dtype))
-    T = torch.from_numpy(T_np).to(dev)
-    d = torch.from_numpy(d_np).to(dev)
-    pk_t = torch.tensor(pk, dtype=dtype, device=dev)
+    T = log.to_device(torch.from_numpy(T_np), dev)
+    d = log.to_device(torch.from_numpy(d_np), dev)
+    pk_t = log.to_device(torch.tensor(pk, dtype=dtype), dev)
 
     xb, nb = _blocks(x, block)
     yw = torch.matmul(xb, T.T)                     # [..., nb, K]
 
-    y0 = torch.as_tensor(y0, dtype=dtype, device=dev).expand(x.shape[:-1])
+    y0 = log.to_device(torch.as_tensor(y0, dtype=dtype),
+                       dev).expand(x.shape[:-1])
     last = yw[..., -1]
     if nb <= 16:
         carries = [y0]
@@ -182,11 +186,11 @@ def iir_lowpass_blocked(x: torch.Tensor, alpha, y0,
     else:
         # long axes (noise walks, audio streams): the carry chain as the
         # JAX function's associative scan (zero init), then the y0 term
-        post = carry_scan(torch.tensor(float(pk), dtype=dtype, device=dev),
-                          last)
-        powers = torch.from_numpy(
+        post = carry_scan(
+            log.to_device(torch.tensor(float(pk), dtype=dtype), dev), last)
+        powers = log.to_device(torch.from_numpy(
             np.power(np.float64(pk), np.arange(nb)).astype(
-                _dtype_name(dtype))).to(dev)
+                _dtype_name(dtype))), dev)
         prev = torch.cat([torch.zeros_like(post[..., :1]), post[..., :-1]],
                          dim=-1)
         c = prev + powers * y0[..., None]

@@ -26,10 +26,8 @@ import torch
 from cvsim_tpu_torch.ops.blocked_iir import (BLOCK, _decay_consts, full_float32,
                                              iir_lowpass_blocked)
 from cvsim_tpu_torch.ops.iir import Cascades
+from cvsim_tpu_torch.utils import log
 
-# count of kernel launches (one per fused_iir call on a CUDA tensor); read
-# by tests and chip_smoke.py to prove that a path ran through the kernel
-KERNEL_LAUNCHES = 0
 MAX_POLES = 8   # iir::MAX_POLES in csrc/fused_iir.cu
 MODES = {"none": 0, "emph": 1, "unsharp": 2}
 
@@ -91,7 +89,6 @@ def fused_iir(x: torch.Tensor, *, alphas: tuple, y0s: tuple,
     csrc/fused_iir.cu (built at first use), several rows a CTA at the
     narrower widths (the kernel chooses how many), or raises; there is no
     fallback."""
-    global KERNEL_LAUNCHES
     if x.device.type == "cpu":
         return fused_iir_reference(x, alphas=alphas, y0s=y0s, mode=mode,
                                    gain=gain)
@@ -120,7 +117,7 @@ def fused_iir(x: torch.Tensor, *, alphas: tuple, y0s: tuple,
                                  stream)
     if rc != 0:
         raise RuntimeError(f"fused_iir launch failed: {kernels.error_string(rc)}")
-    KERNEL_LAUNCHES += 1
+    log.count("launches.fused_iir")
     return out.reshape(x.shape)
 
 

@@ -150,6 +150,15 @@ def tensors_crc32(tensors) -> int:
     return crc
 
 
+def launches(kernel: str) -> int:
+    """Launches of `kernel` (yiq_chain, yuv_a, fused_iir, raw28_tails, ...)
+    since the process started: the recorder's `launches.<kernel>` counter
+    (utils/log.count). Read it before and after the work."""
+    from cvsim_tpu_torch.utils import log
+
+    return log.snapshot()["counters"].get(f"launches.{kernel}", 0)
+
+
 TIMING_REPS = 5
 
 

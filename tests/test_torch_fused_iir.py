@@ -20,7 +20,7 @@ import torch
 from cvsim_tpu.ops.pallas.fused_iir import fused_iir as jfused_iir
 from cvsim_tpu_torch.config import NTSC_RATE, iir_alpha
 from cvsim_tpu_torch.ops import fused_iir, iir
-from cvsim_tpu_torch.testing import iir_bound
+from cvsim_tpu_torch.testing import iir_bound, launches
 
 CUTS = (1.4e6, 2.4e6, 6e5, 2.8e6)
 Y0S = (16.0, 128.0, 0.0, 16.0)
@@ -59,10 +59,10 @@ def test_cpu_wrapper_runs_plain_version(mode):
     x = torch.from_numpy(np.random.default_rng(3).integers(
         0, 256, (2, 5, 300)).astype(np.float32))
     kw = dict(alphas=_alphas(3), y0s=Y0S[:3], mode=mode, gain=GAINS[mode][0])
-    before = fused_iir.KERNEL_LAUNCHES
+    before = launches("fused_iir")
     assert torch.equal(fused_iir.fused_iir(x, **kw),
                        fused_iir.fused_iir_reference(x, **kw))
-    assert fused_iir.KERNEL_LAUNCHES == before
+    assert launches("fused_iir") == before
 
 
 @pytest.mark.parametrize("shape", ["emph", "unsharp", "plain"])

@@ -31,7 +31,8 @@ from cvsim_tpu_torch import interop
 from cvsim_tpu_torch.config import CompositeConfig
 from cvsim_tpu_torch.models import fused_yuv, yiq, yuv422
 from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
-                                     assert_chain_equal, reference_config)
+                                     assert_chain_equal, launches,
+                                     reference_config)
 
 KEY = jax.random.PRNGKey(5)
 K32 = interop.key32_from_key_data(np.asarray(jax.random.key_data(KEY)))
@@ -147,8 +148,7 @@ def test_cpu_wrappers_run_plain_versions():
     y, u, v = (torch.from_numpy(p) for p in _planes("wrap", 2, 32, 128))
     fn = torch.tensor([4, 5], dtype=torch.int32)
     prep = fused_yuv.prepare(cfg, y, fn, fn % 2, K32)
-    counts = (fused_yuv.A_LAUNCHES, fused_yuv.B1_LAUNCHES,
-              fused_yuv.B2_LAUNCHES)
+    counts = (launches("yuv_a"), launches("yuv_b1"), launches("yuv_b2"))
     y_a = fused_yuv.stage_a(y, u, v, prep, cfg=cfg)
     assert torch.equal(y_a, fused_yuv.stage_a_reference(y, u, v, prep,
                                                         cfg=cfg))
@@ -160,8 +160,8 @@ def test_cpu_wrappers_run_plain_versions():
     out = fused_yuv.stage_b2(*p1, prep, cfg=cfg)
     for g, w in zip(out, fused_yuv.stage_b2_reference(*p1, prep, cfg=cfg)):
         assert g.dtype == torch.uint8 and torch.equal(g, w)
-    assert counts == (fused_yuv.A_LAUNCHES, fused_yuv.B1_LAUNCHES,
-                      fused_yuv.B2_LAUNCHES)
+    assert counts == (launches("yuv_a"), launches("yuv_b1"),
+                      launches("yuv_b2"))
 
 
 def test_main_path_takes_split_on_pal_raster(monkeypatch):

@@ -44,7 +44,7 @@ from cvsim_tpu_torch.testing import (BENCH_CONFIGS, BENCH_GEN1_EP,
                                      case_crc32, chain_crc32, chain_inputs,
                                      check_gen1_split_kernels,
                                      check_split_kernels, iir_bound,
-                                     timed_cases)
+                                     launches, timed_cases)
 
 SHAPES = [(2, 32, 128), (1, 16, 176)]
 CASES = [(n, s) for n in sorted(CHAIN_CONFIGS) for s in SHAPES]
@@ -65,11 +65,11 @@ def test_cpu_wrapper_runs_plain_version():
     launch."""
     cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
     rgb, fn, par = _batch("cpu", (2, 32, 128), "cpu")
-    before = fused_yiq.KERNEL_LAUNCHES
+    before = launches("yiq_chain")
     prep = fused_yiq.prepare(cfg, rgb, fn, par, 7)
     out = fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)
     assert torch.equal(out, fused_yiq.chain_reference(rgb, prep, cfg=cfg))
-    assert fused_yiq.KERNEL_LAUNCHES == before
+    assert launches("yiq_chain") == before
 
 
 @pytest.fixture
@@ -86,10 +86,10 @@ def test_kernel_matches_plain(cuda_device, name, shape):
     cfg = CHAIN_CONFIGS[name]
     rgb, fn, par = _batch(name, shape, cuda_device)
     prep = fused_yiq.prepare(cfg, rgb, fn, par, 5)
-    before = fused_yiq.KERNEL_LAUNCHES
+    before = launches("yiq_chain")
     got = fused_yiq.composite_layer_rgb_fused(rgb, prep, cfg=cfg)
     torch.cuda.synchronize()
-    assert fused_yiq.KERNEL_LAUNCHES == before + 1
+    assert launches("yiq_chain") == before + 1
     want = fused_yiq.chain_reference(rgb, prep, cfg=cfg)
     assert_chain_equal(got.cpu().numpy(), want.cpu().numpy(), err_msg=name)
 
@@ -162,8 +162,7 @@ def test_split_cpu_wrappers_run_plain_versions():
     no launch."""
     cfg = CHAIN_CONFIGS["vhs-ep-stochastic"]
     rgb, prep = _shard("vhs-ep-stochastic", (2, 64, 128), 48, "cpu")
-    counts = (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
-              fused_yiq.B2_LAUNCHES)
+    counts = (launches("yiq_a"), launches("yiq_b1"), launches("yiq_b2"))
     y = fused_yiq.stage_a(rgb, prep, cfg=cfg)
     assert torch.equal(y, fused_yiq.stage_a_reference(rgb, prep, cfg=cfg))
     planes = fused_yiq.stage_b1(y, prep, cfg=cfg, w=128)
@@ -175,19 +174,17 @@ def test_split_cpu_wrappers_run_plain_versions():
                                                          cfg=cfg, w=128))
     diffs = check_split_kernels(cfg, rgb, prep)
     assert all(d["rgb"] == (0, 0.0) for d in diffs.values())
-    assert counts == (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
-                      fused_yiq.B2_LAUNCHES)
+    assert counts == (launches("yiq_a"), launches("yiq_b1"),
+                      launches("yiq_b2"))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shape,row0", SPLIT_CASES)
 def test_split_kernels_match_plain(cuda_device, name, shape, row0):
     rgb, prep = _shard(name, shape, row0, cuda_device)
-    before = (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
-              fused_yiq.B2_LAUNCHES)
+    before = (launches("yiq_a"), launches("yiq_b1"), launches("yiq_b2"))
     check_split_kernels(CHAIN_CONFIGS[name], rgb, prep, err_msg=name)
-    after = (fused_yiq.A_LAUNCHES, fused_yiq.B1_LAUNCHES,
-             fused_yiq.B2_LAUNCHES)
+    after = (launches("yiq_a"), launches("yiq_b1"), launches("yiq_b2"))
     assert all(a > b for a, b in zip(after, before))
 
 
@@ -238,13 +235,13 @@ def test_gen1_cpu_wrapper_runs_plain_version():
     launch."""
     cfg = GEN1_CHAIN_CONFIGS["full-ep-stochastic"]
     y, u, v, fn, par = _planes("cpu", (2, 32, 128), "cpu")
-    before = fused_yuv.KERNEL_LAUNCHES
+    before = launches("yuv_chain")
     prep = fused_yuv.prepare(cfg, y, fn, par, 7)
     got = fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
     want = fused_yuv.chain_reference(y, u, v, prep, cfg=cfg)
     for g, w in zip(got, want):
         assert g.dtype == torch.uint8 and torch.equal(g, w)
-    assert fused_yuv.KERNEL_LAUNCHES == before
+    assert launches("yuv_chain") == before
 
 
 @pytest.mark.cuda
@@ -253,10 +250,10 @@ def test_gen1_kernel_matches_plain(cuda_device, name, shape):
     cfg = GEN1_CHAIN_CONFIGS[name]
     y, u, v, fn, par = _planes(name, shape, cuda_device)
     prep = fused_yuv.prepare(cfg, y, fn, par, 5)
-    before = fused_yuv.KERNEL_LAUNCHES
+    before = launches("yuv_chain")
     got = fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
     torch.cuda.synchronize()
-    assert fused_yuv.KERNEL_LAUNCHES == before + 1
+    assert launches("yuv_chain") == before + 1
     want = fused_yuv.chain_reference(y, u, v, prep, cfg=cfg)
     for k, (g, w) in enumerate(zip(got, want)):
         assert_chain_equal(g.cpu().numpy(), w.cpu().numpy(),
@@ -306,8 +303,7 @@ def test_gen1_wrapper_rejects_bad_inputs(cuda_device):
 # ------------------------------------------------------- gen-1 split kernels
 
 def _gen1_launches():
-    return (fused_yuv.A_LAUNCHES, fused_yuv.B1_LAUNCHES,
-            fused_yuv.B2_LAUNCHES)
+    return (launches("yuv_a"), launches("yuv_b1"), launches("yuv_b2"))
 
 
 def test_gen1_split_check_on_cpu_is_exact():
@@ -353,10 +349,10 @@ def test_gen1_route_on_card(cuda_device, shape, split):
     cfg = BENCH_GEN1_EP.with_(ntsc=not split)
     y, u, v, fn, par = _planes("route", shape, cuda_device)
     prep = fused_yuv.prepare(cfg, y, fn, par, 7)
-    merged, splits = fused_yuv.KERNEL_LAUNCHES, _gen1_launches()
+    merged, splits = launches("yuv_chain"), _gen1_launches()
     fused_yuv.composite_video_process_fused(y, u, v, prep, cfg=cfg)
     torch.cuda.synchronize()
-    assert fused_yuv.KERNEL_LAUNCHES == merged + (0 if split else 1)
+    assert launches("yuv_chain") == merged + (0 if split else 1)
     assert _gen1_launches() == tuple(n + int(split) for n in splits)
 
 
@@ -398,10 +394,10 @@ def test_fused_iir_matches_plain(cuda_device, mode, w):
                                for c in (1.4e6, 2.4e6, 6e5, 2.8e6)[:k]),
                   y0s=(16.0, 128.0, 0.0, 16.0)[:k], mode=mode,
                   gain=IIR_GAINS[mode])
-        before = fused_iir.KERNEL_LAUNCHES
+        before = launches("fused_iir")
         got = fused_iir.fused_iir(x, **kw)
         torch.cuda.synchronize()
-        assert fused_iir.KERNEL_LAUNCHES == before + 1
+        assert launches("fused_iir") == before + 1
         want = fused_iir.fused_iir_reference(x, **kw)
         d = float((got - want).abs().max())
         assert d <= iir_bound(255.0, IIR_GAINS[mode]), (k, d)
@@ -424,10 +420,10 @@ def test_debug_tap_route_runs_fused_iir(cuda_device, tap):
     kernel #9; the card's output against the CPU run's (plain versions)."""
     cfg = CompositeConfig(video_noise=3, emulating_vhs=True, **{tap: True})
     y, u, v, fn, par = _planes(tap, (2, 48, 720), cuda_device)
-    before = fused_iir.KERNEL_LAUNCHES
+    before = launches("fused_iir")
     got = yuv422.composite_video_process_auto(y, u, v, fn, par, 7, cfg=cfg)
     torch.cuda.synchronize()
-    assert fused_iir.KERNEL_LAUNCHES > before
+    assert launches("fused_iir") > before
     want = yuv422.composite_video_process_auto(
         y.cpu(), u.cpu(), v.cpu(), fn, par, 7, cfg=cfg)
     for k, (g, w) in enumerate(zip(got, want)):
@@ -582,10 +578,10 @@ def test_raw28_tails_matches_plain(cuda_device, n):
     launch for all lines: none, one (the kernel's two-line prefetch past
     the last line), a field and more."""
     args = _raw28_tail_inputs(n, cuda_device)
-    before = raw28.KERNEL_LAUNCHES
+    before = launches("raw28_tails")
     got = raw28.raw28_tails(*args)
     torch.cuda.synchronize()
-    assert raw28.KERNEL_LAUNCHES == before + 1
+    assert launches("raw28_tails") == before + 1
     want = raw28.tail_chain_reference(*(a.cpu() for a in args))
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g.cpu(), w)

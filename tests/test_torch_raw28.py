@@ -37,8 +37,8 @@ from cvsim_tpu_torch.models.raw28 import (AGCState, Raw28Decoder, RawTiming,
                                           hunt_vsync, rate_preset, runs_below,
                                           tail_chain_reference)
 from cvsim_tpu_torch.native import HsyncDcTracker
-from cvsim_tpu_torch.testing import (assert_chain_equal, raw28_capture,
-                                     raw28_capture_jittery)
+from cvsim_tpu_torch.testing import (assert_chain_equal, launches,
+                                     raw28_capture, raw28_capture_jittery)
 from tests.test_cli import read_all
 from tests.test_raw28 import (BLANK, RL, synth_capture,
                               synth_color_capture)
@@ -228,9 +228,9 @@ def test_tail_chain_reference_equals_jax_scan(n):
         width=RL, chroma_carry=carry)
     args = (*raw28.tail_inputs(*raw28.split_lines(torch.from_numpy(x), RL)),
             torch.from_numpy(carry))
-    before = raw28.KERNEL_LAUNCHES
+    before = launches("raw28_tails")
     got = raw28.raw28_tails(*args)
-    assert raw28.KERNEL_LAUNCHES == before
+    assert launches("raw28_tails") == before
     for g, p in zip(got, tail_chain_reference(*args)):
         assert torch.equal(g, p)
     ch, lu, cy = got
