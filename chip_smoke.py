@@ -22,7 +22,11 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      route against yuv_chain on the same inputs; the pole cascade
      (fused_iir) in each of the stage path's shapes at [64*240, 720] and
      [16*540, 1888], and in the half-width chroma shapes at [64*240, 360]
-     (testing.iir_cases); prepare() on the card == on the CPU for all; the
+     (testing.iir_cases); prepare() on the card == on the CPU for all;
+     the per-line inputs' kernel (field_streams) against yiq.field_streams
+     on the card, every output bit for bit (sin and cos as int32 bits), in
+     both benchmark configurations at 64 fields of 240x720 and at 4096
+     fields up to 2^31 - 1; the
      outputs of yiq_chain and yuv_chain on their bench cases byte-identical
      to b8c5917's kernels (CRC32s in testing.PINNED_CHAIN_CRC32), and of
      the kernels that take several rows a CTA on every one of their timed
@@ -36,7 +40,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
   4. the main paths, each with its kernels' launch counts set to 0 just
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
-     colour-bar clip of 64 frames (128 fields, two GOPs); colour bars
+     colour-bar clip of 64 frames (128 fields, two GOPs), one launch of
+     the chain kernel and one of field_streams a GOP; colour bars
      kept; the first 8 frames again through `--device cpu`, compared
      within the chain tolerance; then a short `to-composite
      -bkey-feedback 20` run on a clip with dark, keyed rows, cuda vs cpu;
@@ -84,7 +89,9 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      version on the cases of testing.timed_cases, which kernel_ab.py times
      too (#1-#4 at 240x704 B=64 and 540x1888 B=16; #5 at 240x720 B=64,
      288x720 PAL B=64 and 540x1888 B=16, #6-#8 at the last two; the pole
-     cascade on testing.iir_cases; CUDA events, median of 5), the gen-2
+     cascade on testing.iir_cases; field_streams at 240x720 B=64 in both
+     benchmark configurations, its device time by torch.profiler; CUDA
+     events, median of 5), the gen-2
      split program vs kernel #1's path, the gen-1 split route
      vs yuv_chain at 576i and 1080i, the gen-1 black-key scan's host cost
      per GOP, and each CLI's end-to-end fields/s; the audio chains (both
@@ -274,6 +281,60 @@ def check_prepare(prep, prepare_cpu, what: str):
     for field in ("xi", "keys_ab", "keep", "shifts"):
         if not torch.equal(getattr(prep, field).cpu(), getattr(cpu, field)):
             raise AssertionError(f"prepare {field}: cuda != cpu ({what})")
+
+
+def streams_calls(dev, key) -> list:
+    """[3] and [5]'s field_streams calls: (label, kernel call, plain call)
+    in both benchmark configurations, at 64 fields of 240x720 (the
+    benchmark's batch) and at 4096 random field numbers up to 2^31 - 1."""
+    import torch
+
+    from cvsim_tpu_torch.models import fused_yiq, yiq
+    from cvsim_tpu_torch.testing import bench_cli_configs
+
+    gen = torch.Generator().manual_seed(18)
+    batches = (("64 fields", torch.arange(1000, 1064, dtype=torch.int32)),
+               ("4096 fields", torch.randint(0, 2 ** 31, (4096,),
+                                             generator=gen,
+                                             dtype=torch.int32)))
+    calls = []
+    for name, (cfg, gen1) in bench_cli_configs().items():
+        for what, fn in batches:
+            fn = fn.to(dev)
+            args = (cfg, fn, (fn & 1) ^ 1, 240, 720, key)
+            calls.append((f"{name} {what} of 240x720",
+                          partial(fused_yiq.field_streams_fused, *args,
+                                  gen1=gen1),
+                          partial(yiq.field_streams, *args, gen1=gen1)))
+    return calls
+
+
+def check_streams(calls) -> None:
+    """[3] field_streams against yiq.field_streams on the card: all five
+    outputs bit for bit, the floats as their int32 bits (-0.0 counts)."""
+    import torch
+
+    from cvsim_tpu_torch.models import yiq
+
+    for label, kern, plain in calls:
+        got, want = kern(), plain()
+        for field, g, w in zip(yiq.FieldStreams._fields, got, want):
+            g, w = g.cpu(), w.cpu()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"field_streams {label} {field}: "
+                                     "kernel != yiq.field_streams")
+        print(f"[3] field_streams {label}: xi, keys_ab, sincos, keep, shifts "
+              f"bit for bit equal to yiq.field_streams on the card")
+
+
+def streams_bytes(b: int, l: int) -> int:
+    """Bytes field_streams reads and writes for b fields of l lines: the
+    int32 field numbers and parities in; xi, sin and cos, keep, shifts
+    (20 bytes a line) and the two int64 keys out (the phase table's few
+    hundred bytes left out)."""
+    return b * (4 + 4 + 16) + b * l * (4 + 8 + 4 + 4)
 
 
 def chain_cases(kernel: str, configs: dict) -> list:
@@ -1697,6 +1758,8 @@ def main() -> int:
     err_iir = kernel_cases_iir(cases)
     check_case_pins(cases)
     err_raw28 = kernel_cases_raw28(dev)
+    s_calls = streams_calls(dev, key)
+    check_streams(s_calls)
 
     # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
@@ -1712,7 +1775,7 @@ def main() -> int:
     out_cpu = os.path.join(tmp, "out_cpu.y4m")
     outs = {}
 
-    paths = {}
+    paths, streams_launches = {}, {}
     for tool, kernel, extra, bar_limit in (
             # the VHS-EP chroma bandlimit alone moves the magenta bar's
             # mean U by 9-10 LSB in gen-2 (the CPU path shows the same)
@@ -1724,20 +1787,21 @@ def main() -> int:
             ("to-composite", "yuv_chain", ["-vhs"], 40.0)):
         out = outs[tool] = os.path.join(tmp, f"out-{tool}.y4m")
         cli_s, counts, hdr, frames = run_cli(
-            cli_main, {"kernel": kernel},
+            cli_main, {"kernel": kernel, "streams": "field_streams"},
             ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags])
         launches = counts["kernel"]
         n_fields = len(frames)
         gops = -(-n_fields // 64)
         print(f"[4] {tool} --device cuda: {n_fields} fields "
               f"({hdr.width}x{hdr.height}) in {cli_s:.3f} s, kernel "
-              f"launches {launches} for {gops} GOPs")
+              f"launches {launches} and field_streams launches "
+              f"{counts['streams']} for {gops} GOPs")
         if n_fields != 128:
             raise AssertionError(f"{tool}: expected 128 output fields, "
                                  f"got {n_fields}")
-        if launches != gops:
-            raise AssertionError(f"{tool}: kernel launches {launches} != "
-                                 f"GOPs {gops}")
+        if launches != gops or counts["streams"] != gops:
+            raise AssertionError(f"{tool}: launches {counts} != GOPs "
+                                 f"{gops}")
         worst = check_bars(frames, y_in, u_in, v_in, bar_limit)
         print(f"[4] {tool} colour bars kept: worst per-bar mean difference "
               f"{worst:.3f} LSB (limit {bar_limit})")
@@ -1749,6 +1813,7 @@ def main() -> int:
         print(f"[4] {tool} --device cuda vs --device cpu, first 16 fields: "
               f"max diff {cpu_err}; tolerance: {TOLERANCE}")
         paths[tool] = (launches, n_fields / cli_s)
+        streams_launches[tool] = counts["streams"]
 
     bkey = ["-vhs", "-bkey-feedback", "20", "-seed", "3"]
     _, bk_counts, _, frames = run_cli(
@@ -1879,6 +1944,36 @@ def main() -> int:
             bound, by, floor = case_bound(case)
             bounds[case.kernel], floors[case.kernel] = (bound, by), floor
 
+    # field_streams at the benchmark's batch in both configurations; its
+    # row of the kernels line is the first
+    for label, kern, plain in s_calls:
+        if not label.endswith("64 fields of 240x720"):
+            continue
+        ms, plain_ms, ms2 = time_ms(kern), time_ms(plain), time_ms(kern)
+        b2b = time_ms(kern, calls=10)
+        # a call's events span the wrapper's host work, which is longer
+        # than the kernel: its device time is the profiler's
+        act = device_activities(kern)
+        if act is not None and act[0] != 1:
+            raise AssertionError(f"field_streams {label}: device activities "
+                                 f"{act}, expected one kernel")
+        # without the profiler's events, the call's time bounds it above
+        dev_ms = act[1] if act else ms
+        n_bytes = streams_bytes(64, 240)
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        dev_s = (f"{dev_ms * 1e3:.1f} us (torch.profiler)" if act else
+                 "not measured (torch.profiler recorded nothing)")
+        print(f"[5] field_streams {label} on {card}: kernel on the card "
+              f"{dev_s}; a call "
+              f"{ms * 1e3:.1f} us (again {ms2 * 1e3:.1f} us; back to back "
+              f"{b2b * 1e3:.1f} us: the wrapper's host work); plain "
+              f"{plain_ms:.3f} ms = {plain_ms / ms:.0f}x a call; bound "
+              f"{bound * 1e3:.4f} us (bytes: {n_bytes}) = "
+              f"{bound / dev_ms:.1%}; the walk's serial chains set its time")
+        if "field_streams" not in times:
+            times["field_streams"] = (dev_ms, plain_ms)
+            bounds["field_streams"] = (bound, "bytes")
+
     # the line-sharded program vs kernel #1's path (prepare + kernel); both
     # paths include prepare()'s host work, so their events span it
     cfg = BENCH_VHS_EP
@@ -1967,17 +2062,23 @@ def main() -> int:
         # no TPU twin: the JAX package runs this chain as a lax.scan
         "raw28_tails": ("raw28", "cvsim_tpu/models/raw28.py:283 (lax.scan, "
                         "no pallas_call)", raw28_runs["plain"][2], err_raw28),
+        # no TPU twin: the JAX package builds the per-line inputs with XLA
+        # ops around its Pallas kernels; [3] raises on any differing bit
+        "field_streams": ("streams", "none (XLA ops in cvsim_tpu/models/"
+                          "fused_yiq.py _fused_prepare)",
+                          sum(streams_launches.values()), 0),
     }
     for name, (ms, by) in bounds.items():
         if name not in floors:
-            continue   # raw28_tails has no blocked form; [5] printed it
+            continue   # raw28_tails, field_streams: no blocked form; [5]
+            # printed them
         k_ms, fl = times[name][0], floors[name]
         print(f"[5] {name} bound {ms:.4f} ms ({by}); blocked-form floor "
               f"{fl:.4f} ms (block products' multiply-adds at "
               f"{FMA_PER_S:.3g}/s); kernel {k_ms:.3f} ms = {ms / k_ms:.1%} "
               f"of the bound, {k_ms / fl:.2f}x the floor")
-    # library_ms: no single PyTorch call computes these IIR chains or the
-    # raw decoder's carried line tails
+    # library_ms: no single PyTorch call computes these IIR chains, the
+    # raw decoder's carried line tails or the per-line inputs
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -109,7 +109,8 @@ def load():
                                  ("cvsim_yiq_b1", 14), ("cvsim_yiq_b2", 13),
                                  ("cvsim_yuv_chain", 19), ("cvsim_yuv_a", 13),
                                  ("cvsim_yuv_b1", 14), ("cvsim_yuv_b2", 15),
-                                 ("cvsim_fused_iir", 6)):
+                                 ("cvsim_fused_iir", 6),
+                                 ("cvsim_field_streams", 10)):
                 fn = getattr(lib, name)
                 fn.argtypes = [ptr] * n_args
                 fn.restype = ctypes.c_int

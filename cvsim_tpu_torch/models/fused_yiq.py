@@ -8,6 +8,10 @@ cvsim_tpu.models.fused_yiq).
   of `_fused_prepare(sharded=True)`). The TPU path's tiling, padding and
   8-aligned head-switch window exist for Mosaic's layout rules and have no
   counterpart here.
+- `field_streams_fused`: `prepare`'s per-line streams, one launch of
+  csrc/streams.cu's `cvsim_field_streams` on a CUDA tensor (no TPU twin:
+  the JAX package builds them with XLA ops); yiq.field_streams is its
+  plain version and runs on a CPU tensor.
 - Kernel #1, the whole chain: `composite_layer_rgb_fused` wraps
   csrc/yiq_chain.cu's `cvsim_yiq_chain`; `chain_reference` is its plain
   PyTorch version, built from the stage functions of models/yiq.py.
@@ -26,6 +30,7 @@ point of the main path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -99,6 +104,107 @@ class Prepared(NamedTuple):
     l_glob: int | None = None   # the whole field's height (None: L)
 
 
+# csrc/streams.cu WALK_BLOCKS blocks: the walks that
+# ops/blocked_iir.iir_lowpass_blocked carries block by block
+_WALK_LINES = 16 * BLOCK
+
+
+class _StreamsParams(ctypes.Structure):
+    """Mirror of `StreamsParams` in csrc/streams.cu (field order matters)."""
+    _fields_ = [
+        *((n, ctypes.c_int) for n in ("b", "l")),
+        ("key", ctypes.c_uint32),
+        *((n, ctypes.c_int) for n in (
+            "fieldno_bytes", "parity_bytes", "gen1", "ntsc", "phase_shift",
+            "phase_offset", "phase_mag", "chroma_loss", "head_switching",
+            "twidth", "vis_off")),
+        *((n, ctypes.c_float) for n in (
+            "hs_point", "hs_phase", "hs_phase_noise", "hs_t"))]
+
+
+@functools.lru_cache(maxsize=16)
+def _phase_table(m: int, dev: torch.device) -> torch.Tensor:
+    """f32 [2m + 2, 2] (sin, cos) of k * pi/100 for k = -m .. m, then of
+    -0.0: every value yiq.chroma_phase_angles takes at a phase noise of
+    +-m, from its own yiq.phase_sincos on the same device."""
+    k = torch.cat([torch.arange(-m, m + 1, dtype=torch.float32, device=dev),
+                   torch.zeros(1, dtype=torch.float32, device=dev).neg()])
+    return yiq.phase_sincos(k).contiguous()
+
+
+def _field_ids(t: torch.Tensor, what: str, b: int,
+               dev: torch.device) -> torch.Tensor:
+    """t as a contiguous [B] int32 or int64 tensor on dev (the kernel reads
+    the low 32 bits of each element)."""
+    if t.dtype not in (torch.int32, torch.int64):
+        t = t.to(torch.int32)
+    t = t.contiguous()
+    _check(what, t, t.dtype, (b,), dev)
+    return t
+
+
+def _streams_params(cfg: CompositeConfig, b: int, l: int, w: int, key: int,
+                    gen1: bool, fieldno_bytes: int,
+                    parity_bytes: int) -> _StreamsParams:
+    """The kernel's parameters: yiq.field_streams' branches and the
+    float32 values of _head_switch_geometry."""
+    twidth = w + w // 10
+    return _StreamsParams(
+        b=b, l=l, key=key & 0xFFFFFFFF, fieldno_bytes=fieldno_bytes,
+        parity_bytes=parity_bytes, gen1=int(gen1), ntsc=int(cfg.ntsc),
+        phase_shift=cfg.video_scanline_phase_shift,
+        phase_offset=cfg.video_scanline_phase_shift_offset,
+        phase_mag=cfg.video_chroma_phase_noise,
+        chroma_loss=cfg.video_chroma_loss,
+        head_switching=int(cfg.vhs_head_switching),
+        twidth=twidth,
+        vis_off=(262 - 240) * 2 if cfg.ntsc else (312 - 288) * 2,
+        hs_point=cfg.vhs_head_switching_point,
+        # gen-1 takes both raster axes from the switch point
+        hs_phase=(cfg.vhs_head_switching_point if gen1
+                  else cfg.vhs_head_switching_phase),
+        hs_phase_noise=cfg.vhs_head_switching_phase_noise,
+        hs_t=twidth * (262.5 if cfg.ntsc else 312.5))
+
+
+def field_streams_fused(cfg: CompositeConfig, fieldno: torch.Tensor,
+                        field_parity: torch.Tensor, l: int, w: int, key: int,
+                        gen1: bool = False) -> yiq.FieldStreams:
+    """yiq.field_streams' outputs, bit for bit. A CPU tensor runs
+    yiq.field_streams; a CUDA tensor launches csrc/streams.cu's
+    `cvsim_field_streams` (one CTA a field, no copy, no sync) or raises,
+    as it does for a chroma-phase walk longer than 2048 lines (the plain
+    version's walk takes another form there; fields have at most 540)."""
+    dev = _cuda_device(fieldno, "field_streams")
+    if dev is None:
+        return yiq.field_streams(cfg, fieldno, field_parity, l, w, key,
+                                 gen1=gen1)
+    from cvsim_tpu_torch import kernels
+
+    mag = cfg.video_chroma_phase_noise
+    if mag != 0 and l > _WALK_LINES:
+        raise ValueError(f"field_streams: a chroma-phase walk of {l} lines; "
+                         f"the kernel takes up to {_WALK_LINES}")
+    b = fieldno.shape[0]
+    fieldno = _field_ids(fieldno, "fieldno", b, dev)
+    field_parity = _field_ids(field_parity, "field_parity", b, dev)
+    params = _streams_params(cfg, b, l, w, key, gen1, fieldno.element_size(),
+                             field_parity.element_size())
+    table = _phase_table(abs(mag), dev) if mag != 0 else None
+    out = yiq.FieldStreams(
+        xi=torch.empty((b, l), dtype=torch.int32, device=dev),
+        keys_ab=torch.empty((b, 2), dtype=torch.int64, device=dev),
+        sincos=torch.empty((b, l, 2), dtype=torch.float32, device=dev),
+        keep=torch.empty((b, l), dtype=torch.float32, device=dev),
+        shifts=torch.empty((b, l), dtype=torch.int32, device=dev))
+    _launch("field_streams", kernels.load().cvsim_field_streams, dev,
+            fieldno.data_ptr(), field_parity.data_ptr(),
+            None if table is None else table.data_ptr(),
+            *(t.data_ptr() for t in out), ctypes.addressof(params))
+    log.count("launches.field_streams")
+    return out
+
+
 def prepare(cfg: CompositeConfig, rgb: torch.Tensor, fieldno: torch.Tensor,
             field_parity: torch.Tensor, key: int, row0: int = 0,
             l_glob: int | None = None) -> Prepared:
@@ -119,7 +225,8 @@ def prepare(cfg: CompositeConfig, rgb: torch.Tensor, fieldno: torch.Tensor,
             fieldno = log.to_device(fieldno, dev)
             field_parity = log.to_device(field_parity, dev)
         with log.span("gen2.prepare.streams"):
-            s = yiq.field_streams(cfg, fieldno, field_parity, l_glob, w, key)
+            s = field_streams_fused(cfg, fieldno, field_parity, l_glob, w,
+                                    key)
         with log.span("gen2.prepare.tables"):
             consts = _alpha_consts(cfg)
         with log.span("gen2.prepare.copy"):

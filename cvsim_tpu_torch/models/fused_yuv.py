@@ -38,7 +38,8 @@ from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, ii
 from cvsim_tpu_torch.models import yiq, yuv422
 from cvsim_tpu_torch.models.fused_yiq import (Prepared, _check, _cuda_device,
                                               _launch, _stack_alpha_consts,
-                                              _u32_as_i32)
+                                              _u32_as_i32,
+                                              field_streams_fused)
 from cvsim_tpu_torch.ops.blocked_iir import BLOCK, full_float32
 from cvsim_tpu_torch.utils import log
 
@@ -98,8 +99,8 @@ def prepare(cfg: CompositeConfig, y: torch.Tensor, fieldno: torch.Tensor,
             fieldno = log.to_device(fieldno, dev)
             field_parity = log.to_device(field_parity, dev)
         with log.span("gen1.prepare.streams"):
-            s = yiq.field_streams(cfg, fieldno, field_parity, l, w, key,
-                                  gen1=True)
+            s = field_streams_fused(cfg, fieldno, field_parity, l, w, key,
+                                    gen1=True)
         with log.span("gen1.prepare.tables"):
             consts = _alpha_consts_gen1(cfg)
         with log.span("gen1.prepare.copy"):

@@ -237,7 +237,13 @@ def chroma_phase_angles(keys, l: int, mag: int):
     """Per-scanline chroma phase as [B, L, 2] (sin, cos): a random walk
     in units of pi/100 (ffmpeg_ntsc.cpp:1736-1764)."""
     walk = random_walk_per_field(keys, l, mag)          # post-update
-    ang = c_int(walk) * torch.tensor(math.pi / 100.0, dtype=F32)
+    return phase_sincos(c_int(walk))
+
+
+def phase_sincos(k: torch.Tensor) -> torch.Tensor:
+    """(sin, cos) of the chroma phase k in units of pi/100 (float32),
+    stacked on a new last axis."""
+    ang = k * torch.tensor(math.pi / 100.0, dtype=F32)
     return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 

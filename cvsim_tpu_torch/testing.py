@@ -80,6 +80,24 @@ BENCH_GEN1_EP = CompositeConfig(
     video_chroma_loss=8)
 
 
+
+def bench_cli_configs() -> dict:
+    """The two VHS-EP configurations of the port's benchmark as the CLIs
+    parse their flags (`ntsc -vhs-speed ep -vhs-head-switching 1` and
+    `to-composite -vhs -vhs-speed ep -vhs-head-switching 1`):
+    {name: (config, gen1)}."""
+    from cvsim_tpu_torch import presets
+
+    out = {}
+    for name, argv, gen2 in (
+            ("ntsc-vhs-ep", [], True), ("composite-vhs-ep", ["-vhs"], False)):
+        st = presets.parse_composite_flags(
+            [*argv, "-vhs-speed", "ep", "-vhs-head-switching", "1", "-seed",
+             "7"], gen2=gen2)
+        out[name] = (st.to_run_config(gen1=not gen2).composite, not gen2)
+    return out
+
+
 BENCH_CONFIGS = {"bench-vhs-ep": BENCH_VHS_EP, "bench-gen1-ep": BENCH_GEN1_EP,
                  "bench-gen1-ep-pal": BENCH_GEN1_EP.with_(ntsc=False)}
 

@@ -11,6 +11,7 @@
 //   ./pole_model gen1 WP WP2 [WP WP2 ...]
 //   ./pole_model yuv DIR a|b1|b2 R OUT   (built with -DGEN1_KERNELS)
 //   ./pole_model yiq DIR a|b1|b2 R OUT   (built with -DGEN2_KERNELS)
+//   ./pole_model streams DIR OUT         (built with -DSTREAMS_KERNEL)
 //
 // ROWS rows of W samples (random values, a random reset value each) go
 // through the one-row form row by row, and through the multi-row form R
@@ -28,8 +29,10 @@
 // -DGEN1_KERNELS beside a copy of csrc/yuv_chain.cu (see run_yuv), `yuv`
 // runs kernel #6, #7 or #8 whole through its C entry point; built with
 // -DGEN2_KERNELS beside a copy of csrc/yiq_chain.cu (see run_yiq), `yiq`
-// runs kernel #2, #3 or #4.
-// tests/test_torch_pole_model.py runs it.
+// runs kernel #2, #3 or #4. Built with -DSTREAMS_KERNEL beside a copy of
+// csrc/streams.cu, `streams` runs the per-line inputs' kernel
+// (cvsim_field_streams) whole.
+// tests/test_torch_pole_model.py and tests/test_torch_streams.py run it.
 
 #include <algorithm>
 #include <barrier>
@@ -67,7 +70,7 @@ static std::barrier<>* g_warps[4];
 inline void __syncthreads() { g_cta->arrive_and_wait(); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 
-#if defined(GEN1_KERNELS) || defined(GEN2_KERNELS)
+#if defined(GEN1_KERNELS) || defined(GEN2_KERNELS) || defined(STREAMS_KERNEL)
 #define WHOLE_KERNELS
 #endif
 
@@ -78,10 +81,14 @@ inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 // fail
 #define __CUDACC__ 1
 #define __global__
-#define __launch_bounds__(threads, ctas)
+#define __launch_bounds__(...)
 #define __host__
 #define __shared__
 thread_local ThreadIndex blockIdx;
+// float32 operations rounded once each (built with -ffp-contract=off)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -148,8 +155,10 @@ static void cvsim_launch(int ctas, F body) {
 }
 #ifdef GEN1_KERNELS
 #include "yuv_chain_cpu.cu"
-#else
+#elif defined(GEN2_KERNELS)
 #include "yiq_chain_cpu.cu"
+#else
+#include "streams_cpu.cu"
 #endif
 
 static std::vector<char> read_file(const std::string& dir, const char* name) {
@@ -207,7 +216,7 @@ static int run_yuv(int argc, char** argv) {
   if (kernel == "a") return write_out(argv[5], {&yo});
   return write_out(argv[5], {&yo, &uo, &vo});
 }
-#else
+#elif defined(GEN2_KERNELS)
 // `yiq DIR a|b1|b2 R OUT`: kernel #2 (a), #3 (b1) or #4 (b2) through its C
 // entry point at R rows a CTA (0: its own choice) on the inputs in DIR
 // (raw files params, rgb, y, i, q, xi, keys, sincos, keep, tt, d, tt3, d3,
@@ -249,6 +258,33 @@ static int run_yiq(int argc, char** argv) {
   if (kernel == "a") return write_out(argv[5], {&yo});
   if (kernel == "b1") return write_out(argv[5], {&yo, &io, &qo});
   return write_out(argv[5], {&rgbo});
+}
+#endif
+#ifdef STREAMS_KERNEL
+// `streams DIR OUT`: cvsim_field_streams on the inputs in DIR (raw files
+// params, fieldno, parity, table); writes xi, keys_ab, sincos, keep and
+// shifts one after another to OUT.
+static int run_streams(int argc, char** argv) {
+  if (argc != 4) return 2;
+  const std::string dir = argv[2];
+  const auto in = [&](const char* n) { return read_file(dir, n); };
+  const auto P = in("params"), fn = in("fieldno"), par = in("parity");
+  const auto table = in("table");
+  using cvsim::streams::StreamsParams;
+  if (P.size() != sizeof(StreamsParams)) return 2;
+  StreamsParams sp;
+  std::memcpy(&sp, P.data(), sizeof sp);
+  const size_t lines = (size_t)sp.b * sp.l;
+  std::vector<char> xi(lines * 4), keys((size_t)sp.b * 16), sc(lines * 8);
+  std::vector<char> keep(lines * 4), shifts(lines * 4);
+  const int rc = cvsim_field_streams(
+      fn.data(), par.data(), table.data(), xi.data(), keys.data(), sc.data(),
+      keep.data(), shifts.data(), P.data(), nullptr);
+  if (rc != 0) {
+    std::printf("launch error %d\n", rc);
+    return 1;
+  }
+  return write_out(argv[3], {&xi, &keys, &sc, &keep, &shifts});
 }
 #endif
 #endif
@@ -348,6 +384,10 @@ int main(int argc, char** argv) {
 #endif
 #ifdef GEN2_KERNELS
   if (argc >= 2 && std::string(argv[1]) == "yiq") return run_yiq(argc, argv);
+#endif
+#ifdef STREAMS_KERNEL
+  if (argc >= 2 && std::string(argv[1]) == "streams")
+    return run_streams(argc, argv);
 #endif
   if (argc >= 4 && std::string(argv[1]) == "gen1") {
     for (int k = 2; k + 1 < argc; k += 2) {
