@@ -371,14 +371,20 @@ def composite_video_process_split(y: torch.Tensor, u: torch.Tensor,
                                   v: torch.Tensor, prep: Prepared, *,
                                   cfg: CompositeConfig):
     """The JAX package's split program: #6, the head switch, #7, the
-    blend, #8, on uint8 planes; uint8 out."""
-    y_enc = stage_a(y, u, v, prep, cfg=cfg)
+    blend, #8, on uint8 planes; uint8 out. Each step is a span
+    `gen1.split.a`, `.switch`, `.b1`, `.blend`, `.b2`."""
+    with log.span("gen1.split.a"):
+        y_enc = stage_a(y, u, v, prep, cfg=cfg)
     if cfg.vhs_head_switching:
-        y_enc = head_switch_rows(y_enc, prep.shifts)
-    y1, u1, v1 = stage_b1(y_enc, prep, cfg=cfg)
+        with log.span("gen1.split.switch"):
+            y_enc = head_switch_rows(y_enc, prep.shifts)
+    with log.span("gen1.split.b1"):
+        y1, u1, v1 = stage_b1(y_enc, prep, cfg=cfg)
     if yuv422.does_vblend(cfg):
-        u1, v1 = vblend_rows(u1, v1)
-    return stage_b2(y1, u1, v1, prep, cfg=cfg)
+        with log.span("gen1.split.blend"):
+            u1, v1 = vblend_rows(u1, v1)
+    with log.span("gen1.split.b2"):
+        return stage_b2(y1, u1, v1, prep, cfg=cfg)
 
 
 def composite_video_process_fused(y: torch.Tensor, u: torch.Tensor,
