@@ -26,7 +26,9 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      the per-line inputs' kernel (field_streams) against yiq.field_streams
      on the card, every output bit for bit (sin and cos as int32 bits), in
      both benchmark configurations at 64 fields of 240x720 and at 4096
-     fields up to 2^31 - 1; the
+     fields up to 2^31 - 1; the Y4M payloads' kernel (y4m_payload)
+     against host/payload.payloads_np, every byte, on 64 random fields of
+     240x720 bobbed to 480 lines at 4:2:0 and 4:2:2; the
      outputs of yiq_chain and yuv_chain on their bench cases byte-identical
      to b8c5917's kernels (CRC32s in testing.PINNED_CHAIN_CRC32), and of
      the kernels that take several rows a CTA on every one of their timed
@@ -41,7 +43,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      before and read just after: `python -m cvsim_tpu_torch ntsc` and
      `python -m cvsim_tpu_torch to-composite` in-process on a 720x480
      colour-bar clip of 64 frames (128 fields, two GOPs), one launch of
-     the chain kernel and one of field_streams a GOP; colour bars
+     the chain kernel and one of field_streams a GOP, and one of
+     y4m_payload a GOP in `ntsc` (none in `to-composite`); colour bars
      kept; the first 8 frames again through `--device cpu`, compared
      within the chain tolerance; then a short `to-composite
      -bkey-feedback 20` run on a clip with dark, keyed rows, cuda vs cpu;
@@ -90,7 +93,9 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      too (#1-#4 at 240x704 B=64 and 540x1888 B=16; #5 at 240x720 B=64,
      288x720 PAL B=64 and 540x1888 B=16, #6-#8 at the last two; the pole
      cascade on testing.iir_cases; field_streams at 240x720 B=64 in both
-     benchmark configurations, its device time by torch.profiler; CUDA
+     benchmark configurations, its device time by torch.profiler;
+     y4m_payload at the render's GOP in both layouts, by torch.profiler,
+     against payloads_np's host wall time; CUDA
      events, median of 5), the gen-2
      split program vs kernel #1's path, the gen-1 split route
      vs yuv_chain at 576i and 1080i, the gen-1 black-key scan's host cost
@@ -335,6 +340,49 @@ def streams_bytes(b: int, l: int) -> int:
     (20 bytes a line) and the two int64 keys out (the phase table's few
     hundred bytes left out)."""
     return b * (4 + 4 + 16) + b * l * (4 + 8 + 4 + 4)
+
+
+def payload_calls(dev) -> list:
+    """[3] and [5]'s y4m_payload calls at the render's GOP, 64 random RGB
+    fields of 240x720 bobbed to 480 lines, at 4:2:0 and 4:2:2: (label,
+    kernel call, plain call on the fields' host copy, bytes read and
+    written)."""
+    import torch
+
+    from cvsim_tpu_torch.host import payload
+
+    gen = torch.Generator().manual_seed(20)
+    fields = torch.randint(0, 256, (64, 240, 720, 3), generator=gen,
+                           dtype=torch.uint8)
+    card = fields.to(dev)
+    host = fields.numpy()
+    return [(f"64 fields of 240x720 to 480 lines {name}",
+             partial(payload.payloads, card, 480, is422),
+             partial(payload.payloads_np, host, 480, is422),
+             fields.numel() + 64 * payload.frame_bytes(480, 720, is422))
+            for name, is422 in (("4:2:0", False), ("4:2:2", True))]
+
+
+def check_payloads(calls) -> None:
+    """[3] y4m_payload against payloads_np, every byte of every row."""
+    import numpy as np
+
+    for label, kern, plain, _ in calls:
+        bad = np.flatnonzero(kern().cpu().numpy() != plain())
+        if bad.size:
+            raise AssertionError(f"y4m_payload {label}: {bad.size} bytes != "
+                                 f"payloads_np, first at {bad[:5]}")
+        print(f"[3] y4m_payload {label}: bit for bit equal to payloads_np")
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Median wall time in ms of `reps` calls of a host function."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
 
 
 def chain_cases(kernel: str, configs: dict) -> list:
@@ -1760,6 +1808,8 @@ def main() -> int:
     err_raw28 = kernel_cases_raw28(dev)
     s_calls = streams_calls(dev, key)
     check_streams(s_calls)
+    p_calls = payload_calls(dev)
+    check_payloads(p_calls)
 
     # ---- 4. the main paths through the CLI
     tmp = tempfile.mkdtemp(prefix="cvsim_smoke_")
@@ -1775,7 +1825,7 @@ def main() -> int:
     out_cpu = os.path.join(tmp, "out_cpu.y4m")
     outs = {}
 
-    paths, streams_launches = {}, {}
+    paths, streams_launches, payload_launches = {}, {}, 0
     for tool, kernel, extra, bar_limit in (
             # the VHS-EP chroma bandlimit alone moves the magenta bar's
             # mean U by 9-10 LSB in gen-2 (the CPU path shows the same)
@@ -1787,21 +1837,27 @@ def main() -> int:
             ("to-composite", "yuv_chain", ["-vhs"], 40.0)):
         out = outs[tool] = os.path.join(tmp, f"out-{tool}.y4m")
         cli_s, counts, hdr, frames = run_cli(
-            cli_main, {"kernel": kernel, "streams": "field_streams"},
+            cli_main, {"kernel": kernel, "streams": "field_streams",
+                       "payload": "y4m_payload"},
             ["--device", "cuda", tool, "-i", src, "-o", out, *extra, *flags])
         launches = counts["kernel"]
         n_fields = len(frames)
         gops = -(-n_fields // 64)
         print(f"[4] {tool} --device cuda: {n_fields} fields "
               f"({hdr.width}x{hdr.height}) in {cli_s:.3f} s, kernel "
-              f"launches {launches} and field_streams launches "
-              f"{counts['streams']} for {gops} GOPs")
+              f"launches {launches}, field_streams launches "
+              f"{counts['streams']} and y4m_payload launches "
+              f"{counts['payload']} for {gops} GOPs")
         if n_fields != 128:
             raise AssertionError(f"{tool}: expected 128 output fields, "
                                  f"got {n_fields}")
-        if launches != gops or counts["streams"] != gops:
+        # the gen-2 render writes each GOP's payloads with one y4m_payload
+        # launch; gen-1 has its own writer
+        want_payload = gops if tool == "ntsc" else 0
+        if (launches != gops or counts["streams"] != gops
+                or counts["payload"] != want_payload):
             raise AssertionError(f"{tool}: launches {counts} != GOPs "
-                                 f"{gops}")
+                                 f"{gops} (y4m_payload {want_payload})")
         worst = check_bars(frames, y_in, u_in, v_in, bar_limit)
         print(f"[4] {tool} colour bars kept: worst per-bar mean difference "
               f"{worst:.3f} LSB (limit {bar_limit})")
@@ -1814,6 +1870,7 @@ def main() -> int:
               f"max diff {cpu_err}; tolerance: {TOLERANCE}")
         paths[tool] = (launches, n_fields / cli_s)
         streams_launches[tool] = counts["streams"]
+        payload_launches += counts["payload"]
 
     bkey = ["-vhs", "-bkey-feedback", "20", "-seed", "3"]
     _, bk_counts, _, frames = run_cli(
@@ -1974,6 +2031,32 @@ def main() -> int:
             times["field_streams"] = (dev_ms, plain_ms)
             bounds["field_streams"] = (bound, "bytes")
 
+    # y4m_payload at the render's GOP in both layouts against payloads_np
+    # on the host (the per-field numpy work it took off the render); its
+    # row of the kernels line is the first, 4:2:0, the benchmark's layout
+    for label, kern, plain, n_bytes in p_calls:
+        ms, ms2 = time_ms(kern), time_ms(kern)
+        b2b = time_ms(kern, calls=10)
+        plain_ms = wall_ms(plain)
+        act = device_activities(kern)
+        if act is not None and act[0] != 1:
+            raise AssertionError(f"y4m_payload {label}: device activities "
+                                 f"{act}, expected one kernel")
+        # without the profiler's events, back-to-back calls bound it above
+        dev_ms = act[1] if act else b2b
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        dev_s = (f"{dev_ms * 1e3:.1f} us (torch.profiler)" if act else
+                 "not measured (torch.profiler recorded nothing)")
+        print(f"[5] y4m_payload {label} on {card}: kernel on the card "
+              f"{dev_s}; a call {ms * 1e3:.1f} us (again {ms2 * 1e3:.1f} "
+              f"us; back to back {b2b * 1e3:.1f} us); payloads_np on the "
+              f"host {plain_ms:.3f} ms = {plain_ms / dev_ms:.0f}x the "
+              f"kernel; bound {bound * 1e3:.2f} us (bytes: {n_bytes}) = "
+              f"{bound / dev_ms:.1%}")
+        if "y4m_payload" not in times:
+            times["y4m_payload"] = (dev_ms, plain_ms)
+            bounds["y4m_payload"] = (bound, "bytes")
+
     # the line-sharded program vs kernel #1's path (prepare + kernel); both
     # paths include prepare()'s host work, so their events span it
     cfg = BENCH_VHS_EP
@@ -2067,18 +2150,24 @@ def main() -> int:
         "field_streams": ("streams", "none (XLA ops in cvsim_tpu/models/"
                           "fused_yiq.py _fused_prepare)",
                           sum(streams_launches.values()), 0),
+        # no TPU twin: the JAX package bobs and converts each field in
+        # numpy on the host; [3] raises on any differing byte
+        "y4m_payload": ("y4m_payload", "none (numpy on the host in "
+                        "cvsim_tpu/host/pipeline_yiq.py _emit)",
+                        payload_launches, 0),
     }
     for name, (ms, by) in bounds.items():
         if name not in floors:
-            continue   # raw28_tails, field_streams: no blocked form; [5]
-            # printed them
+            continue   # raw28_tails, field_streams, y4m_payload: no
+            # blocked form; [5] printed them
         k_ms, fl = times[name][0], floors[name]
         print(f"[5] {name} bound {ms:.4f} ms ({by}); blocked-form floor "
               f"{fl:.4f} ms (block products' multiply-adds at "
               f"{FMA_PER_S:.3g}/s); kernel {k_ms:.3f} ms = {ms / k_ms:.1%} "
               f"of the bound, {k_ms / fl:.2f}x the floor")
     # library_ms: no single PyTorch call computes these IIR chains, the
-    # raw decoder's carried line tails or the per-line inputs
+    # raw decoder's carried line tails, the per-line inputs or the Y4M
+    # payloads
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -5,11 +5,12 @@ cvsim_tpu.host.pipeline_yiq.
 The host loop (`run_video`, `_emit`: field clock, multi-input layering,
 -video-pts-in, checkpoint/resume) is the JAX package's, unchanged. Each
 GOP goes to the device as one uint8 [gop, L, W, 3] batch (pinned host
-memory, asynchronous copy), through models/yiq.composite_layer_rgb_auto,
-and back as uint8. With `-devices n` the GOP's fields split over an
-n-device mesh (parallel.run_sharded_chain_fused), each device running the
-same chain on its block. Overlapping the copies with compute is later
-work.
+memory, asynchronous copy), through models/yiq.composite_layer_rgb_auto
+and csrc/y4m_payload.cu (bob and RGB->YUV), and comes back as the fields'
+Y4M frame payloads, which `_emit` writes (host/payload.py). With
+`-devices n` the GOP's fields split over an n-device mesh
+(parallel.map_fields), each device running the same chain and payload
+kernel on its block. Overlapping the copies with compute is later work.
 """
 
 from __future__ import annotations
@@ -21,15 +22,14 @@ import numpy as np
 import torch
 
 from cvsim_tpu_torch.config import RunConfig
-from cvsim_tpu_torch.host import timing, y4m
-from cvsim_tpu_torch.host.colorconv import rgb_to_yuv601_np
+from cvsim_tpu_torch.host import payload, timing, y4m
 # per-frame host scaling dispatches to the native kernel (bit-exact twin of
 # colorconv.scale_frame_to_np; numpy fallback inside hostpix)
 from cvsim_tpu_torch.native.hostpix import scale_frame_to as _scale_frame_to
 from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yiq
-from cvsim_tpu_torch.parallel import make_mesh, run_sharded_chain_fused
+from cvsim_tpu_torch.parallel import make_mesh, map_fields
 from cvsim_tpu_torch.utils import log
 
 
@@ -58,9 +58,13 @@ class YIQPipeline:
     def process_batch(self, rgb_fields: np.ndarray, fieldnos,
                       parities) -> np.ndarray:
         """uint8 [gop, L, W, 3] fields through the chain on the device;
-        uint8 numpy out."""
+        uint8 numpy [gop, frame_bytes] out, each row the Y4M payload of a
+        field's bobbed frame (host/payload.py): made on the card, by one
+        kernel, where the chain's output lies there, else in numpy."""
+        out = self.cfg.output
+        args = (out.height, out.use_422_colorspace)
         if not self.cfg.enable_composite_emulation:
-            return rgb_fields
+            return payload.payloads_np(rgb_fields, *args)
         rgb = torch.from_numpy(rgb_fields)
         if self.device.type == "cuda":
             with log.span("gen2.pin"):
@@ -68,18 +72,22 @@ class YIQPipeline:
         fn = torch.tensor(fieldnos, dtype=torch.int32)
         pa = torch.tensor(parities, dtype=torch.int32)
         if self.mesh is not None:
-            # each device copies its block from the pinned batch
-            out = run_sharded_chain_fused(self.mesh, self.cfg.composite, rgb,
-                                          fn, pa, self.key)
-            return out.numpy()
+            # each device copies its block from the pinned batch and makes
+            # its fields' payloads, which come back to the host
+            cfg, key = self.cfg.composite, self.key
+            return map_fields(
+                self.mesh, lambda r, f, p: payload.payloads(
+                    yiq.composite_layer_rgb_auto(r, f, p, key, cfg=cfg),
+                    *args), rgb, fn, pa).numpy()
         dev = self.device
         rgb = log.to_device(rgb, dev, non_blocking=True)
-        out = yiq.composite_layer_rgb_auto(rgb, log.to_device(fn, dev),
+        rgb = yiq.composite_layer_rgb_auto(rgb, log.to_device(fn, dev),
                                            log.to_device(pa, dev), self.key,
                                            cfg=self.cfg.composite)
-        # waits for the chain and the copy
+        frames = payload.payloads(rgb, *args)
+        # waits for the chain, the payloads and the copy
         with log.span("gen2.wait"):
-            return log.to_host(out).numpy()
+            return log.to_host(frames).numpy()
 
     def _flush(self, batch, writer, gop: int, snapshot=None):
         """Run one GOP (the run's `gop`-th) and write its fields.
@@ -109,25 +117,16 @@ class YIQPipeline:
         with log.span("gen2.stack"):
             return np.stack([f[0] for f in fields]).astype(np.uint8)
 
-    def _emit(self, rgb_field, fieldno, writer):
+    def _emit(self, frame, fieldno, writer):
+        """Write one field's bobbed frame: its payload row from
+        process_batch."""
         out = self.cfg.output
         with log.span("gen2.emit"):
             with log.span("gen2.emit.convert"):
-                # bob the field to a full progressive frame, then RGB -> YUV
-                # (numpy: per-field host work, no eager device dispatches)
-                h = out.height
-                frame = np.repeat(rgb_field, 2, axis=0)[:h]
-                y, u, v = rgb_to_yuv601_np(frame[..., 0].astype(np.int32),
-                                           frame[..., 1].astype(np.int32),
-                                           frame[..., 2].astype(np.int32))
-                y = y.astype(np.uint8)
-                u = u.astype(np.uint8)
-                v = v.astype(np.uint8)
+                y, u, v = payload.planes(frame, out.height, out.width,
+                                         out.use_422_colorspace)
             with log.span("gen2.emit.write"):
-                if out.use_422_colorspace:
-                    writer.write(y, u[:, 0::2], v[:, 0::2])
-                else:
-                    writer.write(y, u[0::2, 0::2], v[0::2, 0::2])
+                writer.write(y, u, v)
             if self.progress:
                 print(f"\x0dOutput field {fieldno} ", end="",
                       file=sys.stderr)

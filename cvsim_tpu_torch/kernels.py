@@ -131,6 +131,10 @@ def load():
             # count, the stream
             lib.cvsim_raw28_tails.argtypes = [ptr] * 6 + [ctypes.c_int, ptr]
             lib.cvsim_raw28_tails.restype = ctypes.c_int
+            # the Y4M payloads: two pointers, five sizes, the stream
+            lib.cvsim_y4m_payload.argtypes = ([ptr] * 2 + [ctypes.c_int] * 5
+                                              + [ptr])
+            lib.cvsim_y4m_payload.restype = ctypes.c_int
             lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p
             _lib = lib

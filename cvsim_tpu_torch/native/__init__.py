@@ -21,6 +21,7 @@ _AV_SRC = os.path.join(_DIR, "avio.cpp")
 # and the Python binding (hostpix.py, libhostpix.so) share one
 # implementation
 _AV_PIX_SRC = os.path.join(_DIR, "hostpix.cpp")
+_AV_PIX_HDR = os.path.join(_DIR, os.pardir, "csrc", "yuv601.cuh")
 _AV_BIN = os.path.join(_DIR, "cvsim-av")
 _AV_LIBS = ["-lavformat", "-lavcodec", "-lavutil", "-lswscale",
             "-lswresample"]
@@ -40,7 +41,8 @@ def build_av_tool() -> str | None:
         try:
             if (not os.path.exists(_AV_BIN) or os.path.getmtime(_AV_BIN)
                     < max(os.path.getmtime(_AV_SRC),
-                          os.path.getmtime(_AV_PIX_SRC))):
+                          os.path.getmtime(_AV_PIX_SRC),
+                          os.path.getmtime(_AV_PIX_HDR))):
                 # build to a private temp name, then atomically rename:
                 # concurrent processes (parallel CLI runs, daemon + client)
                 # must never exec a half-linked binary or collide on the

@@ -27,6 +27,8 @@
 #include <cstdlib>
 #include <cstring>
 
+#include "../csrc/yuv601.cuh"
+
 namespace {
 
 inline int32_t clip_round_255(float x) {
@@ -213,20 +215,17 @@ void scale_frame_impl(const uint8_t *y, const uint8_t *u, const uint8_t *v,
 
 // ------------------------------------------------------------- rgb -> yuv
 // rgb_to_yuv601_np on an interleaved RGB frame; full-resolution uint8
-// planes out (the caller subsamples chroma by slicing).
+// planes out (the caller subsamples chroma by slicing). Each pixel is
+// csrc/yuv601.cuh's yuv_of, the conversion the card's y4m_payload runs.
 template <typename TI>
 void rgb_to_yuv_impl(const TI *rgb, long h, long w,
                      uint8_t *yo, uint8_t *uo, uint8_t *vo) {
-  const float k601 = (float)(219.0 / 255.0);
-  const float kc = (float)(224.0 / 255.0);
   for (long i = 0; i < h * w; i++) {
-    float rf = (float)rgb[i * 3 + 0];
-    float gf = (float)rgb[i * 3 + 1];
-    float bf = (float)rgb[i * 3 + 2];
-    float yl = (0.299f * rf + 0.587f * gf) + 0.114f * bf;
-    yo[i] = (uint8_t)clip_round_255(yl * k601 + 16.0f);
-    uo[i] = (uint8_t)clip_round_255((bf - yl) / 1.772f * kc + 128.0f);
-    vo[i] = (uint8_t)clip_round_255((rf - yl) / 1.402f * kc + 128.0f);
+    const cvsim::yuv601::Yuv e = cvsim::yuv601::yuv_of(
+        (float)rgb[i * 3 + 0], (float)rgb[i * 3 + 1], (float)rgb[i * 3 + 2]);
+    yo[i] = e.y;
+    uo[i] = e.u;
+    vo[i] = e.v;
   }
 }
 
@@ -239,29 +238,24 @@ template <typename TI>
 void rgb_to_yuv_sub_impl(const TI *rgb, long h, long w, int is422,
                          uint8_t *yo, long ys,
                          uint8_t *uo, long us, uint8_t *vo, long vs) {
-  const float k601 = (float)(219.0 / 255.0);
-  const float kc = (float)(224.0 / 255.0);
+  using cvsim::yuv601::yuv_of;
   long ch = is422 ? h : h / 2, cw = w / 2;
   for (long r = 0; r < h; r++) {
     const TI *p = rgb + r * w * 3;
     uint8_t *yrow = yo + r * ys;
-    for (long x = 0; x < w; x++) {
-      float rf = (float)p[x * 3 + 0];
-      float gf = (float)p[x * 3 + 1];
-      float bf = (float)p[x * 3 + 2];
-      float yl = (0.299f * rf + 0.587f * gf) + 0.114f * bf;
-      yrow[x] = (uint8_t)clip_round_255(yl * k601 + 16.0f);
-    }
+    for (long x = 0; x < w; x++)
+      yrow[x] = yuv_of((float)p[x * 3 + 0], (float)p[x * 3 + 1],
+                       (float)p[x * 3 + 2]).y;
   }
   for (long r = 0; r < ch; r++) {
     const TI *p = rgb + (size_t)(is422 ? r : 2 * r) * w * 3;
     uint8_t *urow = uo + r * us, *vrow = vo + r * vs;
     for (long c = 0; c < cw; c++) {
       const TI *px = p + 2 * c * 3;
-      float rf = (float)px[0], gf = (float)px[1], bf = (float)px[2];
-      float yl = (0.299f * rf + 0.587f * gf) + 0.114f * bf;
-      urow[c] = (uint8_t)clip_round_255((bf - yl) / 1.772f * kc + 128.0f);
-      vrow[c] = (uint8_t)clip_round_255((rf - yl) / 1.402f * kc + 128.0f);
+      const cvsim::yuv601::Yuv e =
+          yuv_of((float)px[0], (float)px[1], (float)px[2]);
+      urow[c] = e.u;
+      vrow[c] = e.v;
     }
   }
 }

@@ -23,6 +23,8 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "hostpix.cpp")
+# the per-pixel RGB->YUV it shares with the card's payload kernel
+_HDR = os.path.join(_DIR, os.pardir, "csrc", "yuv601.cuh")
 # in a directory of its own: a .so beside the package's modules would be
 # listed as an importable module by pkgutil
 _LIB = os.path.join(_DIR, "_build", "libhostpix.so")
@@ -45,7 +47,8 @@ def _load():
         lib = None
         try:
             if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+                    or os.path.getmtime(_LIB) < max(
+                        os.path.getmtime(_SRC), os.path.getmtime(_HDR))):
                 # private temp name + atomic rename: concurrent processes
                 # must never dlopen a half-linked library
                 os.makedirs(os.path.dirname(_LIB), exist_ok=True)

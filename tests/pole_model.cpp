@@ -12,6 +12,8 @@
 //   ./pole_model yuv DIR a|b1|b2 R OUT   (built with -DGEN1_KERNELS)
 //   ./pole_model yiq DIR a|b1|b2 R OUT   (built with -DGEN2_KERNELS)
 //   ./pole_model streams DIR OUT         (built with -DSTREAMS_KERNEL)
+//   ./pole_model payload DIR B L W H IS422 OUT  (built with -DPAYLOAD_KERNEL)
+//   ./pole_model yuv601 OUT              (built with -DPAYLOAD_KERNEL)
 //
 // ROWS rows of W samples (random values, a random reset value each) go
 // through the one-row form row by row, and through the multi-row form R
@@ -31,8 +33,11 @@
 // -DGEN2_KERNELS beside a copy of csrc/yiq_chain.cu (see run_yiq), `yiq`
 // runs kernel #2, #3 or #4. Built with -DSTREAMS_KERNEL beside a copy of
 // csrc/streams.cu, `streams` runs the per-line inputs' kernel
-// (cvsim_field_streams) whole.
-// tests/test_torch_pole_model.py and tests/test_torch_streams.py run it.
+// (cvsim_field_streams) whole. Built with -DPAYLOAD_KERNEL beside a copy of
+// csrc/y4m_payload.cu, `payload` runs the Y4M payloads' kernel
+// (cvsim_y4m_payload) whole, and `yuv601` writes csrc/yuv601.cuh's Y, U
+// and V of every RGB triple. tests/test_torch_pole_model.py,
+// tests/test_torch_streams.py and tests/test_torch_y4m_payload.py run it.
 
 #include <algorithm>
 #include <barrier>
@@ -70,7 +75,8 @@ static std::barrier<>* g_warps[4];
 inline void __syncthreads() { g_cta->arrive_and_wait(); }
 inline void __syncwarp() { g_warps[threadIdx.x / 32]->arrive_and_wait(); }
 
-#if defined(GEN1_KERNELS) || defined(GEN2_KERNELS) || defined(STREAMS_KERNEL)
+#if defined(GEN1_KERNELS) || defined(GEN2_KERNELS) || \
+    defined(STREAMS_KERNEL) || defined(PAYLOAD_KERNEL)
 #define WHOLE_KERNELS
 #endif
 
@@ -157,8 +163,11 @@ static void cvsim_launch(int ctas, F body) {
 #include "yuv_chain_cpu.cu"
 #elif defined(GEN2_KERNELS)
 #include "yiq_chain_cpu.cu"
-#else
+#elif defined(STREAMS_KERNEL)
 #include "streams_cpu.cu"
+#else
+#include "y4m_payload_cpu.cu"
+static_assert(cvsim::payload::THREADS == BLOCK, "a CTA runs BLOCK threads");
 #endif
 
 static std::vector<char> read_file(const std::string& dir, const char* name) {
@@ -287,6 +296,45 @@ static int run_streams(int argc, char** argv) {
   return write_out(argv[3], {&xi, &keys, &sc, &keep, &shifts});
 }
 #endif
+#ifdef PAYLOAD_KERNEL
+// `payload DIR B L W H IS422 OUT`: cvsim_y4m_payload on the uint8 RGB
+// fields [B, L, W, 3] in DIR/rgb at a frame height H; writes the payloads
+// [B, frame bytes] to OUT.
+static int run_payload(int argc, char** argv) {
+  if (argc != 9) return 2;
+  const auto rgb = read_file(argv[2], "rgb");
+  const int b = std::atoi(argv[3]), l = std::atoi(argv[4]);
+  const int w = std::atoi(argv[5]), h = std::atoi(argv[6]);
+  const int is422 = std::atoi(argv[7]);
+  if (rgb.size() != (size_t)b * l * w * 3) return 2;
+  const size_t ch = is422 ? h : (h + 1) / 2, cw = (w + 1) / 2;
+  std::vector<char> out((size_t)b * ((size_t)h * w + 2 * ch * cw));
+  const int rc = cvsim_y4m_payload(rgb.data(), out.data(), b, l, w, h, is422,
+                                   nullptr);
+  if (rc != 0) {
+    std::printf("launch error %d\n", rc);
+    return 1;
+  }
+  return write_out(argv[8], {&out});
+}
+
+// `yuv601 OUT`: Y, U and V of every RGB triple, each plane 2^24 bytes,
+// triple (r << 16) | (g << 8) | b at its index.
+static int run_yuv601(int argc, char** argv) {
+  if (argc != 3) return 2;
+  const size_t n = 1u << 24;
+  std::vector<char> y(n), u(n), v(n);
+  for (size_t i = 0; i < n; ++i) {
+    const auto e = cvsim::yuv601::yuv_of((float)(i >> 16),
+                                         (float)((i >> 8) & 255),
+                                         (float)(i & 255));
+    y[i] = (char)e.y;
+    u[i] = (char)e.u;
+    v[i] = (char)e.v;
+  }
+  return write_out(argv[2], {&y, &u, &v});
+}
+#endif
 #endif
 
 // ---- the tables of one pole (the layouts of pole.cuh's PoleTables),
@@ -388,6 +436,12 @@ int main(int argc, char** argv) {
 #ifdef STREAMS_KERNEL
   if (argc >= 2 && std::string(argv[1]) == "streams")
     return run_streams(argc, argv);
+#endif
+#ifdef PAYLOAD_KERNEL
+  if (argc >= 2 && std::string(argv[1]) == "payload")
+    return run_payload(argc, argv);
+  if (argc >= 2 && std::string(argv[1]) == "yuv601")
+    return run_yuv601(argc, argv);
 #endif
   if (argc >= 4 && std::string(argv[1]) == "gen1") {
     for (int k = 2; k + 1 < argc; k += 2) {
