@@ -294,7 +294,7 @@ def streams_calls(dev, key) -> list:
     benchmark's batch) and at 4096 random field numbers up to 2^31 - 1."""
     import torch
 
-    from cvsim_tpu_torch.models import fused_yiq, yiq
+    from cvsim_tpu_torch.models import chain_prep, yiq
     from cvsim_tpu_torch.testing import bench_cli_configs
 
     gen = torch.Generator().manual_seed(18)
@@ -308,7 +308,7 @@ def streams_calls(dev, key) -> list:
             fn = fn.to(dev)
             args = (cfg, fn, (fn & 1) ^ 1, 240, 720, key)
             calls.append((f"{name} {what} of 240x720",
-                          partial(fused_yiq.field_streams_fused, *args,
+                          partial(chain_prep.field_streams_fused, *args,
                                   gen1=gen1),
                           partial(yiq.field_streams, *args, gen1=gen1)))
     return calls

@@ -11,10 +11,12 @@ reader expects it:
              the JAX package runs them without a TPU kernel)
 - models/    the gen-2 YIQ and gen-1 YUV 4:2:2 stage paths (yiq.py,
              yuv422.py) and their fused chains (fused_yiq.py,
-             fused_yuv.py: per-field inputs, the plain chain and the
-             wrapper of the hand-written CUDA kernel)
-- csrc/      CUDA C++ kernels for Hopper (sm_90a), built at first use
-             by kernels.py
+             fused_yuv.py: the plain chain and the wrappers of the
+             hand-written CUDA kernels), with both chains' per-field and
+             per-line inputs in chain_prep.py
+- csrc/      CUDA C++ kernels for Hopper (sm_90a)
+- kernels.py builds csrc/ at first use and is the only module that
+             talks to the library: every wrapper calls kernels.launch
 - parallel/  the multi-device paths: fields over n devices (-devices),
              the line-sharded gen-2 program over row shards
 - host/      the gen-2 and gen-1 GOP pipelines, the audio stream

@@ -20,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cvsim_tpu_torch import kernels
 from cvsim_tpu_torch.host.colorconv import rgb_to_yuv601_np
-from cvsim_tpu_torch.utils import log
 
 
 def plane_shapes(height: int, width: int, is422: bool):
@@ -83,23 +83,13 @@ def payloads(fields: torch.Tensor, height: int, is422: bool) -> torch.Tensor:
     _check(fields.shape, height)
     if fields.dtype != torch.uint8:
         raise ValueError(f"fields: expected uint8, got {fields.dtype}")
-    if fields.device.type == "cpu":
+    dev = kernels.device_of(fields, "y4m_payload")
+    if dev is None:
         return torch.from_numpy(payloads_np(fields.numpy(), height, is422))
-    if fields.device.type != "cuda":
-        raise ValueError(f"y4m_payload: no kernel for device {fields.device}")
-    from cvsim_tpu_torch import kernels
-
     b, l, w, _ = fields.shape
     fields = fields.contiguous()
     out = torch.empty((b, frame_bytes(height, w, is422)), dtype=torch.uint8,
-                      device=fields.device)
-    with torch.cuda.device(fields.device):
-        stream = torch.cuda.current_stream(fields.device).cuda_stream
-        rc = kernels.load().cvsim_y4m_payload(
-            fields.data_ptr(), out.data_ptr(), b, l, w, height, int(is422),
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"y4m_payload launch failed: {kernels.error_string(rc)}")
-    log.count("launches.y4m_payload")
+                      device=dev)
+    kernels.launch("y4m_payload", fields, out, b, l, w, height, int(is422),
+                   device=dev)
     return out

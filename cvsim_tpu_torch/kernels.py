@@ -1,12 +1,20 @@
-"""Builds and loads the port's CUDA kernels.
+"""Builds and loads the port's CUDA kernels, and launches them.
 
 At first use, `nvcc` compiles every `csrc/*.cu` for Hopper (sm_90a), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface, in `_build/<hash>/` inside the
 package (listed in .gitignore). The hash covers the sources and the flags,
-so an edit rebuilds. The library is loaded with ctypes, with argtypes set
-for every entry point. A missing nvcc or a failed build raises; nothing
-falls back.
+so an edit rebuilds. The library is loaded with ctypes. A missing nvcc or
+a failed build raises; nothing falls back.
+
+This is the only module that talks to the library. A kernel wrapper asks
+`device_of` whether its tensor runs the plain version (CPU), the kernel
+(CUDA) or neither, and calls `launch(name, *args, device=...)`, which
+calls `cvsim_<name>` with the arguments in the order of the C entry point
+and the current stream last. Each argument is passed as an explicit ctypes
+value (`c_args`), so the entry points need no argtypes and no pointer is
+ever cut to a C int; the CPU tests hold each wrapper's arguments to its
+entry point's signature in csrc/.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+from cvsim_tpu_torch.utils import log
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
@@ -102,40 +112,6 @@ def load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            ptr = ctypes.c_void_p
-            # every argument of the kernel entry points is a pointer (or
-            # the stream)
-            for name, n_args in (("cvsim_yiq_chain", 15), ("cvsim_yiq_a", 11),
-                                 ("cvsim_yiq_b1", 14), ("cvsim_yiq_b2", 13),
-                                 ("cvsim_yuv_chain", 19), ("cvsim_yuv_a", 13),
-                                 ("cvsim_yuv_b1", 14), ("cvsim_yuv_b2", 15),
-                                 ("cvsim_fused_iir", 6),
-                                 ("cvsim_field_streams", 10)):
-                fn = getattr(lib, name)
-                fn.argtypes = [ptr] * n_args
-                fn.restype = ctypes.c_int
-            # rows a CTA of the multi-row kernels on the current device:
-            # #9, #2, #3 and #4 at a padded width, #6, #7 and #8 at the
-            # padded luma and chroma widths
-            for name, n_args in (("cvsim_fused_iir_rows_per_cta", 1),
-                                 ("cvsim_yiq_a_rows_per_cta", 1),
-                                 ("cvsim_yiq_b1_rows_per_cta", 1),
-                                 ("cvsim_yiq_b2_rows_per_cta", 1),
-                                 ("cvsim_yuv_a_rows_per_cta", 2),
-                                 ("cvsim_yuv_b1_rows_per_cta", 2),
-                                 ("cvsim_yuv_b2_rows_per_cta", 2)):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_int] * n_args
-                fn.restype = ctypes.c_int
-            # the raw decoder's line-tail chain: six pointers, the line
-            # count, the stream
-            lib.cvsim_raw28_tails.argtypes = [ptr] * 6 + [ctypes.c_int, ptr]
-            lib.cvsim_raw28_tails.restype = ctypes.c_int
-            # the Y4M payloads: two pointers, five sizes, the stream
-            lib.cvsim_y4m_payload.argtypes = ([ptr] * 2 + [ctypes.c_int] * 5
-                                              + [ptr])
-            lib.cvsim_y4m_payload.restype = ctypes.c_int
-            lib.cvsim_error_string.argtypes = [ctypes.c_int]
             lib.cvsim_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
@@ -143,3 +119,55 @@ def load():
 
 def error_string(err: int) -> str:
     return f"{err} ({load().cvsim_error_string(err).decode()})"
+
+
+_INT_MIN, _INT_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def c_args(args) -> list:
+    """args as explicit ctypes values: a tensor as its data pointer, None
+    as a null pointer, a ctypes.Structure by reference, a Python int as a
+    C int. An int outside the int32 range raises: it is most likely a
+    pointer passed where its tensor belongs."""
+    import torch
+
+    out = []
+    for k, a in enumerate(args):
+        if isinstance(a, torch.Tensor):
+            out.append(ctypes.c_void_p(a.data_ptr()))
+        elif a is None:
+            out.append(ctypes.c_void_p())
+        elif isinstance(a, ctypes.Structure):
+            out.append(ctypes.byref(a))
+        elif isinstance(a, int):
+            if not _INT_MIN <= a <= _INT_MAX:
+                raise ValueError(f"argument {k}: {a} is outside a C int")
+            out.append(ctypes.c_int(a))
+        else:
+            raise TypeError(f"argument {k}: no C form for {type(a).__name__}")
+    return out
+
+
+def device_of(t, what: str):
+    """None for a CPU tensor (the wrapper runs its plain version), the
+    device for a CUDA tensor; raises for any other device."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+    return t.device
+
+
+def launch(name: str, *args, device) -> None:
+    """Call `cvsim_<name>(*args, stream)` on device's current stream (no
+    sync); raise on a refused launch and count `launches.<name>`."""
+    import torch
+
+    c = c_args(args)
+    fn = getattr(load(), f"cvsim_{name}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*c, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {error_string(rc)}")
+    log.count(f"launches.{name}")

@@ -1,10 +1,8 @@
 """The gen-1 chain as hand-written CUDA kernels (twin of
 cvsim_tpu.models.fused_yuv).
 
-- `prepare`: every per-field and per-line input of the chain (phase xi,
-  the two in-kernel noise stream ids, chroma-phase sin/cos, dropout keep
-  mask, the full per-row head-switch shift table) plus the 11 stacked IIR
-  constant tables of the gen-1 chain.
+- `prepare`: models/chain_prep.prepare with the 11 stacked IIR
+  constant tables of the gen-1 chain (`_alpha_consts_gen1`).
 - Kernel #5, the whole chain: `composite_video_process_merged` wraps
   csrc/yuv_chain.cu's `cvsim_yuv_chain`; `chain_reference` is its plain
   PyTorch version, built from the stage functions of models/yuv422.py.
@@ -19,13 +17,13 @@ cvsim_tpu.models.fused_yuv).
   single-tile budget, #6-#8 above it (576i PAL, 1080i).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. Planes are uint8 in and out: y [B, L, W],
-u and v [B, L, W//2], and so are the planes between #6, #7 and #8 (every
-value there is clamped to [0, 255] or is the floor of a mean of such
-values). The TPU path's line tiling, 8-aligned head-switch window and
-stride-2 pick matrices exist for Mosaic's layout rules and have no
-counterpart here. yuv422.composite_video_process_auto is the entry point
-of the main path.
+launches its kernel through kernels.launch or raises (kernels.device_of).
+Planes are uint8 in and out: y [B, L, W], u and v [B, L, W//2], and so
+are the planes between #6, #7 and #8 (every value there is clamped to
+[0, 255] or is the floor of a mean of such values). The TPU path's line
+tiling, 8-aligned head-switch window and stride-2 pick matrices exist for
+Mosaic's layout rules and have no counterpart here.
+yuv422.composite_video_process_auto is the entry point of the main path.
 """
 
 from __future__ import annotations
@@ -34,12 +32,12 @@ import ctypes
 
 import torch
 
+from cvsim_tpu_torch import kernels
 from cvsim_tpu_torch.config import CompositeConfig, NTSC_RATE, NTSC_RATE_422, iir_alpha
-from cvsim_tpu_torch.models import yiq, yuv422
-from cvsim_tpu_torch.models.fused_yiq import (Prepared, _check, _cuda_device,
-                                              _launch, _stack_alpha_consts,
-                                              _u32_as_i32,
-                                              field_streams_fused)
+from cvsim_tpu_torch.models import chain_prep, yiq, yuv422
+from cvsim_tpu_torch.models.chain_prep import (Prepared, check,
+                                               check_prepared, streams,
+                                               u32_as_i32)
 from cvsim_tpu_torch.ops.blocked_iir import BLOCK, full_float32
 from cvsim_tpu_torch.utils import log
 
@@ -58,7 +56,7 @@ REF_TILE_BUDGET = 130_000
 # ------------------------------------------------------------ IIR tables
 
 def _alpha_consts_gen1(cfg: CompositeConfig):
-    """Stacked decay constants (fused_yiq._stack_alpha_consts); rows are
+    """Stacked decay constants (chain_prep.stack_alpha_consts); rows are
     0: in/out U cut (1.3MHz @422)      1: U cut/2 highpass
     2: in/out V cut (0.6/1.3MHz @422)  3: V cut/2 highpass
     4: preemphasis cut (@4fsc)         5: VHS luma cut (@4fsc)
@@ -83,30 +81,17 @@ def _alpha_consts_gen1(cfg: CompositeConfig):
         (NTSC_RATE_422, NTSC_RATE_422 / 4),
     ]
     alphas = [float(iir_alpha(rate, cut)) for rate, cut in specs] + [0.5]
-    return _stack_alpha_consts(alphas)
+    return chain_prep.stack_alpha_consts(alphas)
 
 
 # ------------------------------------------------------------ inputs
 
 def prepare(cfg: CompositeConfig, y: torch.Tensor, fieldno: torch.Tensor,
             field_parity: torch.Tensor, key: int) -> Prepared:
-    """Everything the chain needs besides the planes, on y's device.
-    key: the u32 stream seed (interop.key32_from_seed)."""
-    _, l, w = y.shape
-    dev = y.device
-    with log.span("gen1.prepare"):
-        with log.span("gen1.prepare.copy"):
-            fieldno = log.to_device(fieldno, dev)
-            field_parity = log.to_device(field_parity, dev)
-        with log.span("gen1.prepare.streams"):
-            s = field_streams_fused(cfg, fieldno, field_parity, l, w, key,
-                                    gen1=True)
-        with log.span("gen1.prepare.tables"):
-            consts = _alpha_consts_gen1(cfg)
-        with log.span("gen1.prepare.copy"):
-            tables = tuple(log.to_device(torch.from_numpy(t), dev)
-                           for t in consts)
-    return Prepared(s.xi, s.keys_ab, s.sincos, s.keep, s.shifts, tables)
+    """chain_prep.prepare of uint8 luma planes y [B, L, W], under
+    `gen1.prepare`."""
+    return chain_prep.prepare("gen1", _alpha_consts_gen1, cfg, y, fieldno,
+                              field_parity, key, gen1=True)
 
 
 def takes_split(l: int, w: int) -> bool:
@@ -119,11 +104,6 @@ def takes_split(l: int, w: int) -> bool:
 
 
 # ------------------------------------------------------------ plain versions
-
-def _streams(prep: Prepared) -> yiq.FieldStreams:
-    return yiq.FieldStreams(prep.xi, prep.keys_ab, prep.sincos, prep.keep,
-                            prep.shifts)
-
 
 def _u8(planes):
     return tuple(p.to(torch.uint8) for p in planes)
@@ -140,7 +120,7 @@ def chain_reference(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     functions derive the same IIR tables from cfg that `prep` carries."""
     full_float32(y)
     out = yuv422.composite_video_process_streams(
-        *_i32((y, u, v)), cfg=cfg, streams=_streams(prep))
+        *_i32((y, u, v)), cfg=cfg, streams=streams(prep))
     return _u8(out)
 
 
@@ -149,7 +129,7 @@ def stage_a_reference(y, u, v, prep: Prepared, *, cfg: CompositeConfig):
     [B, L, W], before the head switch."""
     full_float32(y)
     y_enc, _, _ = yuv422.composite_front_a(*_i32((y, u, v)), cfg=cfg,
-                                           streams=_streams(prep))
+                                           streams=streams(prep))
     return y_enc.to(torch.uint8)
 
 
@@ -158,7 +138,7 @@ def stage_b1_reference(y, prep: Prepared, *, cfg: CompositeConfig):
     -> y, u, v uint8, before the vertical blend."""
     full_float32(y)
     out = yuv422.composite_front_b1(y.to(torch.int32), None, None, cfg=cfg,
-                                    streams=_streams(prep))
+                                    streams=streams(prep))
     return _u8(out)
 
 
@@ -167,7 +147,7 @@ def stage_b2_reference(y, u, v, prep: Prepared, *, cfg: CompositeConfig):
     output, uint8."""
     full_float32(y)
     out = yuv422.composite_back_b2(*_i32((y, u, v)), cfg=cfg,
-                                   streams=_streams(prep))
+                                   streams=streams(prep))
     return _u8(out)
 
 
@@ -250,17 +230,8 @@ def _launch_params(cfg: CompositeConfig, prep: Prepared, y: torch.Tensor,
     b, l, w = y.shape
     w2 = w // 2
     for name, (t, kind) in planes.items():
-        _check(name, t, torch.uint8, (b, l, w if kind == "luma" else w2), dev)
-    _check("xi", prep.xi, torch.int32, (b, l), dev)
-    _check("keys_ab", prep.keys_ab, torch.int64, (b, 2), dev)
-    _check("sincos", prep.sincos, torch.float32, (b, l, 2), dev)
-    _check("keep", prep.keep, torch.float32, (b, l), dev)
-    _check("shifts", prep.shifts, torch.int32, (b, l), dev)
-    table_shapes = ((N_TABLES, BLOCK, BLOCK), (N_TABLES, BLOCK),
-                    (N_TABLES, BLOCK, BLOCK), (N_TABLES, 8, BLOCK),
-                    (N_TABLES, BLOCK, 8))
-    for k, (t, shape) in enumerate(zip(prep.tables, table_shapes)):
-        _check(f"tables[{k}]", t, torch.float32, shape, dev)
+        check(name, t, torch.uint8, (b, l, w if kind == "luma" else w2), dev)
+    check_prepared(prep, b, l, dev, N_TABLES)
     wp = -(-w // BLOCK) * BLOCK
     wp2 = -(-w2 // BLOCK) * BLOCK
     return _yuv_params(cfg, b, l, w, wp, w2, wp2)
@@ -274,25 +245,19 @@ def composite_video_process_merged(y: torch.Tensor, u: torch.Tensor,
     chain_reference; a CUDA tensor launches the kernel of
     csrc/yuv_chain.cu (built at first use) or raises."""
     _no_taps(cfg)
-    dev = _cuda_device(y, "yuv_chain")
+    dev = kernels.device_of(y, "yuv_chain")
     if dev is None:
         return chain_reference(y, u, v, prep, cfg=cfg)
-    from cvsim_tpu_torch import kernels
-
     params = _launch_params(cfg, prep, y, dev, {
         "y": (y, "luma"), "u": (u, "chroma"), "v": (v, "chroma")})
     b, l, w = y.shape
-    keys = _u32_as_i32(prep.keys_ab)
+    keys = u32_as_i32(prep.keys_ab)
     scratch = torch.empty(b * l * (w + 2 * (w // 2)), dtype=torch.uint8,
                           device=dev)
     y_out, u_out, v_out = (torch.empty_like(p) for p in (y, u, v))
-    _launch("yuv_chain", kernels.load().cvsim_yuv_chain, dev,
-            y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
-            keys.data_ptr(), prep.sincos.data_ptr(), prep.keep.data_ptr(),
-            prep.shifts.data_ptr(), *(t.data_ptr() for t in prep.tables),
-            scratch.data_ptr(), y_out.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), ctypes.addressof(params))
-    log.count("launches.yuv_chain")
+    kernels.launch("yuv_chain", y, u, v, prep.xi, keys, prep.sincos,
+                   prep.keep, prep.shifts, *prep.tables, scratch, y_out,
+                   u_out, v_out, params, device=dev)
     return y_out, u_out, v_out
 
 
@@ -302,20 +267,15 @@ def stage_a(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     [B, L, W]. CPU tensor: stage_a_reference; CUDA tensor: the kernel or
     raise."""
     _no_taps(cfg)
-    dev = _cuda_device(y, "yuv_a")
+    dev = kernels.device_of(y, "yuv_a")
     if dev is None:
         return stage_a_reference(y, u, v, prep, cfg=cfg)
-    from cvsim_tpu_torch import kernels
-
     params = _launch_params(cfg, prep, y, dev, {
         "y": (y, "luma"), "u": (u, "chroma"), "v": (v, "chroma")})
-    keys = _u32_as_i32(prep.keys_ab)
+    keys = u32_as_i32(prep.keys_ab)
     y_out = torch.empty_like(y)
-    _launch("yuv_a", kernels.load().cvsim_yuv_a, dev,
-            y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
-            keys.data_ptr(), *(t.data_ptr() for t in prep.tables),
-            y_out.data_ptr(), ctypes.addressof(params))
-    log.count("launches.yuv_a")
+    kernels.launch("yuv_a", y, u, v, prep.xi, keys, *prep.tables, y_out,
+                   params, device=dev)
     return y_out
 
 
@@ -324,23 +284,17 @@ def stage_b1(y: torch.Tensor, prep: Prepared, *, cfg: CompositeConfig):
     v uint8. CPU tensor: stage_b1_reference; CUDA tensor: the kernel or
     raise."""
     _no_taps(cfg)
-    dev = _cuda_device(y, "yuv_b1")
+    dev = kernels.device_of(y, "yuv_b1")
     if dev is None:
         return stage_b1_reference(y, prep, cfg=cfg)
-    from cvsim_tpu_torch import kernels
-
     params = _launch_params(cfg, prep, y, dev, {"y": (y, "luma")})
     b, l, w = y.shape
-    keys = _u32_as_i32(prep.keys_ab)
+    keys = u32_as_i32(prep.keys_ab)
     y_out = torch.empty_like(y)
     u_out = torch.empty((b, l, w // 2), dtype=torch.uint8, device=dev)
     v_out = torch.empty_like(u_out)
-    _launch("yuv_b1", kernels.load().cvsim_yuv_b1, dev,
-            y.data_ptr(), prep.xi.data_ptr(), keys.data_ptr(),
-            prep.sincos.data_ptr(), *(t.data_ptr() for t in prep.tables),
-            y_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-            ctypes.addressof(params))
-    log.count("launches.yuv_b1")
+    kernels.launch("yuv_b1", y, prep.xi, keys, prep.sincos, *prep.tables,
+                   y_out, u_out, v_out, params, device=dev)
     return y_out, u_out, v_out
 
 
@@ -350,20 +304,14 @@ def stage_b2(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     uint8. CPU tensor: stage_b2_reference; CUDA tensor: the kernel or
     raise."""
     _no_taps(cfg)
-    dev = _cuda_device(y, "yuv_b2")
+    dev = kernels.device_of(y, "yuv_b2")
     if dev is None:
         return stage_b2_reference(y, u, v, prep, cfg=cfg)
-    from cvsim_tpu_torch import kernels
-
     params = _launch_params(cfg, prep, y, dev, {
         "y": (y, "luma"), "u": (u, "chroma"), "v": (v, "chroma")})
     y_out, u_out, v_out = (torch.empty_like(p) for p in (y, u, v))
-    _launch("yuv_b2", kernels.load().cvsim_yuv_b2, dev,
-            y.data_ptr(), u.data_ptr(), v.data_ptr(), prep.xi.data_ptr(),
-            prep.keep.data_ptr(), *(t.data_ptr() for t in prep.tables),
-            y_out.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-            ctypes.addressof(params))
-    log.count("launches.yuv_b2")
+    kernels.launch("yuv_b2", y, u, v, prep.xi, prep.keep, *prep.tables,
+                   y_out, u_out, v_out, params, device=dev)
     return y_out, u_out, v_out
 
 

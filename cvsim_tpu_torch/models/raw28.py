@@ -24,7 +24,6 @@ Timing constants (compute_NTSC, :249-256): scanline = rate/(29.97*525);
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -32,8 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cvsim_tpu_torch import kernels
 from cvsim_tpu_torch.ops.cmath import c_div, sqrt_rn
-from cvsim_tpu_torch.utils import log
 
 SYNC_THRESHOLD = int(192 * 0.25 * 0.5)  # :552
 
@@ -296,30 +295,17 @@ def raw28_tails(c3_tail: torch.Tensor, scan_tail: torch.Tensor,
     arguments and results. A CPU tensor runs tail_chain_reference. A CUDA
     tensor launches the kernel of csrc/raw28.cu (built at first use),
     one launch for all N lines, or raises; there is no fallback."""
-    if c3_tail.device.type == "cpu":
+    dev = kernels.device_of(c3_tail, "raw28_tails")
+    if dev is None:
         return tail_chain_reference(c3_tail, scan_tail, carry)
-    if c3_tail.device.type != "cuda":
-        raise ValueError(f"raw28_tails: no kernel for device {c3_tail.device}")
     n = _check_tails(c3_tail, scan_tail, carry)
-    from cvsim_tpu_torch import kernels
-
     c3_tail, scan_tail, carry = (t.contiguous()
                                  for t in (c3_tail, scan_tail, carry))
-    chroma = torch.empty((n, OUT_COLS), dtype=torch.int32,
-                         device=c3_tail.device)
+    chroma = torch.empty((n, OUT_COLS), dtype=torch.int32, device=dev)
     luma = torch.empty_like(chroma)
     carry_out = torch.empty_like(carry)
-    lib = kernels.load()
-    with torch.cuda.device(c3_tail.device):
-        stream = torch.cuda.current_stream(c3_tail.device).cuda_stream
-        rc = lib.cvsim_raw28_tails(
-            c3_tail.data_ptr(), scan_tail.data_ptr(), carry.data_ptr(),
-            chroma.data_ptr(), luma.data_ptr(), carry_out.data_ptr(),
-            ctypes.c_int(n), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"raw28_tails launch failed: {kernels.error_string(rc)}")
-    log.count("launches.raw28_tails")
+    kernels.launch("raw28_tails", c3_tail, scan_tail, carry, chroma, luma,
+                   carry_out, n, device=dev)
     return chroma, luma, carry_out
 
 

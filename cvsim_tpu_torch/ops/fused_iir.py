@@ -23,10 +23,10 @@ import functools
 import numpy as np
 import torch
 
+from cvsim_tpu_torch import kernels
 from cvsim_tpu_torch.ops.blocked_iir import (BLOCK, _decay_consts, full_float32,
                                              iir_lowpass_blocked)
 from cvsim_tpu_torch.ops.iir import Cascades
-from cvsim_tpu_torch.utils import log
 
 MAX_POLES = 8   # iir::MAX_POLES in csrc/fused_iir.cu
 MODES = {"none": 0, "emph": 1, "unsharp": 2}
@@ -89,18 +89,14 @@ def fused_iir(x: torch.Tensor, *, alphas: tuple, y0s: tuple,
     csrc/fused_iir.cu (built at first use), several rows a CTA at the
     narrower widths (the kernel chooses how many), or raises; there is no
     fallback."""
-    if x.device.type == "cpu":
+    if kernels.device_of(x, "fused_iir") is None:
         return fused_iir_reference(x, alphas=alphas, y0s=y0s, mode=mode,
                                    gain=gain)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_iir: no kernel for device {x.device}")
     _check_args(alphas, y0s, mode)
     if x.dtype != torch.float32:
         raise ValueError(f"x: dtype {x.dtype}, expected torch.float32")
     if x.ndim < 1 or x.shape[-1] < 1:
         raise ValueError(f"x: shape {tuple(x.shape)}, expected [..., W>0]")
-    from cvsim_tpu_torch import kernels
-
     w = x.shape[-1]
     xf = x.reshape(-1, w).contiguous()
     tt, d = _tables(tuple(float(a) for a in alphas), x.device)
@@ -109,15 +105,7 @@ def fused_iir(x: torch.Tensor, *, alphas: tuple, y0s: tuple,
     params = _IirParams(rows=xf.shape[0], w=w, wp=-(-w // BLOCK) * BLOCK,
                         k=len(alphas), mode=MODES[mode], gain=float(gain),
                         y0=(ctypes.c_float * MAX_POLES)(*y0))
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.cvsim_fused_iir(xf.data_ptr(), tt.data_ptr(), d.data_ptr(),
-                                 out.data_ptr(), ctypes.addressof(params),
-                                 stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_iir launch failed: {kernels.error_string(rc)}")
-    log.count("launches.fused_iir")
+    kernels.launch("fused_iir", xf, tt, d, out, params, device=x.device)
     return out.reshape(x.shape)
 
 

@@ -29,7 +29,7 @@ from cvsim_tpu import config as jconfig
 from cvsim_tpu.models import fused_yuv as jfy
 from cvsim_tpu_torch import interop
 from cvsim_tpu_torch.config import CompositeConfig
-from cvsim_tpu_torch.models import fused_yuv, yiq, yuv422
+from cvsim_tpu_torch.models import chain_prep, fused_yuv, yiq, yuv422
 from cvsim_tpu_torch.testing import (BENCH_GEN1_EP, GEN1_CHAIN_CONFIGS,
                                      assert_chain_equal, launches,
                                      reference_config)
@@ -100,7 +100,7 @@ def test_seams_carry_uint8_and_split_equals_chain(name):
     y, u, v = (torch.from_numpy(p) for p in _planes(name, 2, 48, 128))
     fn = torch.tensor([0, 1], dtype=torch.int32)
     prep = fused_yuv.prepare(cfg, y, fn, fn % 2, K32)
-    st = fused_yuv._streams(prep)
+    st = chain_prep.streams(prep)
     i32 = [p.to(torch.int32) for p in (y, u, v)]
     y_a, _, _ = yuv422.composite_front_a(*i32, cfg=cfg, streams=st)
     if cfg.vhs_head_switching:

@@ -36,7 +36,7 @@ import torch
 from cvsim_tpu_torch.config import CompositeConfig
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import fused_yiq, fused_yuv
-from cvsim_tpu_torch.models.fused_yiq import _u32_as_i32
+from cvsim_tpu_torch.models.chain_prep import u32_as_i32
 from cvsim_tpu_torch.testing import (BENCH_CONFIGS, CHAIN_CONFIGS,
                                      GEN1_CHAIN_CONFIGS, assert_chain_equal)
 
@@ -205,7 +205,7 @@ def test_gen1_kernels_at_any_rows_per_cta(gen1_model, tmp_path, name, shape):
                                    -(-w2 // 128) * 128)
     _write_inputs(tmp_path, {
         "params": bytes(params), "y": y, "u": u, "v": v, "xi": prep.xi,
-        "keys": _u32_as_i32(prep.keys_ab), "sincos": prep.sincos,
+        "keys": u32_as_i32(prep.keys_ab), "sincos": prep.sincos,
         "keep": prep.keep,
         **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))})
 
@@ -273,7 +273,7 @@ def _gen2_kernel_at_any_rows_per_cta(gen2_model, tmp_path, kernel, name,
     wp = -(-w // 128) * 128
     params = fused_yiq._chain_params(cfg, b, l, w, wp, row0, l_glob)
     files = {"params": bytes(params), "xi": prep.xi,
-             "keys": _u32_as_i32(prep.keys_ab), "sincos": prep.sincos,
+             "keys": u32_as_i32(prep.keys_ab), "sincos": prep.sincos,
              "keep": prep.keep,
              **dict(zip(("tt", "d", "tt3", "d3", "vt"), prep.tables))}
     if kernel == "a":

@@ -1,5 +1,5 @@
 """The per-line inputs' kernel (csrc/streams.cu, `cvsim_field_streams`,
-wrapped by models/fused_yiq.field_streams_fused) against its plain version
+wrapped by models/chain_prep.field_streams_fused) against its plain version
 yiq.field_streams.
 
 On the CPU: the wrapper returns yiq.field_streams' outputs; the kernel's
@@ -31,7 +31,7 @@ import torch
 
 from cvsim_tpu_torch.config import CompositeConfig, VHSSpeed
 from cvsim_tpu_torch.interop import key32_from_seed
-from cvsim_tpu_torch.models import fused_yiq, yiq, yuv422
+from cvsim_tpu_torch.models import chain_prep, fused_yiq, yiq, yuv422
 from cvsim_tpu_torch.ops.noise import (field_stage_keys, randint_per_field,
                                        random_walk_per_field)
 from cvsim_tpu_torch.testing import bench_cli_configs, launches
@@ -137,7 +137,7 @@ def test_wrapper_on_cpu_returns_plain_version(name, cfg, gen1, l, w):
     """A CPU tensor takes yiq.field_streams itself and launches nothing."""
     fn, par = _fields()
     before = launches("field_streams")
-    got = fused_yiq.field_streams_fused(cfg, fn, par, l, w, KEY, gen1=gen1)
+    got = chain_prep.field_streams_fused(cfg, fn, par, l, w, KEY, gen1=gen1)
     want = yiq.field_streams(cfg, fn, par, l, w, KEY, gen1=gen1)
     _assert_streams_equal(got, want, name)
     assert launches("field_streams") == before
@@ -219,11 +219,11 @@ def _run_model(model, d, cfg, fn, par, l, w, gen1) -> yiq.FieldStreams:
     """cvsim_field_streams through the CPU model, on the wrapper's own
     parameters and phase table."""
     b = fn.shape[0]
-    params = fused_yiq._streams_params(cfg, b, l, w, KEY, gen1,
-                                       fn.element_size(),
-                                       par.element_size())
+    params = chain_prep._streams_params(cfg, b, l, w, KEY, gen1,
+                                        fn.element_size(),
+                                        par.element_size())
     mag = cfg.video_chroma_phase_noise
-    table = (fused_yiq._phase_table(abs(mag), torch.device("cpu")) if mag
+    table = (chain_prep._phase_table(abs(mag), torch.device("cpu")) if mag
              else torch.zeros((2, 2)))
     files = {"params": bytes(params), "fieldno": fn.numpy().tobytes(),
              "parity": par.numpy().tobytes(),
@@ -289,9 +289,9 @@ def _assert_equal_to_cpu(got, cpu, cfg, dev, what: str):
         return _assert_streams_equal(got, cpu, what)
     _assert_streams_equal(got._replace(sincos=cpu.sincos.new_zeros(1)),
                           cpu._replace(sincos=cpu.sincos.new_zeros(1)), what)
-    rows = _phase_rows(got.sincos, fused_yiq._phase_table(abs(mag), dev))
+    rows = _phase_rows(got.sincos, chain_prep._phase_table(abs(mag), dev))
     want = _phase_rows(cpu.sincos,
-                       fused_yiq._phase_table(abs(mag), torch.device("cpu")))
+                       chain_prep._phase_table(abs(mag), torch.device("cpu")))
     assert torch.equal(rows, want), what
 
 
@@ -311,7 +311,7 @@ def test_kernel_equals_plain_version_on_card_and_cpu(cuda_device, name, cfg,
     for dtype in (torch.int32, torch.int64):
         fn, par = _fields(dtype, fieldnos=BATCH_FIELDNOS)
         before = launches("field_streams")
-        got = fused_yiq.field_streams_fused(cfg, fn.to(cuda_device),
+        got = chain_prep.field_streams_fused(cfg, fn.to(cuda_device),
                                             par.to(cuda_device), l, w, KEY,
                                             gen1=gen1)
         torch.cuda.synchronize()
@@ -336,7 +336,8 @@ def test_row_shard_prepare_equals_cpu(cuda_device, row0, rows):
                             row0=row0, l_glob=240)
     want = fused_yiq.prepare(BENCH_GEN2, rgb, fn, par, KEY, row0=row0,
                              l_glob=240)
-    _assert_streams_equal(fused_yiq._streams(got), fused_yiq._streams(want),
+    _assert_streams_equal(chain_prep.streams(got),
+                          chain_prep.streams(want),
                           f"rows {row0}..{row0 + rows - 1}")
 
 
