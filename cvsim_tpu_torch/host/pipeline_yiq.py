@@ -3,11 +3,15 @@ progressive output (master loop, ffmpeg_ntsc.cpp:2146-2283). Twin of
 cvsim_tpu.host.pipeline_yiq.
 
 The host loop (`run_video`, `_emit`: field clock, multi-input layering,
--video-pts-in, checkpoint/resume) is the JAX package's, unchanged. Each
-GOP goes to the device as one uint8 [gop, L, W, 3] batch (pinned host
-memory, asynchronous copy), through models/yiq.composite_layer_rgb_auto
-and csrc/y4m_payload.cu (bob and RGB->YUV), and comes back as the fields'
-Y4M frame payloads, which `_emit` writes (host/payload.py). With
+-video-pts-in, checkpoint/resume) is the JAX package's, unchanged. Source
+frames are scaled to uint8 RGB, and each GOP's field lines are copied
+into one uint8 [gop, L, W, 3] staging buffer, made once and refilled every
+GOP (`_stack`). On a CUDA pipeline the buffer is pinned, and the GOP goes
+to the device in one asynchronous copy from it, through
+models/yiq.composite_layer_rgb_auto and csrc/y4m_payload.cu (bob and
+RGB->YUV), and comes back as the fields' Y4M frame payloads, which `_emit`
+writes (host/payload.py); `-nocomp` makes the payloads from the buffer in
+numpy and pins nothing. With
 `-devices n` the GOP's fields split over an n-device mesh
 (parallel.map_fields), each device running the same chain and payload
 kernel on its block. Overlapping the copies with compute is later work.
@@ -23,9 +27,9 @@ import torch
 
 from cvsim_tpu_torch.config import RunConfig
 from cvsim_tpu_torch.host import payload, timing, y4m
-# per-frame host scaling dispatches to the native kernel (bit-exact twin of
-# colorconv.scale_frame_to_np; numpy fallback inside hostpix)
-from cvsim_tpu_torch.native.hostpix import scale_frame_to as _scale_frame_to
+# per-frame host scaling to uint8 dispatches to the native kernel (bit-exact
+# twin of colorconv.scale_frame_to_np; numpy fallback inside hostpix)
+from cvsim_tpu_torch.native.hostpix import scale_frame_to_u8 as _scale_frame_to
 from cvsim_tpu_torch.host import resume
 from cvsim_tpu_torch.interop import key32_from_seed
 from cvsim_tpu_torch.models import yiq
@@ -54,19 +58,21 @@ class YIQPipeline:
         out = cfg.output
         self._field_rate = Fraction(out.field_rate_num, out.field_rate_den)
         self._ckpt_save = None   # set per run_video when -checkpoint is on
+        self._stage = None       # the GOP staging buffer (_stack)
 
     def process_batch(self, rgb_fields: np.ndarray, fieldnos,
                       parities) -> np.ndarray:
-        """uint8 [gop, L, W, 3] fields through the chain on the device;
-        uint8 numpy [gop, frame_bytes] out, each row the Y4M payload of a
-        field's bobbed frame (host/payload.py): made on the card, by one
-        kernel, where the chain's output lies there, else in numpy."""
+        """uint8 [gop, L, W, 3] fields through the chain on the device (a
+        batch that is not in pinned memory is pinned for its copy to a
+        card); uint8 numpy [gop, frame_bytes] out, each row the Y4M payload
+        of a field's bobbed frame (host/payload.py): made on the card, by
+        one kernel, where the chain's output lies there, else in numpy."""
         out = self.cfg.output
         args = (out.height, out.use_422_colorspace)
         if not self.cfg.enable_composite_emulation:
             return payload.payloads_np(rgb_fields, *args)
         rgb = torch.from_numpy(rgb_fields)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not rgb.is_pinned():
             with log.span("gen2.pin"):
                 rgb = log.pin(rgb)
         fn = torch.tensor(fieldnos, dtype=torch.int32)
@@ -100,7 +106,7 @@ class YIQPipeline:
         with log.span("gen2.flush", gop=gop):
             # pad short (final) batches to the GOP size
             padded = batch + [batch[-1]] * (self.gop - len(batch))
-            out = self.process_batch(self._stack(padded),
+            out = self.process_batch(self._stack(batch),
                                      [b[1] for b in padded],
                                      [b[2] for b in padded])
             for k, b in enumerate(batch):
@@ -109,13 +115,33 @@ class YIQPipeline:
                 with log.span("gen2.checkpoint"):
                     self._ckpt_save(snapshot, writer)
 
-    @staticmethod
-    def _stack(fields) -> np.ndarray:
-        """The GOP's fields as one uint8 [gop, L, W, 3] array. The caller
-        passes it straight to process_batch, so that it is freed before
-        the fields are emitted."""
+    def _stack(self, fields) -> np.ndarray:
+        """The GOP's fields, the last one repeated up to the GOP size, in
+        the staging buffer: uint8 [gop, L, W, 3], made at the first flush
+        (so a warm-up pays for it) and refilled every GOP. On a CUDA
+        pipeline with the chain on it is pinned, so process_batch copies
+        from it asynchronously and pins nothing.
+
+        Refilling it is safe because every GOP's H2D has completed when
+        process_batch returns: it ends in a blocking copy back (`gen2.wait`;
+        with -devices n, map_fields' copy back from every device), which
+        waits for the chain, which waits for its H2D. A path that returned
+        before its H2D completed would have to record an event there and
+        wait on it here."""
         with log.span("gen2.stack"):
-            return np.stack([f[0] for f in fields]).astype(np.uint8)
+            if self._stage is None:
+                shape = (self.gop, *fields[0][0].shape)
+                if (self.device.type == "cuda"
+                        and self.cfg.enable_composite_emulation):
+                    self._stage = log.pin(
+                        torch.empty(shape, dtype=torch.uint8)).numpy()
+                else:
+                    self._stage = np.empty(shape, np.uint8)
+            stage = self._stage
+            for k, f in enumerate(fields):
+                stage[k] = f[0]
+            stage[len(fields):] = stage[len(fields) - 1]
+            return stage
 
     def _emit(self, frame, fieldno, writer):
         """Write one field's bobbed frame: its payload row from
