@@ -12,11 +12,19 @@ import torch
 
 from cvsim_tpu_torch.host import pipeline_yiq
 from cvsim_tpu_torch.models import fused_yiq
-from harness import program
+from harness import controls, program, render
 from harness.render import RenderDriver
 from reference import gen2, host
 
-GEN = "gen2"
+# the program function the GOP step goes through, which the control and
+# the faults replace
+ENTRY = ("cvsim_tpu_torch.models.yiq", "composite_layer_rgb_auto")
+FAULTS = controls.FAULTS
+small = render.small
+
+
+def control(config: dict):
+    return controls.control("gen2", config)
 
 
 class Driver(RenderDriver):

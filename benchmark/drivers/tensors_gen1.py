@@ -6,16 +6,23 @@ render's GOP step hands it."""
 from __future__ import annotations
 
 from cvsim_tpu_torch.models import fused_yuv, yuv422  # noqa: F401
+from harness import controls, tensors
 from harness.tensors import TensorDriver
 from harness.textures import device_pool
 from harness.work import gen1_call
 from reference import gen1
 
-GEN = "gen1"
+ENTRY = ("cvsim_tpu_torch.models.yuv422", "composite_video_process_auto")
+FAULTS = controls.FAULTS
+small = tensors.small
+
+
+def control(config: dict):
+    return controls.control("gen1", config)
 
 
 class Driver(TensorDriver):
-    GEN = GEN
+    ENTRY = ENTRY
 
     def __init__(self, cell):
         super().__init__(cell)

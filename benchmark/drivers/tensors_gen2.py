@@ -5,16 +5,23 @@ of uint8 RGB fields already on the card (`fused_yiq.prepare`, then kernel
 from __future__ import annotations
 
 from cvsim_tpu_torch.models import fused_yiq, yiq  # noqa: F401
+from harness import controls, tensors
 from harness.tensors import TensorDriver
 from harness.textures import device_pool
 from harness.work import gen2_call
 from reference import gen2
 
-GEN = "gen2"
+ENTRY = ("cvsim_tpu_torch.models.yiq", "composite_layer_rgb_auto")
+FAULTS = controls.FAULTS
+small = tensors.small
+
+
+def control(config: dict):
+    return controls.control("gen2", config)
 
 
 class Driver(TensorDriver):
-    GEN = GEN
+    ENTRY = ENTRY
 
     def __init__(self, cell):
         super().__init__(cell)

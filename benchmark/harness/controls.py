@@ -1,6 +1,7 @@
-"""Replacements for the chain's library entry, for calibrating and testing
-the check (harness/core.run_cell's `entry`); the benchmark's own runs use
-none of them.
+"""Replacements for a chain's library entry, for calibrating and testing
+the check (harness/core.run_cell's `entry`); the chain drivers give them
+as their `control` and `FAULTS`, and the benchmark's own runs use none
+of them.
 
 - `control`: the reference in the program's place, computed one step
   below the precision the configuration states (its float32 block

@@ -110,8 +110,9 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
              clock: Clock, startup: dict, device: str = "cuda",
              overrides: dict | None = None, entry=None) -> dict:
     """One run; returns the result object (not yet printed). `entry`:
-    fn(original, *args, **kwargs) in place of the chain's entry (the
-    control and the planted faults)."""
+    fn(original, *args, **kwargs) in place of the program function that
+    the cell's driver names as its ENTRY (the driver's control and its
+    planted faults)."""
     import contextlib
 
     import torch
@@ -124,7 +125,7 @@ def run_cell(spec, name: str, seed: int, seconds: float, trace: bool,
     # the driver imports the program's modules that the cell runs
     mod = spec_mod.driver_module(cell.workload["driver"])
     startup["port"] = time.perf_counter() - t
-    swap = (program.replaced_entry(mod.GEN, entry) if entry
+    swap = (program.replaced_entry(mod.ENTRY, entry) if entry
             else contextlib.nullcontext())
     prof = None
     spans = Spans() if trace else None

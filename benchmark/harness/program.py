@@ -1,20 +1,14 @@
 """The program under test as the harness touches it: its flag parser (the
 run's configuration, checked against the configuration file), and the
-two library entries of the chains, which the lower-precision control and
-the planted faults replace for the length of a run."""
+replacement of a driver's entry (`drivers/<driver>.ENTRY`, a (module,
+function) pair) by its lower-precision control or a planted fault for
+the length of a run."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import importlib
-
-# the main-path entry of each chain: (module, function)
-ENTRIES = {
-    "gen2": ("cvsim_tpu_torch.models.yiq", "composite_layer_rgb_auto"),
-    "gen1": ("cvsim_tpu_torch.models.yuv422", "composite_video_process_auto"),
-}
-
 
 @contextlib.contextmanager
 def patched(*patches):
@@ -29,10 +23,10 @@ def patched(*patches):
             setattr(obj, attr, value)
 
 
-def replaced_entry(gen: str, fn):
+def replaced_entry(entry: tuple, fn):
     """The block runs with `fn(original, *args, **kwargs)` in place of the
-    chain's entry."""
-    mod_name, name = ENTRIES[gen]
+    program function `entry`, (module, function)."""
+    mod_name, name = entry
     mod = importlib.import_module(mod_name)
     original = getattr(mod, name)
 
@@ -40,6 +34,13 @@ def replaced_entry(gen: str, fn):
         return fn(original, *args, **kwargs)
 
     return patched((mod, name, replacement))
+
+
+def at_width(config: dict, width: int) -> dict:
+    """Overrides of a chain configuration that run it at `width` samples a
+    line through the parser's `-width` flag (no flag sets the height)."""
+    return {"argv": config["argv"] + ["-width", str(width)],
+            "output": {"width": width}}
 
 
 def run_config(config: dict):

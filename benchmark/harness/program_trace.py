@@ -44,3 +44,11 @@ def count_per_span(counter: str, names: tuple) -> float | None:
     if not n:
         return None
     return sum(a["counts"].get(counter, 0) for a in spans) / n
+
+
+def aggregate(count: int, total_ms: float, counts: dict | None = None):
+    """One span name's aggregate as the recorder's snapshot holds it (self
+    time = total), for the hand-built snapshot of a reader's `CASE`."""
+    ns = int(total_ms * 1e6)
+    return {"count": count, "total_ns": ns, "self_ns": ns,
+            "counts": counts or {}}

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import time
 
+from harness import program
 from harness.core import Window
 from harness.judge import Tally
 from harness.spec import fraction
@@ -18,6 +19,15 @@ from harness.stream import GopSink, SyntheticY4M, y4m_header
 from harness.textures import frame_pool
 from reference import host
 from reference.config import chain_config
+
+
+def small(spec, name: str) -> dict:
+    """The CPU tests' size of a render cell on a chain: `-width 64`, GOPs
+    of 4 fields, a stream 64 samples wide from a pool of 3 frames."""
+    cfg = spec.config(spec.cell(name)["config"])
+    return {**program.at_width(cfg, 64), "gop": 4,
+            "stream": {"width": 64, "pool_frames": 3}, "warmup_frames": 2,
+            "sample_gops": 2}
 
 
 class RenderDriver:

@@ -76,15 +76,21 @@ def driver_module(name: str):
     return importlib.import_module(f"drivers.{name}")
 
 
-def metric_reader(bench_dir: str, name: str):
-    """The `read(run)` function of metrics/<name>.py (names may hold dots,
-    so the file is loaded by path)."""
+def metric_module(bench_dir: str, name: str):
+    """metrics/<name>.py (names may hold dots, so the file is loaded by
+    path): its `read(run)`, and for a reader of the program's spans or
+    counters optionally its `CASE`."""
     path = os.path.join(bench_dir, "metrics", f"{name}.py")
     spec = importlib.util.spec_from_file_location(
         f"bench_metric_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(bench_dir: str, name: str):
+    """The `read(run)` function of metrics/<name>.py."""
+    return metric_module(bench_dir, name).read
 
 
 def fraction(text: str) -> Fraction:

@@ -25,12 +25,22 @@ from reference.config import chain_config
 CHUNK = 4096    # calls whose field numbers are laid out at once
 
 
-class TensorDriver:
-    """Shared by tensors_gen2 and tensors_gen1: a subclass sets GEN, makes
-    `self.pool` (a tuple of uint8 tensors [P, B, ...]) and `least_time`,
-    and defines `_wrapped` and `_reference`."""
+def small(spec, name: str) -> dict:
+    """The CPU tests' size of a library cell on a chain: `-width 64`,
+    GOPs of 4 fields, batches of 4 fields of 240x64 from a pool of 2."""
+    cfg = spec.config(spec.cell(name)["config"])
+    return {**program.at_width(cfg, 64), "gop": 4, "batch": 4,
+            "field_shape": [240, 64], "pool_batches": 2, "warmup_calls": 1,
+            "sample_calls": 2}
 
-    GEN = ""
+
+class TensorDriver:
+    """Shared by tensors_gen2 and tensors_gen1: a subclass sets ENTRY (the
+    program function it calls, (module, function)), makes `self.pool` (a
+    tuple of uint8 tensors [P, B, ...]) and `least_time`, and defines
+    `_wrapped` and `_reference`."""
+
+    ENTRY = None
 
     def __init__(self, cell):
         self.cell = cell
@@ -43,7 +53,7 @@ class TensorDriver:
         from cvsim_tpu_torch.interop import key32_from_seed
 
         self.key = key32_from_seed(cfg.seed)
-        mod, self._entry_name = program.ENTRIES[self.GEN]
+        mod, self._entry_name = self.ENTRY
         self._entry_mod = importlib.import_module(mod)
         # even, so that call i's first field is bottom (parity 1)
         self.start = 2 * int(cell.rng.integers(0, 1 << 23))

@@ -1,21 +1,31 @@
 """The check that decides `correct`, driven through a whole run on the
 CPU at a small size (the look for a card skipped): the program reads
-correct; the reference in its place one precision step down (TF32
-products) reads not correct, and so does each fault planted under the
-timed path. Every workload file is run."""
+correct; the cell's driver's control (the reference in the program's
+place one precision step down: TF32 products on the chains) reads not
+correct, and so does each fault the driver plants under the timed path.
+Every workload file is run."""
 
 import glob
 import os
 
 import pytest
 
-from harness import controls, core, spec as spec_mod
+from harness import core, spec as spec_mod
 from conftest import BENCH, ROOT
 
 import small
 
 CELLS = sorted(os.path.basename(p)[:-len(".json")]
                for p in glob.glob(os.path.join(BENCH, "workloads", "*.json")))
+
+
+def _driver(name):
+    return spec_mod.driver_module(
+        spec_mod.load_json(BENCH, "workloads", name)["driver"])
+
+
+FAULTS = [(name, fault) for name in CELLS
+          for fault in sorted(_driver(name).FAULTS)]
 
 
 @pytest.fixture(scope="module")
@@ -38,14 +48,13 @@ def test_the_program_reads_correct(spec, name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_lower_precision_control_reads_not_correct(spec, name):
-    gen = spec_mod.driver_module(spec.cell(name)["driver"]).GEN
-    r = _run(spec, name, controls.control(gen, spec.config(
-        spec.cell(name)["config"])))
+    control = _driver(name).control(spec.config(spec.cell(name)["config"]))
+    r = _run(spec, name, control)
     assert not r["correct"], r["check"]
 
 
-@pytest.mark.parametrize("fault", sorted(controls.FAULTS))
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name,fault", FAULTS,
+                         ids=[f"{n}-{f}" for n, f in FAULTS])
 def test_each_fault_reads_not_correct(spec, name, fault):
-    r = _run(spec, name, controls.FAULTS[fault])
+    r = _run(spec, name, _driver(name).FAULTS[fault])
     assert not r["correct"], r["check"]

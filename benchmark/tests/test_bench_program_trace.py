@@ -1,7 +1,9 @@
 """The readers of the program's own spans and counters
 (`harness/program_trace.py`): each returns its defined value on a
-hand-built snapshot of the recorder, and None on an empty one or on a
-program without the recorder."""
+hand-built snapshot of the recorder, and None on one without aggregates
+or on a program without the recorder. The snapshot and the value are
+`SNAPSHOT` and `WANT` below, or the reader's own `CASE` (snapshot,
+value) in its file."""
 
 import pytest
 
@@ -45,28 +47,39 @@ WANT = {
 }
 
 
-def _reader(name):
-    return spec_mod.metric_reader(spec_mod.Spec.load(ROOT).bench_dir, name)
+# the benchmark's own wrappers (harness/trace.Spans) read these
+WRAPPED = {"prepare_ms.gen2", "prepare_ms.gen1", "emit_ms_per_field.gen2"}
+
+
+def _module(name):
+    return spec_mod.metric_module(spec_mod.Spec.load(ROOT).bench_dir, name)
+
+
+def _program_metrics():
+    spec = spec_mod.Spec.load(ROOT)
+    return {m["name"] for m in spec.bench["per_layer"]
+            if m["source"] in ("program_span", "program_counter")} - WRAPPED
+
+
+OWN_CASE = sorted(n for n in _program_metrics()
+                  if hasattr(_module(n), "CASE"))
 
 
 def test_every_program_metric_has_a_case():
-    spec = spec_mod.Spec.load(ROOT)
-    program = {m["name"] for m in spec.bench["per_layer"]
-               if m["source"] in ("program_span", "program_counter")}
-    # the benchmark's own wrappers (harness/trace.Spans) read these
-    wrapped = {"prepare_ms.gen2", "prepare_ms.gen1",
-               "emit_ms_per_field.gen2"}
-    assert program - wrapped == set(WANT)
+    assert _program_metrics() - set(OWN_CASE) == set(WANT)
 
 
-@pytest.mark.parametrize("name", sorted(WANT))
+@pytest.mark.parametrize("name", sorted(set(WANT) | set(OWN_CASE)))
 def test_reader_on_a_snapshot(name, monkeypatch):
     from cvsim_tpu_torch.utils import log
 
-    monkeypatch.setattr(log, "snapshot", lambda: SNAPSHOT, raising=False)
-    assert _reader(name)(None) == pytest.approx(WANT[name])
-    empty = {**SNAPSHOT, "aggregates": {}}
+    snapshot, want = (_module(name).CASE if name in OWN_CASE
+                      else (SNAPSHOT, WANT[name]))
+    read = _module(name).read
+    monkeypatch.setattr(log, "snapshot", lambda: snapshot, raising=False)
+    assert read(None) == pytest.approx(want)
+    empty = {**snapshot, "aggregates": {}}
     monkeypatch.setattr(log, "snapshot", lambda: empty, raising=False)
-    assert _reader(name)(None) is None
+    assert read(None) is None
     monkeypatch.delattr(log, "snapshot")
-    assert _reader(name)(None) is None
+    assert read(None) is None
