@@ -183,6 +183,23 @@ class HsyncDcTracker:
         self._delay = np.zeros(dlen, np.uint8)
         self._dpos = 0
 
+    def state(self) -> dict:
+        """The tracker's registers between two `process` calls: the three
+        lowpass outputs `filters`, the tracked sync-tip level `dc_level`
+        and the raw delay line `delay` (uint8, oldest sample first)."""
+        import numpy as np
+
+        if self._native is not None:
+            st = self._native[1]
+            filters = list(st.filt_prev)
+            dc_level, pos = st.dc_level, st.delay_pos
+            line = np.frombuffer(bytes(st.delay), np.uint8)[:st.delay_len]
+        else:
+            filters, dc_level = list(self._prev), self._dc
+            pos, line = self._dpos, self._delay
+        return {"filters": filters, "dc_level": dc_level,
+                "delay": np.roll(line, -pos)}
+
     def process(self, raw):
         """raw: uint8 [N]. Returns (delayed_raw uint8 [N], dc uint8 [N])."""
         import numpy as np

@@ -6,10 +6,10 @@ parity (host/pipeline.py) and adds structured logging, machine-readable
 phase lines (CVSIM_PHASES=1), an optional torch.profiler trace
 (CVSIM_PROFILE=<dir>) around a whole command, and the recorder below.
 
-**The recorder.** `span(name, gop=, entry=)` times a block, `count(name,
-n)` adds to a counter, `event(name, **kv)` marks an instant (every
-`phase()` is one); `snapshot()` returns what was recorded and `reset()`
-clears it.
+**The recorder.** `span(name, gop=, entry=, field=)` times a block,
+`count(name, n)` adds to a counter, `event(name, **kv)` marks an instant
+(every `phase()` is one); `snapshot()` returns what was recorded and
+`reset()` clears it.
 
 - Spans and events are recorded while tracing is on: CVSIM_TRACE=<dir>
   set when this module is imported, `tracing(True)`, or a torch profiler
@@ -19,11 +19,11 @@ clears it.
   (perf_counter_ns plus an offset taken at import, `reset()` and
   `tracing(True)`, the clock of the profiler's events), its thread, its
   parent (the thread's innermost open span), its unit (`gop=<k>`, a
-  render's GOP; `call=<k>`, a library entry called directly; or its
-  parent's) and the counts its thread made while it was open. The last
-  SPAN_BUFFER spans are kept (then `dropped` counts); each name's
-  aggregates (count, total ns, self ns = duration minus its children's,
-  summed counts) cover every span.
+  render's GOP; `field=<k>`, a field of the raw decoder; `call=<k>`, a
+  library entry called directly; or its parent's) and the counts its
+  thread made while it was open. The last SPAN_BUFFER spans are kept
+  (then `dropped` counts); each name's aggregates (count, total ns, self
+  ns = duration minus its children's, summed counts) cover every span.
 - While a profiler is active each span is also a `cvsim.<name>` range in
   the profiler's CPU timeline, so the device trace's idle gaps fall under
   the program's spans. The range has function scope: a user-scope range
@@ -169,13 +169,13 @@ class _Span:
     __slots__ = ("name", "unit", "id", "parent", "stack", "counts",
                  "counts0", "thread", "range", "child_ns", "t0")
 
-    def __init__(self, name, gop, entry):
+    def __init__(self, name, unit, entry):
         self.name = name
         stack, self.counts = _REC.thread_state()
         self.stack = stack
         self.parent = stack[-1] if stack else None
-        if gop is not None:
-            self.unit = f"gop={gop}"
+        if unit is not None:
+            self.unit = unit
         elif self.parent is not None and self.parent.unit is not None:
             self.unit = self.parent.unit
         elif entry:
@@ -235,14 +235,18 @@ class _Span:
 _NOOP = contextlib.nullcontext()
 
 
-def span(name: str, gop: int | None = None, entry: bool = False):
+def span(name: str, gop: int | None = None, entry: bool = False,
+         field: int | None = None):
     """A context that records the block as span `name` while tracing is
     on (module docstring), and the shared no-op otherwise. `gop=k` sets
-    the unit `gop=<k>`; without it the span takes its parent's unit, and
-    a library entry (`entry=True`) outside any unit opens `call=<k>`."""
+    the unit `gop=<k>`, `field=k` the unit `field=<k>`; without either
+    the span takes its parent's unit, and a library entry (`entry=True`)
+    outside any unit opens `call=<k>`."""
     if not (_REC.on or _profiling()):
         return _NOOP
-    return _Span(name, gop, entry)
+    unit = (f"gop={gop}" if gop is not None
+            else f"field={field}" if field is not None else None)
+    return _Span(name, unit, entry)
 
 
 def count(name: str, n: int = 1) -> None:
