@@ -108,8 +108,8 @@ Phases, each printing its own lines (any failure raises, exit code != 0):
      loop, both CLIs' fields/s (raw28ntsc against the capture's 59.94, on
      both captures), scanimate_field per call at each raster, both CLIs'
      device busy share (torch.profiler), and raw28ntsc's host stages a
-     field on both captures (the re-lock scans, the vsync hunt, the DC
-     tracker, decode_lines' launches, the rest); the first served
+     field on both captures (the line walk with its re-locks, the vsync
+     hunt, the DC tracker, decode_lines' launches, the rest); the first served
      to-composite's wall beside the fresh process's. raw28_tails' bound counts its bytes and its
      int32 operations at the H100's 64 INT32 lanes an SM; the chain's
      serial latency sets its time.
@@ -1329,12 +1329,14 @@ def cli_device_share(cli_main, args) -> str:
 
 def raw28_host_stages(cli_main, args) -> str:
     """Where one in-process `raw28ntsc` run's wall goes on the host: the
-    time inside relock_hsync (the per-line re-lock scans), hunt_vsync,
-    the DC tracker's process and decode_lines (its launches; the card's
-    work is waited for later, in the copy back), each wrapped with a
-    timer for this run only, and the rest (the line gather, the copies
-    and their waits, the Y4M writes), per field and as shares of the
-    wall."""
+    time inside walk_lines (the line pacing and per-line re-lock, one
+    native scan a field; its twin where g++ is missing is
+    walk_lines_numpy, relock_hsync a line), hunt_vsync (its native scan
+    and the AGC's updates), the DC tracker's process and decode_lines
+    (its launches; the card's work is waited for later, in the copy
+    back), each wrapped with a timer for this run only, and the rest (the
+    line gather, the copies and their waits, the Y4M writes), per field
+    and as shares of the wall."""
     import torch
 
     from cvsim_tpu_torch import native
@@ -1352,7 +1354,7 @@ def raw28_host_stages(cli_main, args) -> str:
         return run
 
     saved = [(obj, name, getattr(obj, name)) for obj, name in (
-        (raw28, "relock_hsync"), (raw28, "hunt_vsync"),
+        (raw28, "walk_lines"), (raw28, "hunt_vsync"),
         (native.HsyncDcTracker, "process"), (raw28, "decode_lines"))]
     for obj, name, fn in saved:
         setattr(obj, name, timed(name, fn))

@@ -3,11 +3,16 @@ ffmpeg_raw28ntsc.cpp: the twin of cvsim_tpu.models.raw28.
 
 The data-dependent control flow (sync-pulse classification, vsync
 hunting, AGC calibration, per-line re-lock, fractional scanline pacing)
-runs on the host over the DC-normalized detector signal, in numpy, as in
-the JAX package (the per-sample DC tracker is the native
-native.HsyncDcTracker). The per-line DSP (equalization and the 8x-fsc
-Y/C separation) runs on the device over a [lines, samples] matrix
-gathered at the host's line starts:
+runs on the host over the DC-normalized detector signal. The per-sample
+DC tracker is native.HsyncDcTracker; the vsync hunt (`hunt_vsync`) and
+the line walk (`walk_lines`) scan the signal forward in libhostio
+(native/hostio.cpp) and stop at the pulse they need. Their numpy twins,
+the JAX package's code, run where g++ is missing: `hunt_vsync_numpy`,
+and `walk_lines_numpy` with `relock_hsync` a line, over `runs_below`'s
+run-length encoding. The AGC's updates stay in numpy
+(`AGCState.update_from_pulse`) on both paths. The per-line DSP
+(equalization and the 8x-fsc Y/C separation) runs on the device over a
+[lines, samples] matrix gathered at the host's line starts:
 
 - `decode_lines` computes every line's carry-free columns at once, then
   chains the last 28 columns of each line, which read the line before
@@ -22,8 +27,10 @@ its AGC updates), `raw28.lines` (the pacing and per-line re-lock) and
 `raw28.decode` (the gather, the copy to the device, `decode_lines` and
 the fetch); a call that finds no line after the lock closes as
 `raw28.nofield` instead. Each `feed` is `raw28.feed`. The counter
-`raw28.relock_scans` counts the `relock_hsync` calls (one a line), and
-`h2d_bytes.raw28`, `d2h_bytes.raw28` and `syncs` the field's copies.
+`raw28.relock_scans` counts the line walk's re-locks (one a line),
+`raw28.sync_samples` the detector samples the hunt and the walk
+examine, and `h2d_bytes.raw28`, `d2h_bytes.raw28` and `syncs` the
+field's copies.
 
 Timing constants (compute_NTSC, :249-256): scanline = rate/(29.97*525);
 8fsc = 315/88 MHz * 8 ~= 28.636 MHz, so the chroma subcarrier is exactly
@@ -40,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cvsim_tpu_torch import kernels
+from cvsim_tpu_torch import kernels, native
 from cvsim_tpu_torch.ops.cmath import c_div, sqrt_rn
 from cvsim_tpu_torch.utils import log
 
@@ -118,8 +125,33 @@ class AGCState:
         self.blank_level = self.blank_level * (1 - a) + nblack * a
 
 
+def pulse_lengths(raw_len: int) -> tuple[int, int, int]:
+    """The shortest vsync (0.3H), hsync (0.06H) and equalization (0.02H)
+    pulses in samples, as hunt_vsync_numpy and relock_hsync compare."""
+    return int(raw_len * 0.3), int(raw_len * 0.06), int(raw_len * 0.02)
+
+
 def hunt_vsync(dc: np.ndarray, raw: np.ndarray, raw_len: int,
                agc: AGCState, threshold: int = SYNC_THRESHOLD):
+    """hunt_vsync_numpy's lock and AGC updates from libhostio's forward
+    scan, which stops at the lock; hunt_vsync_numpy itself where g++ is
+    missing. Counts the samples examined as `raw28.sync_samples` (the
+    twin encodes the whole buffer)."""
+    lib = native.hostio()
+    if lib is None:
+        log.count("raw28.sync_samples", len(dc))
+        return hunt_vsync_numpy(dc, raw, raw_len, agc, threshold)
+    pulses = pulse_lengths(raw_len)
+    lock, equal_starts, read = native.sync_hunt(lib, dc, threshold, pulses)
+    for s in equal_starts:
+        agc.update_from_pulse(raw[s:s + pulses[0]], dc[s:s + pulses[0]],
+                              threshold)
+    log.count("raw28.sync_samples", read)
+    return lock
+
+
+def hunt_vsync_numpy(dc: np.ndarray, raw: np.ndarray, raw_len: int,
+                     agc: AGCState, threshold: int = SYNC_THRESHOLD):
     """Pulse-length classifier (:625-699): walk sync pulses; vsync >= 0.3H,
     hsync >= 0.06H, equalization >= 0.02H. After >= 9 serration pulses, lock
     on the next hsync pulse center. Returns the locked sample index or None.
@@ -148,7 +180,8 @@ def hunt_vsync(dc: np.ndarray, raw: np.ndarray, raw_len: int,
 def relock_hsync(dc: np.ndarray, pos: int, window_back: int, raw_len: int,
                  threshold: int = SYNC_THRESHOLD):
     """Per-line hsync re-lock (:793-833): look from pos-window for the next
-    hsync-length pulse; returns (new_pos, hit_vsync).
+    hsync-length pulse; returns (new_pos, hit_vsync). walk_lines_numpy's
+    step, the twin of the re-lock in libhostio's line walk.
 
     The scan is bounded (the next pulse is ~one line ahead; the reference
     stops at the first hit) and widens only on a miss — a full-tail RLE per
@@ -180,6 +213,82 @@ def relock_hsync(dc: np.ndarray, pos: int, window_back: int, raw_len: int,
         if at_tail:
             return pos, False
         win *= 2
+
+
+class Walk(NamedTuple):
+    """A field's line walk: the line starts (int64), the position after
+    the last line, whether 9 counted pulses ended it, the re-locks and the
+    detector samples examined."""
+    starts: np.ndarray
+    p: int
+    hit_vsync: bool
+    relocks: int
+    read: int
+
+
+def walk_lines(dc: np.ndarray, pos: int, raw_len: int, height: int,
+               sync: bool = True) -> Walk:
+    """Up to `height` line starts from pos (:785-833): each line paced by
+    raw_len with the fractional error carried, and with sync re-locked on
+    the next hsync pulse from 0.1H before the paced position; 9 counted
+    pulses end the field. A line starts only where 2 * raw_len samples
+    follow it. libhostio's walk, one call a field; walk_lines_numpy where
+    g++ is missing. Counts `raw28.relock_scans` and `raw28.sync_samples`."""
+    lib = native.hostio()
+    if lib is None:
+        walk = walk_lines_numpy(dc, pos, raw_len, height, sync)
+    else:
+        walk = Walk(*native.sync_walk_lines(
+            lib, dc, pos, raw_len, height, sync, SYNC_THRESHOLD,
+            pulse_lengths(raw_len), int(raw_len * 0.1)))
+    log.count("raw28.relock_scans", walk.relocks)
+    log.count("raw28.sync_samples", walk.read)
+    return walk
+
+
+class _Reads:
+    """dc as relock_hsync reads it: its slices, and the samples they
+    held."""
+
+    def __init__(self, dc: np.ndarray):
+        self.dc, self.n = dc, 0
+
+    def __len__(self):
+        return len(self.dc)
+
+    def __getitem__(self, key):
+        seg = self.dc[key]
+        self.n += len(seg)
+        return seg
+
+
+def walk_lines_numpy(dc: np.ndarray, pos: int, raw_len: int, height: int,
+                     sync: bool = True) -> Walk:
+    """walk_lines' numpy twin: relock_hsync a line. `read` counts the
+    samples of the windows relock_hsync encodes."""
+    reads = _Reads(dc)
+    width_f = float(raw_len)
+    err = 0.0
+    line_starts = []
+    p = pos
+    hit_vsync = False
+    for y in range(height):
+        if p + raw_len * 2 >= len(dc):
+            break
+        line_starts.append(p)
+        adj = int(np.floor(width_f))
+        err += width_f - adj
+        if err >= 1.0:
+            err -= 1.0
+            adj += 1
+        p += adj
+        if sync:
+            p, hit_vsync = relock_hsync(reads, p, int(raw_len * 0.1),
+                                        raw_len)
+            if hit_vsync:
+                break
+    return Walk(np.asarray(line_starts, np.int64), int(p), hit_vsync,
+                len(line_starts) if sync else 0, reads.n)
 
 
 # ------------------------------------------------------------- device-side
@@ -524,27 +633,10 @@ class Raw28Decoder:
 
         # gather line starts with fractional pacing + per-line re-lock
         with log.span("raw28.lines"):
-            width_f = float(rl)
-            err = 0.0
-            line_starts = []
-            p = pos
-            for y in range(self.height):
-                if p + rl * 2 >= len(self.raw):
-                    break
-                line_starts.append(p)
-                adj = int(np.floor(width_f))
-                err += width_f - adj
-                if err >= 1.0:
-                    err -= 1.0
-                    adj += 1
-                p += adj
-                if not self.disable_sync:
-                    log.count("raw28.relock_scans")
-                    p, hit_vsync = relock_hsync(
-                        self.dc, p, int(rl * 0.1), rl)
-                    if hit_vsync:
-                        break
-        if not line_starts:
+            walk = walk_lines(self.dc, pos, rl, self.height,
+                              not self.disable_sync)
+        line_starts, p = walk.starts, walk.p
+        if not len(line_starts):
             self.pos = min(len(self.raw), pos + rl * 240)
             return None
 
@@ -564,7 +656,7 @@ class Raw28Decoder:
         self.pos = min(len(self.raw), consumed)
         return (out, uv) if self.decode_color else out
 
-    def _decode_lines(self, line_starts: list, rl: int):
+    def _decode_lines(self, line_starts: np.ndarray, rl: int):
         """The field's lines gathered at `line_starts`, decoded on the
         device and fetched: (luma uint8 [height, width], the (u, v) planes
         with decode_color, else None)."""
@@ -573,7 +665,7 @@ class Raw28Decoder:
         # before the buffer's end (the line loop), so no row is clipped
         # and no index array is built; uint8 across, widened on the device
         windows = np.lib.stride_tricks.sliding_window_view(self.raw, rl + 24)
-        lines = torch.from_numpy(windows[np.asarray(line_starts)])
+        lines = torch.from_numpy(windows[line_starts])
         on_card = self.device.type == "cuda"
         if on_card:
             log.count("h2d_bytes.raw28", lines.nbytes)

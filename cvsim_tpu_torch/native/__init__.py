@@ -1,6 +1,7 @@
 """Native host code of the port: the container-I/O tool `cvsim-av`
-(avio.cpp + hostpix.cpp), the frame scaler binding (hostpix.py) and the
-raw decoder's hsync DC tracker (hostio.cpp, `HsyncDcTracker`).
+(avio.cpp + hostpix.cpp), the frame scaler binding (hostpix.py), and
+the raw decoder's hsync DC tracker (hostio.cpp, `HsyncDcTracker`) and
+sync-pulse scan (hostio.cpp, `sync_hunt` and `sync_walk_lines`).
 
 The port's copies of cvsim_tpu/native's sources, built from this
 directory with g++ on first use (the outputs are listed in .gitignore).
@@ -121,8 +122,65 @@ def _load():
         lib.hsync_dc_process.argtypes = [
             ctypes.POINTER(_HsyncDcStateStruct), ctypes.c_void_p,
             ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
+        L = ctypes.c_long
+        lib.sync_hunt.restype = L
+        lib.sync_hunt.argtypes = [ctypes.c_void_p, L, ctypes.c_int, L, L, L,
+                                  ctypes.c_void_p, L, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+        lib.sync_walk_lines.restype = L
+        lib.sync_walk_lines.argtypes = [
+            ctypes.c_void_p, L, L, L, L, ctypes.c_int, ctypes.c_int, L, L, L,
+            L, ctypes.c_void_p, ctypes.c_void_p]
         _io_lib = lib
         return lib
+
+
+def hostio():
+    """libhostio, or None where g++ is missing; a build or load that
+    fails for any other reason raises."""
+    try:
+        return _load()
+    except FileNotFoundError:
+        if shutil.which("g++") is not None:
+            raise
+        return None
+
+
+def sync_hunt(lib, dc, threshold: int, pulses: tuple):
+    """The vsync hunt's scan of hostio.cpp over dc (uint8 [N]) from sample
+    0, with the pulse lengths `pulses` (vsync, hsync, equalization):
+    (the lock or None, int64 starts of the equalization pulses counted
+    before it, in order, samples examined)."""
+    import numpy as np
+
+    dc = np.ascontiguousarray(dc, np.uint8)
+    n = len(dc)
+    # counted pulses lie a vsync length apart or more
+    starts = np.empty(n // max(pulses[0], 1) + 2, np.int64)
+    found = ctypes.c_long()
+    read = ctypes.c_long()
+    lock = lib.sync_hunt(dc.ctypes.data, n, threshold, *pulses,
+                         starts.ctypes.data, len(starts), ctypes.byref(found),
+                         ctypes.byref(read))
+    return (None if lock < 0 else lock), starts[:found.value], read.value
+
+
+def sync_walk_lines(lib, dc, pos: int, raw_len: int, height: int, sync: bool,
+                    threshold: int, pulses: tuple, window_back: int):
+    """The line walk of hostio.cpp over dc (uint8 [N]) from pos:
+    (int64 line starts, final position, hit_vsync, re-locks, samples
+    examined)."""
+    import numpy as np
+
+    dc = np.ascontiguousarray(dc, np.uint8)
+    starts = np.empty(max(height, 0), np.int64)
+    out = np.zeros(4, np.int64)
+    lines = lib.sync_walk_lines(dc.ctypes.data, len(dc), int(pos), raw_len,
+                                height, int(sync), threshold, *pulses,
+                                window_back, starts.ctypes.data,
+                                out.ctypes.data)
+    p, hit, relocks, read = (int(v) for v in out)
+    return starts[:lines], p, bool(hit), relocks, read
 
 
 class HsyncDcTracker:
@@ -140,14 +198,10 @@ class HsyncDcTracker:
                         1.0 / (one_frame_time * 0.6),
                         int((one_scanline_time * 0.075 * 0.75) * 0.5),
                         128.0, int(one_frame_time))
-        try:
-            lib = _load()
-        except FileNotFoundError:
-            # g++ is missing (a build or load that fails otherwise raises)
-            if shutil.which("g++") is not None:
-                raise
-            print("cvsim: g++ not found: the hsync DC tracker runs its "
-                  "numpy twin (far slower)", file=sys.stderr)
+        lib = hostio()
+        if lib is None:
+            print("cvsim: g++ not found: the hsync DC tracker and the sync "
+                  "walk run their numpy twins (far slower)", file=sys.stderr)
             self._init_python()
             return
         st = _HsyncDcStateStruct()

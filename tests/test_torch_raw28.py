@@ -34,11 +34,14 @@ from cvsim_tpu_torch.cli.main import main
 from cvsim_tpu_torch.models import raw28
 from cvsim_tpu_torch.models.raw28 import (AGCState, Raw28Decoder, RawTiming,
                                           decode_color_lines, decode_lines,
-                                          hunt_vsync, rate_preset, runs_below,
-                                          tail_chain_reference)
+                                          hunt_vsync, hunt_vsync_numpy,
+                                          rate_preset, runs_below,
+                                          tail_chain_reference, walk_lines,
+                                          walk_lines_numpy)
 from cvsim_tpu_torch.native import HsyncDcTracker
 from cvsim_tpu_torch.testing import (assert_chain_equal, launches,
                                      raw28_capture, raw28_capture_jittery)
+from cvsim_tpu_torch.utils import log
 from tests.test_cli import read_all
 from tests.test_raw28 import (BLANK, RL, synth_capture,
                               synth_color_capture)
@@ -119,6 +122,170 @@ def test_tracker_without_gpp_warns_and_runs_numpy(tmp_path, monkeypatch,
     r2, d2 = tr.process(sig)
     np.testing.assert_array_equal(r1, r2)
     assert np.abs(d1.astype(int) - d2.astype(int)).max() <= 1
+
+
+# ------------------------------- the native sync scan against its twins
+
+def _tracked(capture: np.ndarray):
+    """(raw, dc) of the native DC tracker over a capture."""
+    return HsyncDcTracker(RATE, T.one_scanline_time,
+                          T.one_frame_time).process(capture)
+
+
+def _pulses(n: int, pulses, level: int = 60):
+    """(raw, dc) of n samples: dc at `level` but for sync-tip runs of
+    (start, length); raw seeded noise."""
+    dc = np.full(n, level, np.uint8)
+    for s, length in pulses:
+        dc[s:s + length] = 5
+    raw = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    return raw, dc
+
+
+HS = int(RL * 0.09)    # the captures' hsync pulse
+
+
+def _sync_case(name: str):
+    """(raw, dc, walk starts) of each case of the sync scan; a walk start
+    None is the hunt's lock."""
+    if name.startswith("jittery-"):
+        raw, dc = _tracked(raw28_capture_jittery(2, RL, int(name[8:])))
+        return raw, dc, [None]
+    if name == "clean":
+        raw, dc = _tracked(raw28_capture(2, RL))
+        return raw, dc, [None]
+    if name == "pulse-cut-at-the-end":
+        # ten lines, more than 4H without sync, then a pulse cut off by
+        # the buffer's end: the numpy re-lock widens to the buffer's tail
+        n = 1000 + 14 * RL + 400
+        return (*_pulses(n, [(1000 + k * RL - HS // 2, HS) for k in range(10)]
+                         + [(n - 150, 150)]), [1000, 1000 + RL])
+    if name == "window-cuts-a-pulse":
+        # a pulse across the end of the numpy re-lock's first window
+        # (0.1H + 4H from 0.1H before the paced position)
+        return (*_pulses(1000 + 32 * RL,
+                         [(1000 + k * RL - HS // 2, HS) for k in range(10)]
+                         + [(1000 + 14 * RL - 60, HS)]
+                         + [(1000 + k * RL - HS // 2, HS)
+                            for k in range(15, 31)]), [1000])
+    if name == "serration-counts":
+        # 8 counted equalization pulses, each with one 300 samples after
+        # it that is skipped, lines, then 9 counted pulses: the hunt locks
+        # after the second group
+        pulses, x = [], 1000
+        for group in (8, 9):
+            for _ in range(5):
+                pulses.append((x - HS // 2, HS))
+                x += RL
+            for _ in range(group):
+                pulses += [(x, 60)] + [(x + 300, 60)] * (group == 8)
+                x += RL // 2
+        pulses += [(x + k * RL - HS // 2, HS) for k in range(20)]
+        return (*_pulses(x + 22 * RL, pulses), [None, 1000, 1000 + 3 * RL])
+    raw, dc = _tracked(raw28_capture_jittery(2, RL, 11))
+    lock = hunt_vsync_numpy(dc, raw, RL, AGCState())
+    if name == "starts-in-a-pulse":
+        # the buffer opens halfway into a serration pulse of the second
+        # field; a walk's first re-lock opens at a pulse's centre
+        s, e = runs_below(dc)
+        k = int(np.argmax((s > lock + 200 * RL) & (e - s >= int(RL * 0.02))
+                          & (e - s < int(RL * 0.06))))
+        cut = (s[k] + e[k]) // 2
+        assert dc[cut - 1] < 24 and dc[cut] < 24
+        raw, dc = raw[cut:], dc[cut:]
+        lock = hunt_vsync_numpy(dc, raw, RL, AGCState())
+        centre = walk_lines_numpy(dc, lock, RL, 262).starts[40]
+        assert dc[centre] < 24
+        return raw, dc, [None, centre + int(RL * 0.1) - RL]
+    if name == "dropout-over-4H":
+        # no sync for 5 lines from line 60: the numpy re-lock widens
+        dc = dc.copy()
+        dc[lock + 60 * RL - RL // 2:lock + 65 * RL] = 60
+        return raw, dc, [None]
+    if name == "vsync-in-the-walk":
+        # a walk that starts 150 lines into the field meets the next vsync
+        return raw, dc, [lock + 150 * RL, lock + 255 * RL + RL // 2]
+    if name == "no-lock":
+        # hsync pulses and no vsync: no lock, and the walk runs to its end
+        return (raw[lock + 20 * RL:lock + 200 * RL],
+                dc[lock + 20 * RL:lock + 200 * RL], [None, 3 * RL])
+    raise KeyError(name)
+
+
+SYNC_CASES = ["jittery-3", "jittery-4", "jittery-2147483659", "clean",
+              "starts-in-a-pulse", "dropout-over-4H", "vsync-in-the-walk",
+              "pulse-cut-at-the-end", "window-cuts-a-pulse",
+              "serration-counts", "no-lock"]
+NO_LOCK = ("pulse-cut-at-the-end", "window-cuts-a-pulse", "no-lock")
+
+
+@pytest.mark.parametrize("name", SYNC_CASES)
+def test_native_sync_scan_equals_numpy_twins(name):
+    """hunt_vsync and walk_lines (libhostio's scan) against
+    hunt_vsync_numpy and walk_lines_numpy: the lock, the AGC levels, the
+    line starts, the final position, hit_vsync and the re-locks, with
+    sync and without; the native scan examines fewer samples."""
+    assert native.hostio() is not None, "libhostio did not build"
+    raw, dc, walk_from = _sync_case(name)
+    got_agc, want_agc = AGCState(), AGCState()
+    lock = hunt_vsync(dc, raw, RL, got_agc)
+    assert lock == hunt_vsync_numpy(dc, raw, RL, want_agc)
+    assert got_agc.blank_level == want_agc.blank_level
+    assert got_agc.white_level == want_agc.white_level
+    assert (lock is None) == (name in NO_LOCK)
+    for pos in walk_from:
+        pos = (lock or 0) if pos is None else pos
+        for sync in (True, False):
+            got = walk_lines(dc, pos, RL, 262, sync)
+            want = walk_lines_numpy(dc, pos, RL, 262, sync)
+            np.testing.assert_array_equal(got.starts, want.starts)
+            assert got.starts.dtype == want.starts.dtype == np.int64
+            assert got[1:4] == want[1:4], (pos, sync)
+            assert got.read <= want.read
+            assert len(got.starts) > 0
+    if name == "vsync-in-the-walk":
+        assert walk_lines(dc, walk_from[0], RL, 262).hit_vsync
+        assert len(walk_lines(dc, walk_from[0], RL, 262).starts) < 120
+
+
+def test_sync_twin_reads_what_it_encodes():
+    """walk_lines_numpy's `read` is the samples of the windows
+    relock_hsync encodes: 4.1 lines a re-lock on a clean capture."""
+    raw, dc = _tracked(raw28_capture(2, RL))
+    lock = hunt_vsync_numpy(dc, raw, RL, AGCState())
+    walk = walk_lines_numpy(dc, lock, RL, 100)
+    assert walk.relocks == 100
+    assert walk.read == 100 * (int(RL * 0.1) + 4 * RL)
+
+
+def test_sync_walk_without_gpp_warns_and_runs_numpy(tmp_path, monkeypatch,
+                                                    capsys):
+    """Without g++ the decoder's sync runs the numpy twins, says so on
+    stderr, and decodes the same bytes; the tracker's outputs come from
+    the native tracker in both, so that the case takes seconds."""
+    raw, dc = _tracked(raw28_capture_jittery(3, RL, 6))
+
+    def decode():
+        dec = Raw28Decoder(RATE, width=(RL + 1) & ~1, height=262,
+                           device="cpu")
+        monkeypatch.setattr(dec.tracker, "process", lambda data: (raw, dc))
+        read = log.snapshot()["counters"].get("raw28.sync_samples", 0)
+        fields = _fields(dec, raw[:1])
+        return (fields, dec.agc,
+                log.snapshot()["counters"]["raw28.sync_samples"] - read)
+
+    want, want_agc, native_read = decode()
+    monkeypatch.setattr(native, "_IO_LIB", str(tmp_path / "libhostio.so"))
+    monkeypatch.setattr(native, "_io_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))    # no g++ on it
+    assert native.hostio() is None
+    got, got_agc, twin_read = decode()
+    assert "g++ not found" in capsys.readouterr().err
+    assert len(got) == len(want) >= 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got_agc == want_agc
+    assert twin_read > 10 * native_read
 
 
 def test_decoder_locks_and_recovers_ramp():

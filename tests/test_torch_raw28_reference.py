@@ -14,8 +14,9 @@ On captures made by the `raw28ntsc-capture` cell's generator
 - `cli/raw28.parse` gives the configuration file's settings for
   `-s ntsc28`, each flag its setting and the others their defaults;
 - the decoder's spans lie inside `raw28.field` in the counts expected,
-  a decode that finds no line closes as `raw28.nofield`, and nothing is
-  recorded untraced;
+  with a re-lock a line and under 0.3 M sync samples a field counted
+  inside them, a decode that finds no line closes as `raw28.nofield`,
+  and nothing is recorded untraced;
 - the cell's check, through a whole run at the driver's small size,
   reads correct for the program and not correct for its control and
   each of its faults.
@@ -223,6 +224,13 @@ def test_spans_lie_inside_each_field(tracing):
     scans = aggs["raw28.lines"]["counts"]["raw28.relock_scans"]
     assert scans >= 250 * n
     assert aggs["raw28.field"]["counts"]["raw28.relock_scans"] == scans
+    # the samples the hunt and the walk examine, counted inside them, and
+    # the scans stop at the pulse they need: under 0.3 M a field
+    samples = {k: aggs[k]["counts"]["raw28.sync_samples"]
+               for k in ("raw28.hunt", "raw28.lines")}
+    assert min(samples.values()) > 0
+    assert (aggs["raw28.field"]["counts"]["raw28.sync_samples"]
+            == sum(samples.values()) < 300_000 * n)
     # the CPU decoder copies nothing to a card
     assert not any(k.endswith(".raw28") for k in snap["counters"])
 
