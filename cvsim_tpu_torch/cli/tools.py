@@ -18,7 +18,7 @@ import contextlib
 import os
 import sys
 from fractions import Fraction
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 
@@ -26,6 +26,7 @@ from cvsim_tpu_torch.host import timing, wavio, y4m
 from cvsim_tpu_torch.models import tools_np
 from cvsim_tpu_torch.native import hostpix
 from cvsim_tpu_torch.ops import noise_np
+from cvsim_tpu_torch.utils import log
 
 if TYPE_CHECKING:   # the device tools import torch when they run
     import torch
@@ -149,46 +150,58 @@ def _finalizing(out_finalize):
 
 
 def _advance_fields(args: _ToolArgs, multi: bool):
-    """Generator over (frames, fieldno) at the output field rate — the
-    reference's layered InputFile advance loop (each input held for its
-    own frame duration, all advancing in lockstep). Closes the input
-    backends on exhaustion or caller abandonment."""
+    """_advance_readers over the inputs (the first alone unless `multi`),
+    opened here and closed on exhaustion or caller abandonment."""
     paths = args.inputs if multi else args.inputs[:1]
     readers, in_cleanups = _open_video_inputs(paths)
     try:
-        fpss = [r.header.fps for r in readers]
-        n = len(readers)
-        current = 0
-        frame_idx = [0] * n
-        frames = [None] * n
-        next_at = [0] * n
-        its = [iter(r) for r in readers]
-        eof = [False] * n
-        while True:
-            for k in range(n):
-                while not eof[k] and next_at[k] <= current:
-                    try:
-                        yf, uf, vf = next(its[k])
-                    except StopIteration:
-                        eof[k] = True
-                        break
-                    if uf is None:
-                        uf = np.full_like(yf, 128)
-                        vf = uf
-                    frames[k] = _scale_underscan(
-                        yf, uf, vf, args.width, args.height,
-                        args.extra.get("underscan", 0))
-                    frame_idx[k] += 1
-                    next_at[k] = timing.frame_pts_to_field(
-                        frame_idx[k], fpss[k], args.field_rate)
-            if any(f is None for f in frames) or (
-                    all(eof) and current >= max(next_at)):
-                return
-            yield frames, current
-            current += 1
+        yield from _advance_readers(readers, args.width, args.height,
+                                    args.field_rate,
+                                    args.extra.get("underscan", 0))
     finally:
         for c in in_cleanups:
             c()
+
+
+def _advance_readers(readers, width: int, height: int, field_rate,
+                     underscan: int = 0, read_span: str | None = None):
+    """Generator over (frames, fieldno) at the output field rate — the
+    reference's layered InputFile advance loop (each input held for its
+    own frame duration, all advancing in lockstep), each frame scaled to
+    width x height. With `read_span` each read and its scale is that
+    span (utils/log)."""
+    fpss = [r.header.fps for r in readers]
+    n = len(readers)
+    current = 0
+    frame_idx = [0] * n
+    frames = [None] * n
+    next_at = [0] * n
+    its = [iter(r) for r in readers]
+    eof = [False] * n
+    while True:
+        for k in range(n):
+            while not eof[k] and next_at[k] <= current:
+                with (log.span(read_span) if read_span
+                      else contextlib.nullcontext()):
+                    yuv = next(its[k], None)
+                    if yuv is not None:
+                        yf, uf, vf = yuv
+                        if uf is None:
+                            uf = np.full_like(yf, 128)
+                            vf = uf
+                        frames[k] = _scale_underscan(yf, uf, vf, width,
+                                                     height, underscan)
+                if yuv is None:
+                    eof[k] = True
+                    break
+                frame_idx[k] += 1
+                next_at[k] = timing.frame_pts_to_field(
+                    frame_idx[k], fpss[k], field_rate)
+        if any(f is None for f in frames) or (
+                all(eof) and current >= max(next_at)):
+            return
+        yield frames, current
+        current += 1
 
 
 def _open_tool_writer(args: _ToolArgs):
@@ -252,37 +265,6 @@ def _frame_loop_1to1(args: _ToolArgs, per_frame, enc: dict | None = None):
             print("", file=sys.stderr)
     finally:
         in_cleanup()
-    return 0
-
-
-def _frame_loop_batched(args: _ToolArgs, per_batch, batch: int,
-                        multi: bool = False):
-    """Like _frame_loop, but fields are collected into batches of up to
-    `batch` and handed to per_batch(frames [n,H,W,3] np, fieldnos [n]) ->
-    list of RGB output frames. One device dispatch per batch instead of per
-    field — the gen-1 GOP treatment for the compute-heavy sibling tools
-    (VERDICT r2 #2)."""
-    writer, out_finalize = _open_tool_writer(args)
-    wslot = [None]
-
-    def flush(buf_frames, buf_fields):
-        outs = per_batch(np.stack(buf_frames), buf_fields)
-        for out_rgb, fieldno in zip(outs, buf_fields):
-            _write_rgb(wslot[0], out_rgb, args.use_422)
-            print(f"\x0dOutput field {fieldno} ", end="", file=sys.stderr)
-
-    with _finalizing(out_finalize), _AsyncWriter(writer) as aw:
-        wslot[0] = aw
-        buf_frames, buf_fields = [], []
-        for frames, current in _advance_fields(args, multi):
-            buf_frames.append(_last_frame(frames))
-            buf_fields.append(current)
-            if len(buf_frames) >= batch:
-                flush(buf_frames, buf_fields)
-                buf_frames, buf_fields = [], []
-        if buf_frames:
-            flush(buf_frames, buf_fields)
-        print("", file=sys.stderr)
     return 0
 
 
@@ -399,57 +381,154 @@ def run_average_delay(argv):
     return _frame_loop(args, per_field, multi=True)
 
 
-def run_scanimate(argv, device: torch.device, batch: int = 16):
-    """ffmpeg_scanimate flags (:653-698): -inntsc (source is interlaced NTSC),
-    plus raster presets 720p60/1080p60 set width/height.
+class ScanimateArgs(NamedTuple):
+    """What scanimate's flags set: the output raster and its field rate,
+    whether the source is interlaced NTSC (-inntsc), the output's chroma
+    layout, the inputs and the output."""
+    width: int
+    height: int
+    field_rate: Fraction
+    inntsc: bool
+    use_422: bool
+    inputs: list
+    output: str
 
-    One device call per `batch` fields (two with -inntsc, one per source-
-    row parity), each field's phosphor splat an integer scatter-add on
-    `device` (models/tools.scanimate_field); the frames cross as uint8
-    RGB and only the uint8 gray raster crosses back (the RGB expansion is
-    a host stack)."""
+
+def parse_scanimate(argv) -> ScanimateArgs:
+    """ffmpeg_scanimate flags (:653-698): -inntsc (source is interlaced
+    NTSC), plus the InputFile flags; the raster presets 720p60/1080p60
+    (:619, :628) set width and height. -h and an unknown switch raise
+    ValueError with the answer."""
+    args = _ToolArgs(argv, extra={"inntsc": ("flag", "inntsc")})
+    return ScanimateArgs(args.width, args.height, args.field_rate,
+                         bool(args.extra.get("inntsc", False)),
+                         args.use_422, args.inputs, args.output)
+
+
+def run_scanimate(argv, device: torch.device, batch: int = 16):
+    """`parse_scanimate`, then `render_scanimate` from the inputs into the
+    output."""
+    args = parse_scanimate(argv)
+    writer, out_finalize = _open_tool_writer(args)
+    with _finalizing(out_finalize):
+        readers, cleanups = _open_video_inputs(args.inputs)
+        try:
+            render_scanimate(args, readers, writer, device, batch)
+        finally:
+            for c in cleanups:
+                c()
+    return 0
+
+
+def render_scanimate(args: ScanimateArgs, readers, writer, device,
+                     batch: int = 16, fields=None) -> int:
+    """Re-render the readers' frames (Y4M readers advanced in lockstep at
+    the output field rate, the last one with a frame winning) into
+    `writer`, one Y4M frame a field; returns the fields written.
+
+    Fields go in batches of `batch`, one device call each, two with
+    -inntsc (one per source-row parity, re-interleaved); each field's
+    phosphor splat is an integer scatter-add on `device`
+    (models/tools.scanimate_field). The frames cross as uint8 RGB and
+    the uint8 gray raster crosses back; the gray RGB is a host stack.
+    `fields` gives each batch's first field number, the batch counting on
+    from it; None counts from 0 with the source clock. A field's parity
+    is (fieldno & 1) ^ 1. On a parity-1 field output row 0 keeps the
+    previous field's (the copy-to-screen loop starts at y=field, :965).
+
+    While tracing is on (utils/log) each source frame read and scaled is
+    a `scanimate.read` span (the read that meets the end is one more);
+    each batch `scanimate.batch` (unit `gop=<k>`) holding a
+    `scanimate.call` per device call (`.upload`, `scanimate_field`'s
+    `.warp` and `.splat`, `.fetch`) and a `scanimate.pack` per field
+    (the gray RGB, the row-0 rule, RGB->YUV); each frame written a
+    `scanimate.write`, on the writer thread. On a card the copies count
+    `h2d_bytes.scanimate`, `d2h_bytes.scanimate` and `syncs`."""
     import torch
 
     from cvsim_tpu_torch.models import tools as ops
 
-    args = _ToolArgs(argv, extra={"inntsc": ("flag", "inntsc")})
-    input_ntsc = bool(args.extra.get("inntsc", False))
+    on_card = torch.device(device).type == "cuda"
 
     def gray_of(frames, fieldnos, fld):
-        src = torch.from_numpy(frames.astype(np.uint8)).to(device)
-        r = ops.scanimate_field(src, args.height, args.width, fld, fieldnos,
-                                input_ntsc=input_ntsc)
-        return r.clamp(0, 255).to(torch.uint8).cpu().numpy()
+        with log.span("scanimate.call"):
+            with log.span("scanimate.upload"):
+                src = torch.from_numpy(frames.astype(np.uint8))
+                if on_card:
+                    log.count("h2d_bytes.scanimate", src.nbytes)
+                src = src.to(device)
+            r = ops.scanimate_field(src, args.height, args.width, fld,
+                                    fieldnos, input_ntsc=args.inntsc)
+            with log.span("scanimate.fetch"):
+                gray = r.clamp(0, 255).to(torch.uint8)
+                if on_card:
+                    log.count("d2h_bytes.scanimate", gray.nbytes)
+                    log.count("syncs")
+                return gray.cpu().numpy()
 
-    prev = {"frame": None}
+    starts = None if fields is None else iter(fields)
+    prev = None
+    done = 0
 
-    def per_batch(frames, fieldnos):
-        if input_ntsc:
-            # the source-row start is the field parity: split the batch by
-            # parity, one call each, re-interleave
-            par = np.asarray([(f & 1) ^ 1 for f in fieldnos])
-            gray = np.empty((len(fieldnos), args.height, args.width),
-                            np.uint8)
-            for p in (0, 1):
-                sel = np.nonzero(par == p)[0]
-                if sel.size:
-                    gray[sel] = gray_of(frames[sel],
-                                        [fieldnos[i] for i in sel], p)
-        else:
-            gray = gray_of(frames, fieldnos, 0)
-        outs = []
-        for k, fieldno in enumerate(fieldnos):
-            out = np.repeat(gray[k].astype(np.int32)[..., None], 3, axis=-1)
-            parity = (fieldno & 1) ^ 1
-            if parity == 1 and prev["frame"] is not None:
-                # the copy-to-screen loop starts at y=field (:965): on odd
-                # fields output row 0 keeps the persistent canvas's content
-                out[0] = prev["frame"][0]
-            prev["frame"] = out
-            outs.append(out)
-        return outs
+    def flush(aw, buf_frames, buf_fields):
+        nonlocal prev, done
+        if starts is not None:
+            first = next(starts)
+            buf_fields = list(range(first, first + len(buf_fields)))
+        with log.span("scanimate.batch", gop=done // batch):
+            frames = np.stack(buf_frames)
+            if args.inntsc:
+                # the source-row start is the field parity: split the
+                # batch by parity, one call each, re-interleave
+                par = np.asarray([(f & 1) ^ 1 for f in buf_fields])
+                gray = np.empty((len(buf_fields), args.height, args.width),
+                                np.uint8)
+                for p in (0, 1):
+                    sel = np.nonzero(par == p)[0]
+                    if sel.size:
+                        gray[sel] = gray_of(frames[sel],
+                                            [buf_fields[i] for i in sel], p)
+            else:
+                gray = gray_of(frames, buf_fields, 0)
+            for k, fieldno in enumerate(buf_fields):
+                with log.span("scanimate.pack"):
+                    out = np.repeat(gray[k].astype(np.int32)[..., None], 3,
+                                    axis=-1)
+                    if (fieldno & 1) ^ 1 == 1 and prev is not None:
+                        out[0] = prev[0]
+                    prev = out
+                    planes = _yuv_planes(out, args.use_422)
+                aw.write(*planes)
+                print(f"\x0dOutput field {fieldno} ", end="", file=sys.stderr)
+        done += len(buf_fields)
 
-    return _frame_loop_batched(args, per_batch, batch, multi=True)
+    with _AsyncWriter(_SpannedWriter(writer, "scanimate.write")) as aw:
+        buf_frames, buf_fields = [], []
+        for frames, current in _advance_readers(
+                readers, args.width, args.height, args.field_rate,
+                read_span="scanimate.read"):
+            buf_frames.append(_last_frame(frames))
+            buf_fields.append(current)
+            if len(buf_frames) >= batch:
+                flush(aw, buf_frames, buf_fields)
+                buf_frames, buf_fields = [], []
+        if buf_frames:
+            flush(aw, buf_frames, buf_fields)
+        print("", file=sys.stderr)
+    return done
+
+
+class _SpannedWriter:
+    """A writer whose `write` is span `name`, on the thread that calls
+    it."""
+
+    def __init__(self, writer, name: str):
+        self._w = writer
+        self._name = name
+
+    def write(self, *planes):
+        with log.span(self._name):
+            self._w.write(*planes)
 
 
 def run_cassette(argv, device: torch.device):
@@ -836,6 +915,15 @@ def run_normalize_ts(argv):
     else:
         print(f"{n} frames remuxed (monotonic)", file=sys.stderr)
     return 0
+
+
+def _yuv_planes(rgb, use_422: bool):
+    """An int32 RGB frame as the output's Y, U, V planes (4:2:2 or 4:2:0,
+    chroma taken at even columns, and rows)."""
+    y, u, v = hostpix.rgb_to_yuv_planes(np.asarray(rgb))
+    if use_422:
+        return y, u[:, 0::2], v[:, 0::2]
+    return y, u[0::2, 0::2], v[0::2, 0::2]
 
 
 def _write_rgb(writer, rgb, use_422: bool):

@@ -24,7 +24,10 @@ integer scatter-add (`_splat_scatter`) as its oracle; the port splats as
 the oracle does, with `index_add_` into an int32 raster. Each stamp value
 is truncated to int32 before any sum, so the atomics on the card are
 exact in any order. Fields are batched: the dot arrays are [B, dots], one
-warp effect chosen per field.
+warp effect chosen per field. While tracing is on (utils/log) a call's
+warp is the span `scanimate.warp` and its splat `scanimate.splat`; the
+counters `scanimate.dots` and `scanimate.stamp_cells` (the stamp cells
+the splat evaluates, dots x the tight stamp's area) always count.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from cvsim_tpu_torch.ops.cmath import sqrt_rn
 from cvsim_tpu_torch.models.tools_np import take_colormap  # noqa: F401
 from cvsim_tpu_torch.ops.cmath import c_div
 from cvsim_tpu_torch.ops.noise import randint_stream
+from cvsim_tpu_torch.utils import log
 
 
 def _i32(x, device) -> torch.Tensor:
@@ -264,16 +268,19 @@ def scanimate_field(src_rgb, dst_h: int, dst_w: int, field: int, fieldnos,
     radius = torch.tensor(radius_f, device=dev)
     c255 = torch.tensor(255.0, dtype=torch.float32, device=dev)
 
-    green = src_rgb[..., 1].reshape(b, src_h * src_w)
-    g = green[:, pix].to(torch.float32) / c255
-    sigscal = (dst_w / src_w) * (dst_h / src_h) * 0.9
-    sxw, syw, sig = _scanimate_warp(sx, sy, g, fieldnos, frame_t)
-    sig = torch.clamp(sig * sigscal, 0.0, 32.0) / radius
+    log.count("scanimate.dots", b * pix.numel())
+    with log.span("scanimate.warp"):
+        green = src_rgb[..., 1].reshape(b, src_h * src_w)
+        g = green[:, pix].to(torch.float32) / c255
+        sigscal = (dst_w / src_w) * (dst_h / src_h) * 0.9
+        sxw, syw, sig = _scanimate_warp(sx, sy, g, fieldnos, frame_t)
+        sig = torch.clamp(sig * sigscal, 0.0, 32.0) / radius
 
-    # screen coords
-    px = (sxw + 1.0) * dst_w / 2.0
-    py = (syw + 1.0) * dst_h / 2.0
-    return splat(px, py, sig, radius, r_int, dst_h, dst_w) >> precision
+        # screen coords
+        px = (sxw + 1.0) * dst_w / 2.0
+        py = (syw + 1.0) * dst_h / 2.0
+    with log.span("scanimate.splat"):
+        return splat(px, py, sig, radius, r_int, dst_h, dst_w) >> precision
 
 
 def splat(px, py, sig, radius, r_int: int, dst_h: int, dst_w: int):
@@ -313,6 +320,7 @@ def splat(px, py, sig, radius, r_int: int, dst_h: int, dst_w: int):
         ddy = iy.to(torch.float32) - py
         rows.append((ddy * ddy, (iy >= 0) & (iy < dst_h),
                      field0 + iy.clamp(0, dst_h - 1).to(torch.int64) * dst_w))
+    log.count("scanimate.stamp_cells", b * n * len(offs) ** 2)
     raster = torch.zeros(b * dst_h * dst_w, dtype=torch.int32, device=dev)
     for ddy2, oky, row in rows:
         for ddx2, okx, ix in cols:

@@ -528,15 +528,55 @@ def test_raw28_host_sources_equal_originals(name):
 
 
 # the sibling tools' scaffold, copied from cvsim_tpu/cli/tools.py
-TOOL_COPIES = ["_AsyncWriter", "_finalizing", "_advance_fields",
-               "_open_tool_writer", "_frame_loop_batched", "_last_frame",
-               "_scale_underscan", "_write_rgb"]
+TOOL_COPIES = ["_AsyncWriter", "_finalizing", "_open_tool_writer",
+               "_last_frame", "_scale_underscan", "_write_rgb"]
 
 
 @pytest.mark.parametrize("name", TOOL_COPIES)
 def test_tool_scaffold_sources_equal_originals(name):
     assert (inspect.getsource(getattr(tools, name))
             == inspect.getsource(getattr(jtools, name)))
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["first", "multi"])
+def test_advance_fields_yields_as_original(multi, tmp_path):
+    """The port's _advance_fields (its loop in _advance_readers, over
+    readers a caller may also hand in) yields the original's (frames,
+    field number) sequence: two inputs at their own rates and sizes,
+    one of them mono, in lockstep at the output field rate, scaled down
+    and underscanned (upscaled, the port's scaler clamps at the edges
+    where the original's extrapolates)."""
+    rng = np.random.default_rng(12)
+    paths = []
+    for k, (w, h, fps, cs, n) in enumerate([
+            (8, 480, Fraction(30000, 1001), "420jpeg", 5),
+            (10, 480, Fraction(25, 1), "mono", 3)]):
+        path = str(tmp_path / f"in{k}.y4m")
+        with open(path, "wb") as f:
+            hdr = y4m.Y4MHeader(width=w, height=h, fps=fps, colorspace=cs)
+            wr = y4m.Y4MWriter(f, hdr)
+            ch, cw = hdr.chroma_shape
+            for _ in range(n):
+                planes = [rng.integers(0, 256, (h, w), dtype=np.uint8)]
+                if ch:
+                    planes += [rng.integers(0, 256, (ch, cw), dtype=np.uint8)
+                               for _ in range(2)]
+                wr.write(*planes)
+        paths.append(path)
+    argv = ["-i", paths[0], "-i", paths[1], "-width", "8"]
+    extra = {"underscan": (int, "underscan")}
+    runs = []
+    for targs, mod in ((toolargs, tools), (jtoolargs, jtools)):
+        args = targs.ToolArgs(argv + ["-underscan", "25"], extra=extra)
+        runs.append([([None if f is None else np.array(f) for f in frames],
+                      cur) for frames, cur in mod._advance_fields(args,
+                                                                  multi)])
+    got, want = runs
+    assert len(got) == len(want) >= 8
+    for (gf, gc), (wf, wc) in zip(got, want):
+        assert gc == wc and len(gf) == len(wf)
+        for g, w in zip(gf, wf):
+            np.testing.assert_array_equal(g, w)
 
 
 TOOL_ARGVS = [
